@@ -3,9 +3,10 @@ sparsebench_tpu/cli.py).
 
 The reference flags ``-h -f -m -t -x -y -z -i -e`` plus ``--fmt``,
 ``--dtype``, ``--index-dtype``, ``--impl``, ``--device`` and ``--trace``.
-Flow (src/main.c:83-230): banner -> matrix (generated stencil straight into
-DIA, or a .mtx/.bmx file through the host CSR) -> profiler factors ->
-CG solve or SpMV bench -> report.
+Flow (src/main.c:83-230): banner -> matrix (the generated stencil straight
+into DIA or as the matrix-free ``stencil`` operator, or a .mtx/.bmx file
+through the host CSR into DIA) -> profiler factors -> CG solve (variant
+``standard``, ``cs``, ``fused`` or ``vmem``) or SpMV bench -> report.
 
 The default device is ``cuda``; without CUDA the run exits with an error
 instead of running on the CPU (``--device cpu`` runs the plain PyTorch
@@ -31,20 +32,21 @@ from sparsebench_tpu_torch.config import (
     resolve_device,
 )
 from sparsebench_tpu_torch.formats.registry import NOT_PORTED
-from sparsebench_tpu_torch.solvers.cg import CG_VARIANTS_NOT_PORTED
+from sparsebench_tpu_torch.solvers.cg import CG_LOOPS, CG_VARIANTS_NOT_PORTED
 from sparsebench_tpu_torch.version import __version__
 
 BANNER = "SparseBench — PyTorch/CUDA port of sparsebench_tpu"
 
 BENCHES = ["cg", "spmv", "gmres", "cheb", "bicgstab", "minres"]
-FORMATS = ["auto", "dia", *NOT_PORTED]
+FORMATS = ["auto", "dia", "stencil", *NOT_PORTED]
 
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sparsebench_tpu_torch",
-        description="Sparse solver benchmark (CG / SpMV over DIA) on PyTorch "
-        "and CUDA — the port of sparsebench_tpu.",
+        description="Sparse solver benchmark (CG / SpMV over DIA or the "
+        "matrix-free stencil) on PyTorch and CUDA — the port of "
+        "sparsebench_tpu.",
         allow_abbrev=False,
     )
     # reference flags (src/main.c:24-40)
@@ -64,24 +66,28 @@ def build_argparser() -> argparse.ArgumentParser:
     # runtime options (compile-time in the reference, config.mk:1-8)
     ap.add_argument("--fmt", default=None, choices=FORMATS,
                     help="Matrix format. Default auto = dia (ported: auto, "
-                    "dia).")
+                    "dia, stencil; stencil is matrix-free and takes "
+                    "generated problems only).")
     ap.add_argument("--dtype", default=None, choices=["f64", "f32", "bf16"],
                     help="Value dtype (reference FLOAT_TYPE). Default f32.")
     ap.add_argument("--index-dtype", default=None, choices=["i32", "i64"],
                     help="Index dtype of the reference byte model. Default i32.")
     ap.add_argument("--impl", default="auto",
                     choices=["auto", "torch", "kernel"],
-                    help="SpMV implementation: the CUDA kernel or its plain "
-                    "PyTorch version. Default auto: kernel on CUDA, torch on "
-                    "the CPU.")
+                    help="Kernel implementation: the CUDA kernels or their "
+                    "plain PyTorch versions. Default auto: kernel on CUDA, "
+                    "torch on the CPU.")
     ap.add_argument("--device", default="cuda",
                     help="torch device, cuda (default) or cpu. Without CUDA "
                     "the default exits with an error.")
     ap.add_argument("--trace", metavar="DIR", default=None,
                     help="Write a torch.profiler Chrome trace to DIR")
     ap.add_argument("--cg-variant", default="standard", dest="cg_variant",
-                    choices=["standard", *CG_VARIANTS_NOT_PORTED],
-                    help="CG formulation (ported: standard)")
+                    choices=[*CG_LOOPS, *CG_VARIANTS_NOT_PORTED],
+                    help="CG formulation: standard, cs (single reduction; "
+                    "SB_FUSED_CS=1 fuses it on --fmt stencil), fused and "
+                    "vmem (--fmt stencil only; vmem while r and p fit the "
+                    "L2)")
     ap.add_argument("--version", action="version", version=__version__)
     return ap
 
@@ -107,7 +113,7 @@ def _refuse_unported(args: argparse.Namespace, param: Parameter) -> None:
     """SystemExit naming the ROADMAP.md item for a choice that is not
     ported (a bench, format or CG variant, or a .par file's shards or
     generateRGL)."""
-    if args.cg_variant != "standard":
+    if args.cg_variant in CG_VARIANTS_NOT_PORTED:
         raise SystemExit(
             f"--cg-variant {args.cg_variant} is not ported to "
             "sparsebench_tpu_torch yet "
@@ -124,7 +130,7 @@ def _refuse_unported(args: argparse.Namespace, param: Parameter) -> None:
     if param.filename == "generateRGL":
         raise SystemExit("generateRGL is not ported to sparsebench_tpu_torch "
                          "yet (ROADMAP.md Queue 1 item 8)")
-    if param.fmt not in ("auto", "dia"):
+    if param.fmt not in ("auto", "dia", "stencil"):
         from sparsebench_tpu_torch.formats import get_format
 
         try:
@@ -161,6 +167,7 @@ def main(argv: Optional[list] = None) -> int:
         DiaUnsuitableError,
         resolve_impl,
     )
+    from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.profiler import Profiler, trace
     from sparsebench_tpu_torch.solvers.cg import (
         check_residual,
@@ -177,22 +184,24 @@ def main(argv: Optional[list] = None) -> int:
         raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
+    generated = param.filename in ("generate", "generate7P")
+    param.fmt = "dia" if param.fmt == "auto" else param.fmt
 
     print(BANNER)
     print(
-        f"sparsebench_tpu_torch {__version__} | format dia | "
+        f"sparsebench_tpu_torch {__version__} | format {param.fmt} | "
         f"precision {param.dtype}/{param.index_dtype} | {device_name} | "
         f"spmv {impl}"
     )
     print(print_parameter(param))  # reference printParameter
-    generated = param.filename in ("generate", "generate7P")
 
     t0 = time.perf_counter()
     csr = None
     row_counts = None
     if generated:
-        # analytic on-device stencil build straight into DIA, no CSR
-        A, row_counts = DiaMatrix.from_stencil(
+        # analytic on-device build, no CSR: DIA, or the matrix-free operator
+        build = StencilOperator if param.fmt == "stencil" else DiaMatrix
+        A, row_counts = build.from_stencil(
             param.nx, param.ny, param.nz, device=device,
             use_7pt=param.filename == "generate7P", policy=policy, impl=impl,
         )
@@ -200,18 +209,19 @@ def main(argv: Optional[list] = None) -> int:
     else:
         csr = init_matrix(param)
         try:
-            A = from_csr("dia", csr, policy, device=device, impl=impl)
+            A = from_csr(param.fmt, csr, policy, device=device, impl=impl)
         except DiaUnsuitableError as e:
             raise SystemExit(
                 f"{e}: this matrix needs the bslab format, which is not "
                 "ported to sparsebench_tpu_torch yet (ROADMAP.md Queue 1 "
                 "item 7)"
             ) from None
+        except ValueError as e:  # the matrix-free stencil takes no file
+            raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
         total_nr = csr.total_nr
         model_nnz = (
             csr.model_total_nnz if csr.model_total_nnz > 0 else csr.total_nnz
         )
-    param.fmt = "dia"
     print(f"Setup took {time.perf_counter() - t0:.2f}s (format {param.fmt})")
     xb = policy.value_bytes
     phys = physical_spmv_bytes(A, xb) - (A.nc + A.nr) * xb
@@ -235,7 +245,11 @@ def main(argv: Optional[list] = None) -> int:
                 row_lengths=row_counts,
             )
             b = torch.from_numpy(b).to(device=device, dtype=policy.value)
-            res = solve_cg(A, b, itermax=param.itermax, eps=param.eps)
+            try:
+                res = solve_cg(A, b, itermax=param.itermax, eps=param.eps,
+                               variant=args.cg_variant)
+            except ValueError as e:  # a variant the operator cannot run
+                raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
             print(prof.report_aggregate(res.iterations, res.solve_seconds))
             iterations = res.iterations
             if xexact is not None:

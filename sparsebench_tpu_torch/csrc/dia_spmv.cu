@@ -34,27 +34,21 @@
 // (f64, f64) --dtype f64. The entry points launch on the stream they are
 // given, do not synchronise, allocate nothing, and return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
+using sb::add_rn;
+using sb::kThreads;
+using sb::mul_rn;
+using sb::widen;
+
 constexpr int kMaxDiags = 64;
-constexpr int kThreads = 256;
 
 // Offsets travel by value in the kernel's parameter space: no device copy.
 struct Offsets {
   long long v[kMaxDiags];
 };
-
-__device__ __forceinline__ float widen(__nv_bfloat16 a) { return __bfloat162float(a); }
-__device__ __forceinline__ float widen(float a) { return a; }
-__device__ __forceinline__ double widen(double a) { return a; }
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename TD, typename TX>
 __global__ void __launch_bounds__(kThreads)
@@ -109,10 +103,6 @@ int sb_dia_spmv_f64_f64(const void* data, const void* x, void* y, long long n,
                         long long nr_pad, int ndiag, const long long* offsets,
                         void* stream) {
   return launch<double, double>(data, x, y, n, nr_pad, ndiag, offsets, stream);
-}
-
-const char* sb_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

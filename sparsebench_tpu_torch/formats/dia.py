@@ -53,13 +53,13 @@ def resolve_impl(impl: str, device: torch.device) -> str:
     exists only on CUDA, so asking for it on the CPU raises."""
     if impl not in VALID_IMPLS:
         raise ValueError(
-            f"unknown dia impl {impl!r}; valid: {', '.join(VALID_IMPLS)}"
+            f"unknown impl {impl!r}; valid: {', '.join(VALID_IMPLS)}"
         )
     if impl == "auto":
         return "kernel" if device.type == "cuda" else "torch"
     if impl == "kernel" and device.type != "cuda":
         raise ValueError(
-            f"dia impl 'kernel' is a CUDA kernel and the device is {device}; "
+            f"impl 'kernel' is a CUDA kernel and the device is {device}; "
             "use impl 'torch' (the plain version) on the CPU"
         )
     return impl

@@ -1,8 +1,9 @@
 """Runtime format registry (counterpart of sparsebench_tpu/formats/registry.py).
 
-Only ``dia`` is ported. Every other format name of the JAX package raises
-and names the ROADMAP.md item that ports it, so a request for an unported
-format never falls through to another one.
+``dia`` and the matrix-free ``stencil`` are ported. Every other format
+name of the JAX package raises and names the ROADMAP.md item that ports
+it, so a request for an unported format never falls through to another
+one.
 """
 
 from __future__ import annotations
@@ -12,7 +13,6 @@ from typing import Dict, Type
 FORMATS: Dict[str, type] = {}
 
 NOT_PORTED = {
-    "stencil": "Queue 1 item 6",
     "bslab": "Queue 1 item 7",
     "sell": "Queue 1 item 7",
     "crs": "Queue 1 item 7",

@@ -1,15 +1,20 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
-plain C interface. The library is named after a hash of the sources and the
-flags and lives under ``build/sparsebench_tpu_torch/`` at the repository
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
+plain C interface, ``lib<name>_<hash>.so``; all the compilers that a build
+needs are started together and then waited for. The hash covers the
+flags, the source and the shared headers (``csrc/*.cuh``), and the
+libraries live under ``build/sparsebench_tpu_torch/`` at the repository
 root, so a changed source rebuilds and an unchanged one loads at once. The
-build runs at the first kernel launch; the compiler's output (``-Xptxas -v``
-register and spill counts) is kept beside the library as ``<name>.log``.
+build runs at the first kernel launch (or up front, ``build()``); the
+compiler's output (``-Xptxas -v`` register and spill counts) is kept beside
+each library as ``<name>.log``.
 
 No PyTorch headers are compiled: the wrappers pass tensor pointers and the
-CUDA stream as integers (``ops/dia_spmv.py``).
+CUDA stream as integers (``ops/dia_spmv.py``). Every library exports
+``sb_cuda_error_string`` (``csrc/common.cuh``), which ``check`` uses to name
+a launch error.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -58,39 +64,70 @@ def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
+    """Where the library of ``src`` is built: named after its stem and a
+    hash of the flags, the shared headers and the source."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libsbtorch_{h.hexdigest()[:16]}.so"
+    for f in [*sorted(CSRC_DIR.glob("*.cuh")), src]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless a build of these exact sources exists;
-    return its path. Raises when nvcc is missing or fails."""
-    out = library_path()
-    if out.exists():
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the libraries of ``names`` (source stems; default all) that
+    are not built yet, one nvcc each, all at once; return {name: path}.
+    Raises when nvcc is missing or any compile fails."""
+    srcs = {s.stem: s for s in sources()}
+    if names is not None:
+        srcs = {n: srcs[n] for n in names}
+    out = {n: library_path(s) for n, s in srcs.items()}
+    todo = [n for n, p in out.items() if not p.exists()]
+    if not todo:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    procs = {}
+    for n in todo:
+        tmp = out[n].parent / f"{out[n].name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
+        procs[n] = (tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for n, (tmp, cmd, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            stderr += f"\nnvcc killed after {NVCC_TIMEOUT_S} s"
+        out[n].with_suffix(".log").write_text(
+            " ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{srcs[n].name} (exit {proc.returncode}):\n{stderr}")
+        else:
+            os.replace(tmp, out[n])  # atomic: a loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    return ctypes.CDLL(str(build()))
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel library built from ``csrc/<name>.cu``, built on first
+    use."""
+    lib = ctypes.CDLL(str(build([name])[name]))
+    lib.sb_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sb_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronise would not report it)."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: kernel launch failed: CUDA error {err} "
+            f"({lib.sb_cuda_error_string(err).decode()})"
+        )

@@ -55,14 +55,12 @@ def dia_spmv_torch(data: torch.Tensor, x: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library()
+    lib = _build.load_library("dia_spmv")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i64, i64, i32, ctypes.POINTER(i64), p]
         fn.restype = i32
-    lib.sb_cuda_error_string.argtypes = [i32]
-    lib.sb_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -110,11 +108,7 @@ def dia_spmv(data: torch.Tensor, x: torch.Tensor,
             ndiag, _offsets_arg(offsets),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"dia_spmv: kernel launch failed: CUDA error {err} "
-            f"({lib.sb_cuda_error_string(err).decode()})"
-        )
+    _build.check(lib, err, "dia_spmv")
     dia_spmv.launches += 1
     return y
 

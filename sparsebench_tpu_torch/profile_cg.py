@@ -1,19 +1,25 @@
 """Where the time of one CG solve goes, on a CUDA card.
 
     python -m sparsebench_tpu_torch.profile_cg [-n 100 200] [-i 150]
+        [--fmt dia|stencil] [--variant standard|cs|fused|vmem]
 
-For each grid size n (n^3 stencil, f32 vectors, bf16 diagonals, the DIA
-kernel) it prints:
+For each grid size n (n^3 generated stencil, f32 vectors; DIA with bf16
+diagonals and the K1 kernel, or the matrix-free stencil operator with
+K2-K5) it prints:
 
-* the wall of one ``cg_loop``: host clock ending in a synchronise, best of
-  3, without the profiler;
-* under ``torch.profiler``: the device-busy time and its share of that wall,
-  the SpMV kernel's share of device time, device kernels per iteration and
-  the heaviest kernels;
+* the wall of one solve loop (``CG_LOOPS[variant]``): host clock
+  ending in a synchronise, best of 3, without the profiler;
+* under ``torch.profiler``: the device-busy time and its share of that
+  wall, the port's own kernels' share of device time and each of their
+  device times and launch counts by name, device kernels per iteration
+  and the heaviest kernels;
 * the wall of one CUDA-graph replay of the same loop, which drops the host's
-  launch overhead, and whether its history equals the eager one.
+  launch overhead, and whether its history equals the eager one (not for
+  ``vmem``, which is one cooperative launch).
 
-Every time line carries the card's name and power limit from nvidia-smi.
+``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
+does for the CLI. Every time line carries the card's name and power limit
+from nvidia-smi.
 """
 
 from __future__ import annotations
@@ -30,7 +36,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
-from sparsebench_tpu_torch.solvers.cg import cg_loop, init_vectors
+from sparsebench_tpu_torch.formats.stencil import StencilOperator
+from sparsebench_tpu_torch.solvers.cg import CG_LOOPS, init_vectors
+
+# the port's kernels, by the names their device events carry
+KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
+           "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
+           "stencil_cg_vmem_kernel")
 
 
 def _best_wall(fn, reps: int = 3) -> float:
@@ -43,18 +55,22 @@ def _best_wall(fn, reps: int = 3) -> float:
     return min(walls)
 
 
-def profile_size(n: int, itermax: int, gpu: str) -> None:
+def profile_size(n: int, itermax: int, fmt: str, variant: str,
+                 gpu: str) -> None:
     dev = torch.device("cuda")
-    A, counts = DiaMatrix.from_stencil(
+    build = StencilOperator if fmt == "stencil" else DiaMatrix
+    A, counts = build.from_stencil(
         n, n, n, device=dev, policy=DTypePolicy.from_names("f32"),
         impl="kernel")
     _x, b, _xe = init_vectors(dtype=np.float32, row_lengths=counts)
     b = torch.from_numpy(b).to(dev)
     x0 = torch.zeros_like(b)
     eps = torch.tensor(0.0, device=dev)
+    loop = CG_LOOPS[variant]
+    tag = f"{n}^3 {fmt}/{variant} x{itermax}"
 
     def run():
-        return cg_loop(A, b, x0, itermax, eps)
+        return loop(A, b, x0, itermax, eps)
 
     run()
     torch.cuda.synchronize()
@@ -66,11 +82,19 @@ def profile_size(n: int, itermax: int, gpu: str) -> None:
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time for e in evs) * 1e-6
-    spmv = sum(e.device_time for e in evs if "dia_spmv" in e.name) * 1e-6
-    print(f"{n}^3 x{itermax}: wall {wall:.6f} s; device busy {busy:.6f} s "
-          f"({busy / wall * 100:.1f} % of wall); SpMV {spmv:.6f} s "
-          f"({spmv / busy * 100:.1f} % of device); "
+    ours = {}
+    for e in evs:
+        for name in KERNELS:
+            if name in e.name:
+                t, c = ours.get(name, (0.0, 0))
+                ours[name] = (t + e.device_time * 1e-6, c + 1)
+    own = sum(t for t, _c in ours.values())
+    print(f"{tag}: wall {wall:.6f} s; device busy {busy:.6f} s "
+          f"({busy / wall * 100:.1f} % of wall); port kernels {own:.6f} s "
+          f"({own / busy * 100:.1f} % of device); "
           f"{len(evs) / itermax:.1f} device kernels per iteration | {gpu}")
+    for name, (t, c) in sorted(ours.items()):
+        print(f"    kernel {name}: {t:.6f} s device, {c} launches")
     by_name: dict = {}
     for e in evs:
         t, c = by_name.get(e.name[:90], (0.0, 0))
@@ -78,6 +102,8 @@ def profile_size(n: int, itermax: int, gpu: str) -> None:
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    {t * 1e-3:10.3f} ms {c:6d}x  {name}")
 
+    if variant == "vmem":
+        return
     # one CUDA graph of the whole masked loop (warm-up on a side stream)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -91,7 +117,7 @@ def profile_size(n: int, itermax: int, gpu: str) -> None:
     torch.cuda.synchronize()
     same = torch.equal(torch.nan_to_num(hist_g, nan=-1.0),
                        torch.nan_to_num(hist, nan=-1.0))
-    print(f"{n}^3 x{itermax}: CUDA-graph replay {_best_wall(graph.replay):.6f}"
+    print(f"{tag}: CUDA-graph replay {_best_wall(graph.replay):.6f}"
           f" s, history equal to eager: {same} | {gpu}")
 
 
@@ -101,6 +127,11 @@ def main(argv=None) -> int:
                     help="grid sizes (n^3); default 100 200")
     ap.add_argument("-i", type=int, default=150, dest="itermax",
                     help="CG iterations; default 150")
+    ap.add_argument("--fmt", default="dia", choices=["dia", "stencil"],
+                    help="operator; default dia")
+    ap.add_argument("--variant", default="standard",
+                    choices=list(CG_LOOPS),
+                    help="CG variant; default standard")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cg needs a CUDA card")
@@ -111,7 +142,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} | {gpu}")
     for n in args.n:
-        profile_size(n, args.itermax, gpu)
+        profile_size(n, args.itermax, args.fmt, args.variant, gpu)
     return 0
 
 

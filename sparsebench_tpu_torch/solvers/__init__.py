@@ -1,1 +1,2 @@
-"""Solvers: standard CG (``cg``) and the SpMV bench (``profiled``)."""
+"""Solvers: CG and its variants ``cs``, ``fused`` and ``vmem`` (``cg``) and
+the SpMV bench (``profiled``)."""

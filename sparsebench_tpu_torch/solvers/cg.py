@@ -30,13 +30,17 @@ updates (alpha = 0, history written and k advanced only while active). So
 each iteration; the price is that a solve ending early (eps > 0 or
 breakdown) still runs the remaining bodies, masked.
 
-Only the standard variant of the JAX package is ported; the other
-variants and preconditioning raise.
+The variants ``cs`` (single-reduction CG, ``cg_cs_loop``), ``fused``
+(p-update, apply and p.Ap in one kernel, ``cg_fused_loop``) and ``vmem``
+(the whole solve in one kernel, ``cg_vmem_loop``) are ported with the same
+masked fixed-trip design; ``resolve_cg_loop`` maps a name to its loop.
+``sstep``, ``pipe`` and preconditioning raise and name their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -45,11 +49,13 @@ import torch
 
 from sparsebench_tpu_torch.config import synchronize
 from sparsebench_tpu_torch.ops.blas1 import ddot
+from sparsebench_tpu_torch.ops.cg_fused import cs_update
+from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+    stencil_cg_vmem,
+    stencil_cg_vmem_torch,
+)
 
 CG_VARIANTS_NOT_PORTED = {
-    "cs": "Queue 1 item 6",
-    "fused": "Queue 1 item 6",
-    "vmem": "Queue 1 item 6",
     "sstep": "Queue 1 item 9",
     "pipe": "Queue 1 item 9",
 }
@@ -91,6 +97,11 @@ class CGResult:
     solve_seconds: float
 
 
+def _eps_tensor(eps, sdt, device):
+    return eps if torch.is_tensor(eps) else torch.tensor(eps, dtype=sdt,
+                                                         device=device)
+
+
 def cg_init(A, b: torch.Tensor, x0: torch.Tensor, itermax: int,
             acc_dtype: Optional[torch.dtype] = None):
     """Initial CG state (reference src/CGSolver.c:94-104): the tuple
@@ -114,8 +125,7 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None):
     k, x, p, r, rtrans, normr, hist, done = state
     vdt = r.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
-    if not torch.is_tensor(eps):
-        eps = torch.tensor(eps, dtype=sdt, device=r.device)
+    eps = _eps_tensor(eps, sdt, r.device)
     steps = torch.arange(hist.numel(), device=r.device)
     for _ in range(k_end - 1):
         active = (k < k_end) & (normr > eps) & ~done
@@ -154,6 +164,188 @@ def cg_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     return x, k, hist
 
 
+def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
+               acc_dtype: Optional[torch.dtype] = None):
+    """Single-reduction CG (Chronopoulos & Gear 1989; JAX ``cg_cs_loop``,
+    unpreconditioned). The same Krylov iterates as standard CG, with the
+    two dots of an iteration taken together after one apply:
+
+        gamma = r.r, delta = w.r   (w = A r)
+        beta  = gamma/gamma_old;  alpha = gamma / (delta - beta*gamma/alpha_old)
+        p = r + beta p;  s = w + beta s  (s carries A p)
+        x += alpha p;  r -= alpha s;  w = A r
+
+    With ``SB_FUSED_CS`` set in the environment, an operator with
+    ``supports_fused_cs`` (the stencil) and f32 accumulation, the apply
+    returns the dots itself (K2's dots form) and the four updates are one
+    kernel (K4, ``ops/cg_fused.cs_update``): the JAX package's switch, read
+    the same way and kept only for parity with it (the fused body ran
+    faster on the H100; ROADMAP.md Queue 1 item 6 has its removal). Masked
+    like ``cg_run``: ``itermax - 1`` bodies; once
+    inactive, alpha is 0 (x and r keep their bits, so w and the dots
+    recompute to theirs) and the other state is held with ``where``."""
+    vdt = b.dtype
+    sdt = default_acc_dtype(vdt, acc_dtype)
+    device = b.device
+    fused = (bool(os.environ.get("SB_FUSED_CS"))
+             and getattr(A, "supports_fused_cs", False)
+             and sdt == torch.float32)
+
+    def spmv_dots(u):
+        # (w = A u, [gamma = u.u, delta = w.u])
+        if fused:
+            return A.spmv_permuted_dots(u)
+        w = A.spmv(u)
+        return w, torch.stack([ddot(u, u, acc_dtype=sdt),
+                               ddot(w, u, acc_dtype=sdt)])
+
+    eps = _eps_tensor(eps, sdt, device)
+    r = b - A.spmv(x0)
+    w, gd = spmv_dots(r)
+    gamma = gd[0]
+    alpha = safe_div(gamma, gd[1])
+    normr = torch.sqrt(gamma)
+    hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
+    hist[0] = normr
+    x = x0
+    p = torch.zeros_like(b)
+    s = torch.zeros_like(b)
+    beta = torch.zeros((), dtype=sdt, device=device)
+    k = torch.ones((), dtype=torch.int64, device=device)
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    steps = torch.arange(itermax, device=device)
+    for _ in range(itermax - 1):
+        active = (k < itermax) & (normr > eps) & ~done
+        normr_new = torch.sqrt(gamma)
+        hist = torch.where(active & (steps == k), normr_new, hist)
+        a = torch.where(active, alpha, 0)
+        if fused:
+            p_new, s_new, x, r = cs_update(r, p, w, s, x, r, a, beta)
+        else:
+            b_v = beta.to(vdt)
+            p_new = r + b_v * p
+            s_new = w + b_v * s
+            a_v = a.to(vdt)
+            x = x + a_v * p_new
+            r = r - a_v * s_new
+        w, gd = spmv_dots(r)
+        g_new, d_new = gd[0], gd[1]
+        beta_new = safe_div(g_new, gamma)
+        denom = d_new - beta_new * safe_div(g_new, alpha)
+        # denom is p.Ap in disguise: the same positivity guard as cg_run
+        breakdown = denom <= g_new * 1e-30
+        alpha_new = torch.where(breakdown, 0, safe_div(g_new, denom))
+
+        p = torch.where(active, p_new, p)
+        s = torch.where(active, s_new, s)
+        gamma = torch.where(active, g_new, gamma)
+        alpha = torch.where(active, alpha_new, alpha)
+        beta = torch.where(active, beta_new, beta)
+        normr = torch.where(active, normr_new, normr)
+        done = done | (active & breakdown)
+        k = k + active.to(k.dtype)
+    return x, k, hist
+
+
+def cg_fused_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
+                  acc_dtype: Optional[torch.dtype] = None):
+    """Standard-CG iterates with the front half of each iteration in one
+    kernel (JAX ``cg_fused_loop``): ``A.axpy_spmv_dots(r, p, beta)`` gives
+    p = r + beta p, w = A p and delta = p.w in one pass (K3). The back half
+    (x += alpha p, r -= alpha w, r.r) is plain torch. Masked like
+    ``cg_run``."""
+    if not getattr(A, "supports_fused_pw", False):
+        raise ValueError(
+            "variant 'fused' needs a format with axpy_spmv_dots (the "
+            "stencil operator); use --fmt stencil or another cg variant"
+        )
+    vdt = b.dtype
+    sdt = default_acc_dtype(vdt, acc_dtype)
+    device = b.device
+    eps = _eps_tensor(eps, sdt, device)
+    r = b - A.spmv(x0)
+    rtrans = ddot(r, r, acc_dtype=sdt)
+    rtrans_prev = rtrans
+    normr = torch.sqrt(rtrans)
+    hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
+    hist[0] = normr
+    x = x0
+    p = torch.zeros_like(b)
+    k = torch.ones((), dtype=torch.int64, device=device)
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    steps = torch.arange(itermax, device=device)
+    for _ in range(itermax - 1):
+        active = (k < itermax) & (normr > eps) & ~done
+        normr_new = torch.sqrt(rtrans)
+        hist = torch.where(active & (steps == k), normr_new, hist)
+        beta = torch.where(k == 1, 0, safe_div(rtrans, rtrans_prev))
+        p_new, w, dpart = A.axpy_spmv_dots(r, p, beta)
+        pAp = dpart.to(sdt)
+        breakdown = pAp <= rtrans * 1e-30
+        alpha = torch.where(breakdown | ~active, 0,
+                            safe_div(rtrans, pAp)).to(vdt)
+        x = x + alpha * p_new
+        r = r - alpha * w
+        new_rtrans = ddot(r, r, acc_dtype=sdt)
+
+        p = torch.where(active, p_new, p)
+        rtrans_prev = torch.where(active, rtrans, rtrans_prev)
+        rtrans = torch.where(active, new_rtrans, rtrans)
+        normr = torch.where(active, normr_new, normr)
+        done = done | (active & breakdown)
+        k = k + active.to(k.dtype)
+    return x, k, hist
+
+
+def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
+                 acc_dtype: Optional[torch.dtype] = None):
+    """The whole solve in one launch (JAX ``cg_vmem_loop``, K5): the same
+    recurrence, history and breakdown as ``cg_fused_loop``, iterates equal
+    to reduction-order rounding. r0 = b - A x0 goes through the operator's
+    apply (K2). bf16 vectors run in f32: the kernel computes in its
+    vectors' dtype, and a bf16 recurrence would diverge from every other
+    variant's f32 accumulation. Raises unless ``A.supports_vmem_cg``; the
+    kernel's wrapper alone decides whether r and p fit its L2 plan, at the
+    vectors' real width, and raises before launching if not."""
+    if not getattr(A, "supports_vmem_cg", False):
+        raise ValueError(
+            "variant 'vmem' needs the stencil operator (the whole solve in "
+            "one launch, ops/stencil_cg_vmem); use --fmt stencil or another "
+            "cg variant"
+        )
+    vdt = b.dtype
+    if vdt == torch.bfloat16:
+        b = b.to(torch.float32)
+        x0 = x0.to(torch.float32)
+    r0 = b - A.spmv(x0)
+    fn = stencil_cg_vmem if A.impl == "kernel" else stencil_cg_vmem_torch
+    x, hist = fn(r0, x0, eps, A.nx, A.ny, A.nz, itermax, A.use_7pt)
+    k = torch.sum(~torch.isnan(hist))
+    return x.to(vdt), k, hist.to(default_acc_dtype(vdt, acc_dtype))
+
+
+# the ported CG variants: the one place their names live
+CG_LOOPS = {"standard": cg_loop, "cs": cg_cs_loop, "fused": cg_fused_loop,
+            "vmem": cg_vmem_loop}
+
+
+def resolve_cg_loop(variant: str):
+    """The loop function of a CG variant name. An unported variant raises
+    NotImplementedError and names its ROADMAP item; an unknown one raises
+    ValueError (never a silent fall back to standard CG)."""
+    if variant in CG_LOOPS:
+        return CG_LOOPS[variant]
+    if variant in CG_VARIANTS_NOT_PORTED:
+        raise NotImplementedError(
+            f"cg variant {variant!r} is not ported yet "
+            f"(ROADMAP.md {CG_VARIANTS_NOT_PORTED[variant]})"
+        )
+    raise ValueError(
+        "variant must be 'standard', 'cs', 'sstep', 'pipe', 'fused' or "
+        f"'vmem', got {variant!r}"
+    )
+
+
 def solve_cg(
     A,
     b,
@@ -167,19 +359,14 @@ def solve_cg(
     variant: str = "standard",
     verbose: bool = True,
 ) -> CGResult:
-    """Host-side solve: a warm-up solve, then the timed solve (closed by
-    ``torch.cuda.synchronize`` on CUDA), then the residual print.
+    """Host-side solve of ``variant`` (``resolve_cg_loop``): a warm-up
+    solve, then the timed solve (closed by ``torch.cuda.synchronize`` on
+    CUDA), then the residual print.
 
     ``b`` (and ``x0``) are tensors or numpy arrays; they move to the
     matrix's device and keep their dtype, which is the vectors' dtype.
     """
-    if variant != "standard":
-        where = CG_VARIANTS_NOT_PORTED.get(variant)
-        if where is None:
-            raise ValueError(f"unknown cg variant {variant!r}")
-        raise NotImplementedError(
-            f"cg variant {variant!r} is not ported yet (ROADMAP.md {where})"
-        )
+    loop = resolve_cg_loop(variant)
     if inv_diag is not None or precond is not None:
         raise NotImplementedError(
             "preconditioned CG is not ported yet (ROADMAP.md Queue 1 item 9)"
@@ -194,11 +381,11 @@ def solve_cg(
 
     # warm-up: first-use costs (kernel build and load, allocator growth)
     # stay outside the timed solve
-    _x, k_dev, _hist = cg_loop(A, b, x0, itermax, eps_t, acc_dtype)
+    _x, k_dev, _hist = loop(A, b, x0, itermax, eps_t, acc_dtype)
     int(k_dev)
 
     t0 = time.perf_counter()
-    x_dev, k_dev, hist_dev = cg_loop(A, b, x0, itermax, eps_t, acc_dtype)
+    x_dev, k_dev, hist_dev = loop(A, b, x0, itermax, eps_t, acc_dtype)
     synchronize(device)
     t1 = time.perf_counter()
     k = int(k_dev)

@@ -24,7 +24,8 @@ def bench_spmv(
     verbose: bool = True,
     fused_reps: int = 0,
 ) -> float:
-    """x = 1 and ``itermax - 1`` timed SpMVs, each closed by a device
+    """x = 1 and ``itermax - 1`` timed SpMVs (``A.spmv``: the DIA kernel K1,
+    or K2's apply for ``--fmt stencil``), each closed by a device
     synchronise, into the SPMVM region. x has ``dtype``, the policy's value
     dtype that CG's vectors have, so this times the SpMV that CG runs. (The
     JAX package gives x the stored dtype, bf16 under the f32 policy, where
@@ -53,7 +54,7 @@ def bench_spmv(
     if fused_reps > 0:
         def chained(v):
             for _ in range(fused_reps):
-                v = A.spmv(v)  # DIA is square: y has x's length
+                v = A.spmv(v)  # square operators: y has x's length
             return v
 
         chained(x)

@@ -199,7 +199,7 @@ def test_solver_scalars():
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"variant": "cs"}, "Queue 1 item 6"),
+    ({"variant": "sstep"}, "Queue 1 item 9"),
     ({"variant": "pipe"}, "Queue 1 item 9"),
     ({"inv_diag": np.ones(64)}, "Queue 1 item 9"),
 ])

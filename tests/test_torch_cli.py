@@ -150,11 +150,11 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--fmt", "stencil"], "item 6"),
+    (["--fmt", "sell"], "item 7"),
     (["--fmt", "bslab"], "item 7"),
     (["--fmt", "bsell"], "item 10"),
     (["-t", "gmres"], "item 9"),
-    (["--cg-variant", "vmem"], "item 6"),
+    (["--cg-variant", "sstep"], "item 9"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, where):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {where}"):

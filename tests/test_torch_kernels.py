@@ -1,5 +1,6 @@
-"""The DIA SpMV kernel of sparsebench_tpu_torch: its wrapper, its build and,
-on a CUDA card, the kernel itself — without the JAX package.
+"""The kernels of sparsebench_tpu_torch (the DIA SpMV K1; the stencil's
+K2-K5): their wrappers, their build and, on a CUDA card, the kernels
+themselves — without the JAX package.
 
 Here on the CPU the dispatch, the refusals and the build lookup run; the
 tests marked ``cuda`` skip without a card. On a machine with an NVIDIA
@@ -10,10 +11,16 @@ whole file with
 
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests).
 
-The kernel rounds each product and sum in the plain version's order, so
-the stated bound ndiag * eps * (|A||x|)_i — any summation order, with or
-without FMA contraction — is expected to hold with equality at 0.
+The DIA kernel rounds each product and sum in the plain version's order,
+so the stated bound ndiag * eps * (|A||x|)_i — any summation order, with or
+without FMA contraction — is expected to hold with equality at 0. The
+stencil kernels do the same, and their elementwise outputs are held to be
+bit-identical to the plain versions; their dots, summed per block, are
+held against their exact value to the bound of that summation,
+(2 ceil(log2 n) + 64) eps sum|terms|.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -24,7 +31,23 @@ from sparsebench_tpu_torch.config import DTypePolicy, resolve_device
 from sparsebench_tpu_torch.formats import get_format
 from sparsebench_tpu_torch.formats.dia import DiaMatrix, resolve_impl
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.formats.stencil import StencilOperator
+from sparsebench_tpu_torch.host import generate_stencil
+from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
+from sparsebench_tpu_torch.ops.stencil import (
+    stencil_apply,
+    stencil_apply_dots,
+    stencil_apply_dots_torch,
+    stencil_apply_torch,
+    stencil_axpy_apply_dots,
+    stencil_axpy_apply_dots_torch,
+)
+from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+    stencil_cg_vmem,
+    stencil_cg_vmem_torch,
+    vmem_cg_viable,
+)
 from sparsebench_tpu_torch.solvers import cg
 
 CPU = torch.device("cpu")
@@ -83,8 +106,8 @@ def test_registry_names_roadmap_item():
     assert get_format("dia") is DiaMatrix
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         get_format("bslab")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        get_format("stencil")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+        get_format("bsell")
     with pytest.raises(ValueError, match="unknown"):
         get_format("nope")
 
@@ -101,19 +124,122 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
+    """A library is named after its source and rebuilt when the source or
+    a shared header changes; another source's library keeps its name."""
     src = tmp_path / "k.cu"
-    src.write_text("// one\n")
+    other = tmp_path / "m.cu"
+    header = tmp_path / "common.cuh"
+    for f in (src, other, header):
+        f.write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-    first = _build.library_path()
-    assert first == _build.library_path()
+    first = _build.library_path(src)
+    assert first == _build.library_path(src)
+    assert first.name.startswith("libk_")
+    other_name = _build.library_path(other)
     src.write_text("// two\n")
-    assert _build.library_path() != first
-    assert _build.library_path().parent == _build.BUILD_DIR
+    assert _build.library_path(src) != first
+    assert _build.library_path(other) == other_name
+    header.write_text("// two\n")
+    assert _build.library_path(other) != other_name
+    assert _build.library_path(src).parent == _build.BUILD_DIR
 
 
 def test_kernel_sources_are_found():
-    assert [p.name for p in _build.sources()] == ["dia_spmv.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "cg_fused.cu", "dia_spmv.cu", "stencil.cu", "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+STENCIL_CASES = [((10, 9, 7), False), ((8, 8, 8), True), ((1, 1, 1), False),
+                 ((130, 2, 3), False), ((128, 5, 4), True), ((1, 5, 6), False)]
+
+
+def stencil_launches():
+    return (stencil_apply.launches, stencil_apply_dots.launches,
+            stencil_axpy_apply_dots.launches, cs_update.launches,
+            stencil_cg_vmem.launches)
+
+
+@pytest.mark.parametrize("case", STENCIL_CASES)
+def test_stencil_plain_apply_matches_the_generated_matrix(case):
+    """The plain apply against the generator's own matrix (host.py),
+    27 and 7 points, thin and single-point grids; f64 to 1e-13 of
+    (|A||x|)_i."""
+    (nx, ny, nz), use_7pt = case
+    csr = generate_stencil(nx, ny, nz, use_7pt=use_7pt)
+    dense = np.zeros((csr.nr, csr.nc))
+    rows = np.repeat(np.arange(csr.nr), csr.row_lengths)
+    dense[rows, csr.col] = csr.val
+    x = np.random.default_rng(6).standard_normal(csr.nr)
+    got = stencil_apply_torch(torch.from_numpy(x), nx, ny, nz, use_7pt)
+    bound = np.abs(dense) @ np.abs(x)
+    assert (np.abs(got.numpy() - dense @ x) <= 1e-13 * bound).all()
+    A, counts = StencilOperator.from_stencil(nx, ny, nz, use_7pt=use_7pt,
+                                             device=CPU)
+    np.testing.assert_array_equal(counts, csr.row_lengths)
+    assert A.nnz == csr.nnz
+
+
+def test_stencil_wrappers_on_cpu_are_the_plain_versions():
+    """CPU tensors go to the plain versions and launch nothing."""
+    rng = np.random.default_rng(1)
+    dims = (7, 6, 5)
+    n = 210
+    r, p, u, w, s, x = (torch.from_numpy(rng.standard_normal(n))
+                        for _ in range(6))
+    before = stencil_launches()
+    assert torch.equal(stencil_apply(r, *dims), stencil_apply_torch(r, *dims))
+    for a, b in zip(stencil_apply_dots(r, *dims, True),
+                    stencil_apply_dots_torch(r, *dims, True)):
+        assert torch.equal(a, b)
+    for a, b in zip(stencil_axpy_apply_dots(r, p, 0.5, *dims),
+                    stencil_axpy_apply_dots_torch(r, p, 0.5, *dims)):
+        assert torch.equal(a, b)
+    for a, b in zip(cs_update(u, p, w, s, x, r, 0.3, 0.7),
+                    cs_update_torch(u, p, w, s, x, r, 0.3, 0.7)):
+        assert torch.equal(a, b)
+    for a, b in zip(stencil_cg_vmem(r, x, 0.0, *dims, 12),
+                    stencil_cg_vmem_torch(r, x, 0.0, *dims, 12)):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert stencil_launches() == before
+
+
+def test_stencil_wrappers_refuse_non_cpu_non_cuda_tensors():
+    x = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_apply(x, 2, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_axpy_apply_dots(x, torch.zeros(8), 1.0, 2, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cs_update(*(torch.zeros(8, device="meta"),) * 6, 1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_cg_vmem(x, x, 0.0, 2, 2, 2, 5)
+
+
+def test_stencil_operator_guards():
+    with pytest.raises(ValueError, match="matrix-free"):
+        StencilOperator.from_csr(None)
+    with pytest.raises(ValueError, match="serial-only"):
+        StencilOperator.from_stencil(4, 4, 4, rank=1, size=2, device=CPU)
+    with pytest.raises(ValueError, match="kernel"):
+        StencilOperator.from_stencil(4, 4, 4, device=CPU, impl="kernel")
+    A, _ = StencilOperator.from_stencil(4, 4, 4, device=CPU)
+    assert A.impl == "torch" and A.device == CPU
+    assert get_format("stencil") is StencilOperator
+    from sparsebench_tpu_torch.formats.base import physical_spmv_bytes
+
+    assert physical_spmv_bytes(A, 4) == (A.nr + A.nc) * 4
+
+
+def test_vmem_viability_plan():
+    """r and p within 40 MB of the 50 MB L2: 100^3 in f32 and f64 fit,
+    200^3 in f32 does not, and asking for it raises."""
+    assert vmem_cg_viable(100, 100, 100, 4)
+    assert vmem_cg_viable(100, 100, 100, 8)
+    assert not vmem_cg_viable(200, 200, 200, 4)
+    with pytest.raises(ValueError, match="not viable at 200x200x200"):
+        stencil_cg_vmem_torch(torch.zeros(8), torch.zeros(8), 0.0,
+                              200, 200, 200, 5)
 
 
 # -- on the card -------------------------------------------------------------
@@ -205,3 +331,180 @@ def test_cli_default_device_runs_the_kernel(cuda_device, capsys):
     assert dia_spmv.launches - before == 2 * 30
     assert torch.cuda.get_device_name(cuda_device) in out
     assert "spmv kernel" in out and "Difference between" in out
+
+
+def assert_bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.view(torch.uint8) if a.dtype != torch.bfloat16
+                       else a.view(torch.int16),
+                       b.view(torch.uint8) if b.dtype != torch.bfloat16
+                       else b.view(torch.int16))
+
+
+def assert_dot_near_exact(got, terms, eps):
+    """A kernel's dot against the exact sum of its f64 ``terms`` (the
+    products it rounds at precision ``eps``), to the forward error bound of
+    its summation: a 256-wide block tree, then torch.sum over the blocks,
+    (2 ceil(log2 n) + 64) eps sum|terms| (chip_smoke.py's SUM_SERIAL)."""
+    n = terms.numel()
+    exact = math.fsum(terms.cpu().numpy())
+    tol = (2 * math.ceil(math.log2(max(n, 2))) + 64) * eps * float(
+        terms.abs().sum())
+    assert abs(float(got) - exact) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
+@pytest.mark.parametrize("case", STENCIL_CASES)
+def test_stencil_apply_kernel_equals_plain(case, dt, cuda_device):
+    """K2 and its dots form against the plain versions on the card."""
+    dims, use_7pt = case
+    n = dims[0] * dims[1] * dims[2]
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n)).to(
+        device=cuda_device, dtype=DT[dt])
+    before = stencil_apply.launches
+    y = stencil_apply(x, *dims, use_7pt)
+    assert stencil_apply.launches == before + 1
+    assert_bits_equal(y, stencil_apply_torch(x, *dims, use_7pt))
+    yd, gd = stencil_apply_dots(x, *dims, use_7pt)
+    y_ref, gd_ref = stencil_apply_dots_torch(x, *dims, use_7pt)
+    assert_bits_equal(yd, y_ref)
+    assert gd.dtype == torch.float32 and gd_ref.dtype == torch.float32
+    xf = x.float().double()
+    yf = stencil_apply_torch(x.to(torch.float64 if dt == "f64"
+                                  else torch.float32), *dims,
+                             use_7pt).float().double()
+    eps = torch.finfo(torch.float32).eps
+    assert_dot_near_exact(gd[0], xf * xf, eps)
+    assert_dot_near_exact(gd[1], yf * xf, eps)
+
+
+@pytest.mark.parametrize("dot", [0, 1])
+def test_dots_bound_holds_and_catches_a_wrong_reduction(dot):
+    """The dots bound at 100^3 in f32: the plain version's dots lie inside
+    it, and a reduction that drops one 256-point block, or sums one twice,
+    lies outside it."""
+    dims = (100, 100, 100)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(10**6)).to(
+        torch.float32)
+    y, gd = stencil_apply_dots_torch(x, *dims)
+    xd, yd = x.double(), y.double()
+    terms = (xd * xd, yd * xd)[dot]
+    eps = torch.finfo(torch.float32).eps
+    assert_dot_near_exact(gd[dot], terms, eps)
+    block = float(terms[256 * 1000:256 * 1001].sum())
+    for wrong in (float(gd[dot]) - block, float(gd[dot]) + block):
+        with pytest.raises(AssertionError):
+            assert_dot_near_exact(wrong, terms, eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
+@pytest.mark.parametrize("case", STENCIL_CASES[:4])
+def test_stencil_axpy_apply_dots_kernel_equals_plain(case, dt, cuda_device):
+    """K3: p' and w bit for bit, delta to its summation bound around the
+    exact sum of w p' at the compute width."""
+    dims, use_7pt = case
+    n = dims[0] * dims[1] * dims[2]
+    rng = np.random.default_rng(n + 1)
+    r, p = (torch.from_numpy(rng.standard_normal(n)).to(
+        device=cuda_device, dtype=DT[dt]) for _ in range(2))
+    beta = torch.tensor(0.61, device=cuda_device)
+    before = stencil_axpy_apply_dots.launches
+    pn, w, d = stencil_axpy_apply_dots(r, p, beta, *dims, use_7pt)
+    assert stencil_axpy_apply_dots.launches == before + 1
+    pn_ref, w_ref, d_ref = stencil_axpy_apply_dots_torch(r, p, beta, *dims,
+                                                         use_7pt)
+    assert_bits_equal(pn, pn_ref)
+    assert_bits_equal(w, w_ref)
+    assert d.dtype == d_ref.dtype
+    cdt = d.dtype
+    pn_c, w_c, _ = stencil_axpy_apply_dots_torch(r.to(cdt), p.to(cdt), beta,
+                                                 *dims, use_7pt)
+    assert_dot_near_exact(d, (w_c * pn_c).double(), torch.finfo(cdt).eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
+@pytest.mark.parametrize("n", [1, 1000, 8192, 1_000_003])
+def test_cs_update_kernel_equals_plain(n, dt, cuda_device):
+    rng = np.random.default_rng(n)
+    vecs = [torch.from_numpy(rng.standard_normal(n)).to(
+        device=cuda_device, dtype=DT[dt]) for _ in range(6)]
+    al = torch.tensor(0.37, device=cuda_device)
+    be = torch.tensor(-1.25, device=cuda_device)
+    before = cs_update.launches
+    got = cs_update(*vecs, al, be)
+    assert cs_update.launches == before + 1
+    for g, w in zip(got, cs_update_torch(*vecs, al, be)):
+        assert_bits_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("dims,use_7pt,eps", [((10, 9, 8), False, 0.0),
+                                              ((8, 8, 8), True, 1e-8),
+                                              ((40, 30, 20), False, 0.0),
+                                              ((100, 100, 100), False, 0.0)])
+def test_vmem_kernel_matches_plain(dims, use_7pt, eps, dt, cuda_device):
+    """K5 against its plain version: k equal, the history to rtol 1e-9
+    (f64; 1e-4 in f32) above its noise floor, one launch per solve."""
+    A, counts = StencilOperator.from_stencil(*dims, use_7pt=use_7pt,
+                                             device=cuda_device)
+    b = torch.from_numpy(27.0 - (counts - 1.0)).to(cuda_device, DT[dt])
+    x0 = torch.zeros_like(b)
+    r0 = b - A.spmv(x0)
+    before = stencil_cg_vmem.launches
+    x, h = stencil_cg_vmem(r0, x0, eps, *dims, 40, use_7pt)
+    assert stencil_cg_vmem.launches == before + 1
+    x_ref, h_ref = stencil_cg_vmem_torch(r0, x0, eps, *dims, 40, use_7pt)
+    h, h_ref = h.cpu().numpy(), h_ref.cpu().numpy()
+    k, k_ref = int(np.sum(~np.isnan(h))), int(np.sum(~np.isnan(h_ref)))
+    floor, rtol = (1e-10, 1e-9) if dt == "f64" else (1e-4, 1e-4)
+    if dt == "f64":
+        assert k == k_ref
+    sel = h_ref[:k_ref] >= floor * h_ref[0]
+    np.testing.assert_allclose(h[:k_ref][sel], h_ref[:k_ref][sel], rtol=rtol)
+    assert bool(torch.isfinite(x).all())
+    np.testing.assert_allclose(x.cpu().numpy(), x_ref.cpu().numpy(), rtol=0,
+                               atol=1e-10 if dt == "f64" else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["standard", "cs", "fused", "vmem"])
+def test_cg_variant_through_the_kernels_equals_plain(variant, cuda_device,
+                                                     monkeypatch):
+    """f64 CG at 12^3 on the stencil: kernels and plain versions give the
+    same k and history to rtol 1e-9 above 1e-10 of its start."""
+    monkeypatch.setenv("SB_FUSED_CS", "1")
+    results = []
+    for impl in ("kernel", "torch"):
+        A, counts = StencilOperator.from_stencil(12, 12, 12, device=cuda_device,
+                                                 impl=impl)
+        _x, b, xexact = cg.init_vectors(row_lengths=counts)
+        results.append(cg.solve_cg(A, b, itermax=60, verbose=False,
+                                   variant=variant))
+    rk, rt = results
+    assert rk.iterations == rt.iterations
+    sel = rt.residual_history >= 1e-10 * rt.residual_history[0]
+    np.testing.assert_allclose(rk.residual_history[sel],
+                               rt.residual_history[sel], rtol=1e-9)
+    assert cg.check_residual(rk.x, xexact) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,kernels", [
+    ("standard", (1, 0, 0, 0, 0)), ("cs", (1, 0, 0, 0, 0)),
+    ("fused", (1, 0, 1, 0, 0)), ("vmem", (1, 0, 0, 0, 1)),
+])
+def test_cli_stencil_default_device_runs_the_kernels(variant, kernels,
+                                                     cuda_device, capsys):
+    before = stencil_launches()
+    assert cli.main(["-t", "cg", "--fmt", "stencil", "--cg-variant", variant,
+                     "-x", "16", "-y", "16", "-z", "16", "-i", "30"]) == 0
+    out = capsys.readouterr().out
+    ran = [a - b for a, b in zip(stencil_launches(), before)]
+    assert [bool(v) for v in ran] == [bool(v) for v in kernels]
+    if variant == "vmem":
+        assert ran[4] == 2  # one launch per solve: warm-up and timed
+    assert "| format stencil |" in out and "Difference between" in out
