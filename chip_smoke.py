@@ -20,6 +20,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    value to the bound of the kernels' summation; K3 and K4 on
    numpy-seeded random inputs; K5 (the whole CG solve in one launch) in
    f64 and f32 at 100^3;
+3c. the bslab kernels K6 and K7 (windowed) against bslab_spmv_torch, bit
+   for bit, for (bf16, f32), (f32, f32) and (f64, f64) on the generated
+   stencil at 10x9x7, 100^3 and 200^3 (K7 where its window fits a block),
+   klein and the small test matrices, RGL at 2M and RGL at 200k with one
+   wide pool and with grouped pools;
 4. main path: the CLI as a user runs it (``-t cg`` at 100^3, ``-f hpcg.par
    -t cg`` at 200^3, ``-t spmv``), with the kernel launch count set to 0
    before and read after those runs; then the f64 residual history at 100^3
@@ -28,11 +33,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and (but vmem, which must refuse there) at 200^3, ``cs`` with
    SB_FUSED_CS=1, and ``-t spmv --fmt stencil``, with every stencil
    kernel's launch count set to 0 before and read after;
+4c. the bslab path: ``--fmt bslab -t cg`` at 100^3 and 200^3, ``--fmt sell
+   -t cg`` at 100^3 (bridged to bslab), ``-m generateRGL`` at 2M with
+   ``-t cg`` and ``-t spmv``, and ``-m <file> -t cg`` on a host RGL matrix
+   of 100k rows written as .mtx (DIA refuses it, auto falls back to
+   bslab), with the K6 and K7 counts set to 0 before and read after;
 5. times: CG solve seconds and per-SpMV milliseconds of K1 and its plain
    version at 100^3 and 200^3, with physical GB/s, beside the same product
    as a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x);
 5b. times of K2-K5 beside their plain versions, their bounds and, for K2,
-   torch.nn.functional.conv3d; CG x150 seconds of each stencil variant.
+   torch.nn.functional.conv3d; CG x150 seconds of each stencil variant;
+5c. times of K6 and K7 beside the plain version, their bounds, physical
+   GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M, and
+   bslab CG x150 seconds on each.
 
 A bound is the larger of the bytes a call must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over
@@ -625,6 +638,331 @@ def phase5b_times(dev, gpu):
     return out
 
 
+# -- K6 and K7: the bslab SpMV -------------------------------------------------
+
+RGL_N = 2_000_000  # the size of the README's generateRGL command
+RGL_ARGS = ["-m", "generateRGL", "-x", str(RGL_N), "-y", "1", "-z", "1",
+            "--band", "512", "--deg", "16", "--seed", "1"]
+BSLAB_PAIRS = (("bf16", "f32"), ("f32", "f32"), ("f64", "f64"))
+
+
+def bslab_matrices(dev):
+    """(name, BslabMatrix) of phase 3c, built one at a time with the f32
+    policy (bf16 values where lossless): the generated stencil at 10x9x7,
+    100^3 and 200^3, klein and the small test matrices, RGL at 2M with the
+    default layout, and RGL at 200k with one wide pool and with grouped
+    pools of span 3."""
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+    from sparsebench_tpu_torch.host import read_mm
+
+    f32 = DTypePolicy.from_names("f32")
+    for dims in [(10, 9, 7), (100, 100, 100), (200, 200, 200)]:
+        yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]}",
+               BslabMatrix.from_stencil(*dims, device=dev, policy=f32)[0])
+    data = REPO / "tests" / "data"
+    files = [data / "matrix_band_klein.mtx"] + sorted(
+        (data / "testMatrices").glob("test*.mtx"))
+    for path in files:
+        yield path.name, BslabMatrix.from_csr(read_mm(str(path)), f32,
+                                              device=dev)
+    yield "RGL 2M", rgl_bslab(RGL_N, 512, 16.0, 1, device=dev, policy=f32)[0]
+    for name, opts in (("one wide pool", dict(force_caps=(1,) * 9)),
+                       ("pools of span 3", dict(force_caps=(2,) * 9,
+                                                force_span=3))):
+        yield (f"RGL 200k {name}",
+               rgl_bslab(200_000, 512, 16.0, 1, device=dev, policy=f32,
+                         **opts)[0])
+
+
+def slices_as(A, td):
+    sl = A.slices
+    return sl._replace(vals_aff=sl.vals_aff.to(td), vals_gen=sl.vals_gen.to(td),
+                       vals_wide=sl.vals_wide.to(td))
+
+
+def phase3c_bslab(dev):
+    """K6 and K7 against bslab_spmv_torch, bit for bit, in all three
+    (values, x) pairs; K7 wherever its window fits. Returns ({kernel: max
+    |kernel - plain|}, {case: the impl auto picked})."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.bslab_spmv import (
+        bslab_spmv,
+        bslab_spmv_torch,
+        bslab_spmv_win,
+        win_fits,
+        win_smem_bytes,
+    )
+
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+    rng = np.random.default_rng(31)
+    err = {"K6": 0.0, "K7": 0.0}
+    auto = {}
+    k7_cases = 0
+    for name, A in bslab_matrices(dev):
+        auto[name] = A.impl
+        x0 = rng.standard_normal(A.nc)
+        for td, tx in BSLAB_PAIRS:
+            sl = slices_as(A, dts[td])
+            x = torch.from_numpy(x0).to(dev, dts[tx])
+            y_p = bslab_spmv_torch(sl, x, sub=A.sub, lead=A.lead,
+                                   x_rows=A.x_rows)
+            y_k = bslab_spmv(sl, x, sub=A.sub, lead=A.lead)
+            torch.cuda.synchronize()
+            same = bits_equal(y_k, y_p) and bool(torch.isfinite(y_k).all())
+            err["K6"] = max(err["K6"], float((y_k - y_p).abs().max()))
+            line = f"K6 bit-identical {same}"
+            ok = same
+            if win_fits(sl, A.w_blocks, x.dtype):
+                y_w = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
+                                     w_blocks=A.w_blocks)
+                torch.cuda.synchronize()
+                same_w = bits_equal(y_w, y_p)
+                err["K7"] = max(err["K7"], float((y_w - y_p).abs().max()))
+                line += f"; K7 bit-identical {same_w}"
+                ok &= same_w
+                k7_cases += 1
+            else:
+                need = win_smem_bytes(sl, A.w_blocks, x.dtype)
+                line += f"; K7 window {need} B does not fit a block"
+            print(f"[3c bslab] {name} (sub {A.sub}, slices {A.s_aff}/{A.s_gen}"
+                  f"/{A.s_wide}, W {A.w_blocks}, auto {A.impl}) values {td} x "
+                  f"{tx}: {line} {'ok' if ok else 'FAIL'}")
+            check(ok, f"K6/K7 disagree with the plain version on {name} "
+                  f"{td}/{tx}")
+            del sl, x, y_p, y_k
+        del A
+        torch.cuda.empty_cache()
+    check(k7_cases > 0, "K7 was compared on no case")
+    return err, auto
+
+
+def bslab_cli_checks(cli, argv, gpu, wrappers, need):
+    """One CLI run of the bslab path; returns (text, {kernel: launches})."""
+    before = {k: w.launches for k, w in wrappers.items()}
+    text = run_cli(cli.main, argv)
+    ran = {k: w.launches - before[k] for k, w in wrappers.items()}
+    for key, want in need.items():
+        check(ran[key] >= want, f"{argv}: {key} launched {ran[key]} times, "
+              f"expected at least {want}")
+    return text, ran
+
+
+def write_rgl_mtx(path: Path, n: int) -> None:
+    """The host RGL matrix (band 512, deg 16, seed 1) as a Matrix Market
+    file, 1025 diagonals, far past DIA's limit. Its diagonal is raised by
+    (i mod 7) / 4: the RGL matrix's rows all sum to 1, so b = 1 would be an
+    eigenvector and CG would stop after one step."""
+    from sparsebench_tpu_torch.host import rgl_csr
+
+    csr = rgl_csr(n, band=512, deg=16.0, seed=1)
+    rows = np.repeat(np.arange(n), csr.row_lengths)
+    val = csr.val + np.where(csr.col == rows, (rows % 7) * 0.25, 0.0)
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{n} {n} {csr.nnz}\n")
+        np.savetxt(f, np.column_stack([rows + 1, csr.col + 1, val]),
+                   fmt="%d %d %.2f")
+
+
+def phase4c_bslab(cli, gpu, tmpdir: Path, auto_kernel: str):
+    """The bslab path through the CLI with the K6 and K7 counts set to 0
+    before and read after; returns {kernel: launches}."""
+    from sparsebench_tpu_torch.ops.bslab_spmv import bslab_spmv, bslab_spmv_win
+
+    wrappers = {"K6": bslab_spmv, "K7": bslab_spmv_win}
+    mtx = tmpdir / "rgl100k.mtx"
+    write_rgl_mtx(mtx, 100_000)
+    for w in wrappers.values():
+        w.launches = 0
+    hpcg = ["-f", str(REPO / "hpcg.par")]
+    for label, argv in (("--fmt bslab 100^3", ["-t", "cg", "--fmt", "bslab"]),
+                        ("--fmt bslab 200^3", [*hpcg, "-t", "cg", "--fmt",
+                                               "bslab"]),
+                        ("--fmt sell 100^3", ["-t", "cg", "--fmt", "sell"])):
+        text, ran = bslab_cli_checks(cli, argv, gpu, wrappers, {"K6": 300})
+        k, diff = parse_cg(text)
+        print(f"[4c bslab] {label}: k={k} difference={diff} launches {ran} "
+              f"| {gpu}")
+        check(k == 150 and diff < F32_DIFF_BOUND,
+              f"{label}: k={k}, difference {diff}")
+        if "sell" in label:
+            check("bridged to the bslab device build" in text,
+                  "--fmt sell did not print the bridge line")
+    text, ran = bslab_cli_checks(cli, [*RGL_ARGS, "-t", "cg"], gpu, wrappers,
+                                 {auto_kernel: 2})
+    k, diff = parse_cg(text)
+    print(f"[4c bslab] generateRGL 2M -t cg: k={k} difference={diff} "
+          f"launches {ran} | {gpu}")
+    check(diff < F32_DIFF_BOUND, f"generateRGL cg: difference {diff}")
+    text, ran = bslab_cli_checks(cli, [*RGL_ARGS, "-t", "spmv"], gpu,
+                                 wrappers, {auto_kernel: 150})
+    m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
+    check(m is not None, "generateRGL spmv output missing")
+    print(f"[4c bslab] generateRGL 2M -t spmv: launches {ran}, reported "
+          f"per-SpMV time {m.group(1)} ms | {gpu}")
+    text, ran = bslab_cli_checks(
+        cli, [*RGL_ARGS, "-t", "spmv", "--impl", "kernel_win"], gpu,
+        wrappers, {"K7": 150})
+    m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
+    check(m is not None, "generateRGL spmv --impl kernel_win output missing")
+    print(f"[4c bslab] generateRGL 2M -t spmv --impl kernel_win: launches "
+          f"{ran}, reported per-SpMV time {m.group(1)} ms | {gpu}")
+    text, ran = bslab_cli_checks(cli, ["-m", str(mtx), "-t", "cg"], gpu,
+                                 wrappers, {auto_kernel: 2})
+    res = [float(v) for v in re.findall(r"Residual = (\S+)", text)]
+    k = int(re.search(r"Solution performed (\d+) iterations", text).group(1))
+    check("(format bslab)" in text, "the .mtx run did not fall back to bslab")
+    check(k > 1 and np.isfinite(res).all() and res[-1] < 1e-5 * res[0],
+          f".mtx fallback: k={k}, residuals {res[:3]}...{res[-1:]}")
+    print(f"[4c bslab] -m rgl100k.mtx -t cg (auto: DIA refuses, bslab): k={k}"
+          f" residual {res[0]:.6e} -> {res[-1]:.6e} launches {ran} | {gpu}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[4c bslab] launches over the bslab path: {launches}")
+    for key, count in launches.items():
+        check(count > 0, f"{key} was not launched on the bslab path")
+    return launches
+
+
+def bslab_to_csr(A):
+    """The bslab matrix as a torch.sparse_csr_tensor (f32 values, int32
+    indices), built on the device, for the cuSPARSE yardstick."""
+    import torch
+
+    dev = A.device
+    t = torch.arange(A.n_tiles, device=dev)[:, None, None, None]
+    s = torch.arange(A.sub, device=dev)[None, None, :, None]
+    lane = torch.arange(128, device=dev)[None, None, None, :]
+    row = ((t * A.sub + s) * 128 + lane).expand(-1, 1, -1, -1)
+    parts = []
+    classes = [(A.meta_aff, A.vals_aff, None, None),
+               (A.meta_gen, A.vals_gen, A.lidx_gen, None),
+               (A.meta_wide, A.vals_wide, A.lidx_wide, A.dblk_wide)]
+    for meta, vals, lidx, dblk in classes:
+        if vals.shape[1] == 0:
+            continue
+        blk = meta[:, :, 0].long()[:, :, None, None] + s - A.lead
+        if lidx is None:
+            idx = (lane + meta[:, :, 1].long()[:, :, None, None]) & 127
+        else:
+            idx = lidx.long()
+        if dblk is not None:
+            blk = blk + dblk.long()
+        col = blk * 128 + idx
+        keep = vals != 0
+        parts.append((row.expand_as(col)[keep], col[keep],
+                      vals[keep].float()))
+    r = torch.cat([p[0] for p in parts])
+    c = torch.cat([p[1] for p in parts])
+    v = torch.cat([p[2] for p in parts])
+    order = torch.argsort(r * A.nc + c)
+    r, c, v = r[order], c[order], v[order]
+    crow = torch.zeros(A.nr + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(r, minlength=A.nr), 0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), c.to(torch.int32),
+                                   v, (A.nr, A.nc), check_invariants=False)
+
+
+def phase5c_times(dev, gpu):
+    """Per-call ms of K6, K7 and the plain version (graph replay, eager
+    beside it), bounds, physical GB/s and cuSPARSE at 100^3, 200^3 and RGL
+    2M, and CG x150 seconds on each; returns {kernel: {case: {...}}}."""
+    import torch
+
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.base import physical_spmv_bytes
+    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+    from sparsebench_tpu_torch.ops.bslab_spmv import (
+        bslab_spmv,
+        bslab_spmv_torch,
+        bslab_spmv_win,
+        win_fits,
+    )
+    from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
+
+    f32 = DTypePolicy.from_names("f32")
+    out = {"K6": {}, "K7": {}}
+    rng = np.random.default_rng(5)
+    for case in ("100", "200", "rgl"):
+        if case == "rgl":
+            A, _ = rgl_bslab(RGL_N, 512, 16.0, 1, device=dev, policy=f32)
+            b = rng.standard_normal(A.nr).astype(np.float32)
+            xexact = None
+        else:
+            n = int(case)
+            A, counts = BslabMatrix.from_stencil(n, n, n, device=dev,
+                                                 policy=f32)
+            _x0, b, xexact = init_vectors(dtype=np.float32,
+                                          row_lengths=counts)
+        sl = A.slices
+        x = torch.from_numpy(rng.standard_normal(A.nc).astype(
+            np.float32)).to(dev)
+        phys = physical_spmv_bytes(A, 4)
+        b_ms, b_by = bound(phys, 2 * A.nnz)
+        plain = lambda: bslab_spmv_torch(sl, x, sub=A.sub,  # noqa: E731
+                                         lead=A.lead, x_rows=A.x_rows)
+        if case == "rgl":
+            csr = bslab_to_csr(A)
+        else:
+            from sparsebench_tpu_torch.formats.dia import DiaMatrix
+
+            csr = dia_to_csr(DiaMatrix.from_stencil(n, n, n, device=dev,
+                                                    policy=f32)[0])
+        lib_err = float((csr @ x - bslab_spmv(sl, x, sub=A.sub,
+                                              lead=A.lead).reshape(-1)[
+                                                  :A.nr]).abs().max())
+        lib_ms = min(time_graph(lambda: csr @ x) for _ in range(2))
+        del csr
+        kernels = {"K6": lambda: bslab_spmv(sl, x, sub=A.sub, lead=A.lead)}
+        if win_fits(sl, A.w_blocks, x.dtype):
+            kernels["K7"] = lambda: bslab_spmv_win(
+                A.wchunk, sl, x, sub=A.sub, lead=A.lead, w_blocks=A.w_blocks)
+        label = "RGL 2M" if case == "rgl" else f"{case}^3"
+        for key, fn in kernels.items():
+            k_ms, p_ms, ms, eager = time_pair(fn, plain)
+            out[key][case] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms,
+                                  eager_ms=eager)
+            print(f"[5c times] {key} {label} f32 (values "
+                  f"{str(A.vals_gen.dtype if A.s_gen else A.vals_aff.dtype)}"
+                  f", slices {A.s_aff}/{A.s_gen}/{A.s_wide}): kernel "
+                  f"{ms['kernel']} ms, plain {ms['plain']} ms (graph replay);"
+                  f" kernel eager {eager:.6f} ms; physical {phys} B -> "
+                  f"kernel {phys / (k_ms * 1e-3) / 1e9:.1f} GB/s; bound "
+                  f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
+                  f"(max|csr - K6| {lib_err:.3e}) | {gpu}")
+        res = solve_cg(A, b, itermax=150, verbose=False)
+        diff = (float(np.max(np.abs(res.x - xexact)))
+                if xexact is not None else float("nan"))
+        print(f"[5c times] {label} f32 bslab CG x150 (spmv {A.impl}"
+              f"{', random b' if case == 'rgl' else ''}): "
+              f"{res.solve_seconds:.6f} s (k={res.iterations}, max|x-1| "
+              f"{diff:.3e}) | {gpu}")
+        if xexact is not None:
+            check(res.iterations == 150 and diff < F32_DIFF_BOUND,
+                  f"{label}: CG k={res.iterations}, max|x-1| {diff}")
+        del A, sl, x
+        torch.cuda.empty_cache()
+    # the layout of least storage (objective "bytes") against the default
+    # cost model's choice, K6 on both (PERF.md, open questions)
+    A, _ = rgl_bslab(RGL_N, 512, 16.0, 1, device=dev, policy=f32,
+                     objective="bytes")
+    x = torch.from_numpy(rng.standard_normal(A.nc).astype(np.float32)).to(dev)
+    sl = A.slices
+    ms = min(time_graph(lambda: bslab_spmv(sl, x, sub=A.sub, lead=A.lead))
+             for _ in range(2))
+    phys = physical_spmv_bytes(A, 4)
+    print(f"[5c times] K6 RGL 2M f32, objective=bytes layout (slices "
+          f"{A.s_aff}/{A.s_gen}/{A.s_wide}, wide_k {A.wide_k}, padding "
+          f"{A.padding_ratio:.2f}): kernel {ms:.6f} ms; physical {phys} B -> "
+          f"{phys / (ms * 1e-3) / 1e9:.1f} GB/s; bound "
+          f"{bound(phys, 2 * A.nnz)[0]:.6f} ms | {gpu}")
+    return out
+
+
 def main() -> int:
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -679,6 +1017,9 @@ def main() -> int:
     # -- phase 3: kernels against their plain versions ----------------------
     max_err = phase3_dia(dev)
     err_b, dots_rel = phase3b_stencil(dev)
+    err_c, auto_c = phase3c_bslab(dev)
+    # the kernel auto picks for RGL (K6; K7 only when asked for)
+    auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
     # -- phase 4: the main path through the CLI -----------------------------
     dia_spmv.launches = 0
@@ -727,11 +1068,16 @@ def main() -> int:
 
     # -- phase 4b: the stencil path through the CLI --------------------------
     launches_b = phase4b_stencil(cli, gpu)
+
+    # -- phase 4c: the bslab path through the CLI ----------------------------
+    tmpdir = REPO / "build" / "chip_smoke"
+    tmpdir.mkdir(parents=True, exist_ok=True)
+    launches_c = phase4c_bslab(cli, gpu, tmpdir, auto_kernel)
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "sparsebench_tpu"))
     check(not jax_mods, f"the port imported JAX or the JAX package: "
           f"{jax_mods[:5]}")
-    print("[4b stencil] no module of JAX or of the JAX package was imported")
+    print("[4c bslab] no module of JAX or of the JAX package was imported")
 
     # -- phase 5: times of K1 -----------------------------------------------
     timing = {}
@@ -769,6 +1115,9 @@ def main() -> int:
     times_b = phase5b_times(dev, gpu)
     stencil_cg_seconds(dev, gpu)
 
+    # -- phase 5c: times of K6 and K7 and the bslab CG -----------------------
+    times_c = phase5c_times(dev, gpu)
+
     src = "sparsebench_tpu_torch/csrc/"
 
     def row(name, route_src, replaces, launches, err, t100, t200=None):
@@ -797,6 +1146,18 @@ def main() -> int:
             "sparsebench_tpu/ops/stencil_cg_vmem.py:274", launches_b["K5"],
             err_b["K5"], times_b["K5"][100]),
     ]
+    for name, key, line in (("bslab_spmv", "K6", 242),
+                            ("bslab_spmv_win", "K7", 318)):
+        # the main numbers at RGL 2M, the slice's own workload; the
+        # generated stencil's beside them (K7's window does not fit 200^3)
+        r = {"name": name, "route": "cuda", "source": src + "bslab_spmv.cu",
+             "replaces": f"sparsebench_tpu/ops/bslab_pallas.py:{line}",
+             "launches": launches_c[key], "max_abs_err": err_c[key],
+             **times_c[key]["rgl"]}
+        for case in ("100", "200"):
+            r.update({f"{k}_{case}": v
+                      for k, v in times_c[key].get(case, {}).items()})
+        kernels.append(r)
     kernels[1]["launches_dots_form"] = launches_b["K2 dots"]
     kernels[1]["dots_max_rel_err"] = dots_rel["K2"]
     kernels[2]["dots_max_rel_err"] = dots_rel["K3"]

@@ -16,7 +16,12 @@ matrix-free stencil slice (``--fmt stencil``): the operator
 ``csrc/stencil.cu``), the CG variants ``cs``, ``fused`` and ``vmem`` with
 the fused update (``ops/cg_fused.py`` + ``csrc/cg_fused.cu``) and the
 whole-solve kernel (``ops/stencil_cg_vmem.py`` +
-``csrc/stencil_cg_vmem.cu``).
+``csrc/stencil_cg_vmem.cu``); and the general formats: bslab
+(``formats/bslab.py``) with its SpMV kernels K6 and K7 (``ops/bslab_spmv.py``
++ ``csrc/bslab_spmv.cu``), the RGL matrix built on the device in bslab
+layout (``formats/rgl_build.py``), SELL-C-sigma and ELLPACK
+(``formats/sell.py``, ``formats/scs_host.py``), CRS and CCRS
+(``formats/crs.py``), and the RCM reordering (``host.py``).
 
 The package imports ``torch`` and nothing of JAX or of the JAX package:
 importing ``sparsebench_tpu`` would run its allocator set-up in the

@@ -2,11 +2,20 @@
 sparsebench_tpu/cli.py).
 
 The reference flags ``-h -f -m -t -x -y -z -i -e`` plus ``--fmt``,
-``--dtype``, ``--index-dtype``, ``--impl``, ``--device`` and ``--trace``.
-Flow (src/main.c:83-230): banner -> matrix (the generated stencil straight
-into DIA or as the matrix-free ``stencil`` operator, or a .mtx/.bmx file
-through the host CSR into DIA) -> profiler factors -> CG solve (variant
-``standard``, ``cs``, ``fused`` or ``vmem``) or SpMV bench -> report.
+``--sub``, ``-C/--chunk-height``, ``--sigma``, ``--band``, ``--deg``,
+``--seed``, ``--rcm``, ``--dtype``, ``--index-dtype``, ``--impl``,
+``--device`` and ``--trace``. Flow (src/main.c:83-230): banner -> matrix ->
+profiler factors -> CG solve (variant ``standard``, ``cs``, ``fused`` or
+``vmem``) or SpMV bench -> report. The matrix is one of:
+
+* ``-m generateRGL``: the irregular random-graph Laplacian built on the
+  device straight into bslab (formats/rgl_build.py), n = x*y*z;
+* the generated stencil built on the device into DIA (``auto``), bslab, or
+  the matrix-free ``stencil`` operator; ``--fmt sell`` runs the bslab build
+  (the JAX CLI's bridge), and crs, ccrs and ell go through the host CSR;
+* a .mtx/.bmx file through the host CSR (``--rcm`` reorders it first) into
+  the format asked for; ``auto`` takes DIA and falls back to bslab where
+  the matrix has too many diagonals.
 
 The default device is ``cuda``; without CUDA the run exits with an error
 instead of running on the CPU (``--device cpu`` runs the plain PyTorch
@@ -22,6 +31,7 @@ import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sparsebench_tpu_torch.config import (
@@ -38,7 +48,8 @@ from sparsebench_tpu_torch.version import __version__
 BANNER = "SparseBench — PyTorch/CUDA port of sparsebench_tpu"
 
 BENCHES = ["cg", "spmv", "gmres", "cheb", "bicgstab", "minres"]
-FORMATS = ["auto", "dia", "stencil", *NOT_PORTED]
+FORMATS = ["auto", "crs", "ccrs", "sell", "ell", "dia", "bsell", "bslab",
+           "stencil"]
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -65,18 +76,27 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Convergence criteria epsilon. Default 0.0.")
     # runtime options (compile-time in the reference, config.mk:1-8)
     ap.add_argument("--fmt", default=None, choices=FORMATS,
-                    help="Matrix format. Default auto = dia (ported: auto, "
-                    "dia, stencil; stencil is matrix-free and takes "
-                    "generated problems only).")
+                    help="Matrix format. Default auto: dia, and bslab for a "
+                    "matrix file DIA refuses (generateRGL is always bslab). "
+                    "stencil is matrix-free and takes generated problems "
+                    "only; bsell is not ported yet.")
+    ap.add_argument("--sub", type=int, default=None,
+                    help="bslab slice height in 128-row lane groups "
+                    "(default 64, shrunk for small matrices)")
     ap.add_argument("--dtype", default=None, choices=["f64", "f32", "bf16"],
                     help="Value dtype (reference FLOAT_TYPE). Default f32.")
     ap.add_argument("--index-dtype", default=None, choices=["i32", "i64"],
                     help="Index dtype of the reference byte model. Default i32.")
+    ap.add_argument("-C", "--chunk-height", type=int, default=None,
+                    help="SELL-C-sigma chunk height C (0 = auto)")
     ap.add_argument("--impl", default="auto",
-                    choices=["auto", "torch", "kernel"],
+                    choices=["auto", "torch", "kernel", "kernel_win"],
                     help="Kernel implementation: the CUDA kernels or their "
                     "plain PyTorch versions. Default auto: kernel on CUDA, "
-                    "torch on the CPU.")
+                    "torch on the CPU. kernel_win: bslab's windowed kernel "
+                    "(x staged in shared memory where the window fits).")
+    ap.add_argument("--sigma", type=int, default=None,
+                    help="SELL-C-sigma sorting scope (0 = full sort)")
     ap.add_argument("--device", default="cuda",
                     help="torch device, cuda (default) or cpu. Without CUDA "
                     "the default exits with an error.")
@@ -88,6 +108,16 @@ def build_argparser() -> argparse.ArgumentParser:
                     "SB_FUSED_CS=1 fuses it on --fmt stencil), fused and "
                     "vmem (--fmt stencil only; vmem while r and p fit the "
                     "L2)")
+    ap.add_argument("--band", type=int, default=None,
+                    help="generateRGL: half-bandwidth of the random graph "
+                    "(default 512)")
+    ap.add_argument("--deg", type=float, default=None,
+                    help="generateRGL: target average degree (default 16)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="generateRGL: graph seed (default 1)")
+    ap.add_argument("--rcm", action="store_true",
+                    help="Reverse Cuthill-McKee row/column reordering of a "
+                    "matrix file before the format conversion")
     ap.add_argument("--version", action="version", version=__version__)
     return ap
 
@@ -101,7 +131,9 @@ def apply_args(param: Parameter, args: argparse.Namespace) -> Parameter:
     for key_cli, key_param in [
         ("x", "nx"), ("y", "ny"), ("z", "nz"), ("itermax", "itermax"),
         ("eps", "eps"), ("fmt", "fmt"), ("dtype", "dtype"),
-        ("index_dtype", "index_dtype"), ("bench", "bench"),
+        ("index_dtype", "index_dtype"), ("chunk_height", "chunk_height"),
+        ("sigma", "sigma"), ("bench", "bench"), ("band", "band"),
+        ("deg", "deg"), ("seed", "seed"),
     ]:
         v = getattr(args, key_cli, None)
         if v is not None:
@@ -111,8 +143,7 @@ def apply_args(param: Parameter, args: argparse.Namespace) -> Parameter:
 
 def _refuse_unported(args: argparse.Namespace, param: Parameter) -> None:
     """SystemExit naming the ROADMAP.md item for a choice that is not
-    ported (a bench, format or CG variant, or a .par file's shards or
-    generateRGL)."""
+    ported (a bench, format or CG variant, or a .par file's shards)."""
     if args.cg_variant in CG_VARIANTS_NOT_PORTED:
         raise SystemExit(
             f"--cg-variant {args.cg_variant} is not ported to "
@@ -127,24 +158,24 @@ def _refuse_unported(args: argparse.Namespace, param: Parameter) -> None:
     if param.shards > 1:
         raise SystemExit("shards > 1 is not ported to sparsebench_tpu_torch "
                          "yet (ROADMAP.md Queue 1 item 11)")
-    if param.filename == "generateRGL":
-        raise SystemExit("generateRGL is not ported to sparsebench_tpu_torch "
-                         "yet (ROADMAP.md Queue 1 item 8)")
-    if param.fmt not in ("auto", "dia", "stencil"):
+    if param.fmt in NOT_PORTED:
         from sparsebench_tpu_torch.formats import get_format
 
         try:
             get_format(param.fmt)
-        except (NotImplementedError, ValueError) as e:
+        except NotImplementedError as e:
             raise SystemExit(str(e)) from None
 
 
 def init_matrix(param: Parameter):
-    """Reference initMatrix (src/main.c:54-81) for matrix files: the host
-    CSR of a .mtx or .bmx file."""
-    from sparsebench_tpu_torch.host import read_bmx, read_mm
+    """Reference initMatrix (src/main.c:54-81): the host CSR of the
+    generated stencil or of a .mtx or .bmx file."""
+    from sparsebench_tpu_torch.host import generate_stencil, read_bmx, read_mm
 
     fn = param.filename
+    if fn in ("generate", "generate7P"):
+        return generate_stencil(param.nx, param.ny, param.nz,
+                                use_7pt=fn == "generate7P")
     if fn.endswith(".mtx"):
         print("Read MTX matrix")
         return read_mm(fn)
@@ -154,20 +185,95 @@ def init_matrix(param: Parameter):
     raise SystemExit(f"Unknown matrix file format: {fn}")
 
 
+def banner_impl(impl: str, device: torch.device) -> str:
+    """The --impl choice as the banner shows it: ``auto`` resolves to
+    ``kernel`` on CUDA and ``torch`` on the CPU; a kernel on the CPU
+    raises. Each format resolves ``impl`` again for itself (only bslab
+    has ``kernel_win``)."""
+    from sparsebench_tpu_torch.formats.dia import resolve_impl
+
+    if impl == "kernel_win":
+        resolve_impl("kernel", device)
+        return impl
+    return resolve_impl(impl, device)
+
+
+def build_matrix(param: Parameter, args: argparse.Namespace,
+                 policy: DTypePolicy, device: torch.device):
+    """The device matrix of ``param`` (the JAX CLI's three branches:
+    generateRGL, the generated stencil, the host CSR). Returns (A, csr or
+    None, row counts or None, total rows, the reference model's nnz) and
+    sets ``param.fmt`` to the format built."""
+    from sparsebench_tpu_torch.formats import from_csr
+    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix, DiaUnsuitableError
+    from sparsebench_tpu_torch.formats.stencil import StencilOperator
+
+    sub = {"sub": args.sub} if args.sub else {}
+    generated = param.filename in ("generate", "generate7P")
+    use_7pt = param.filename == "generate7P"
+    if param.filename == "generateRGL":
+        # the irregular matrix, generated and laid out on the device
+        if param.fmt not in ("auto", "bslab"):
+            raise SystemExit(
+                "generateRGL builds on the device in bslab layout; use "
+                "--fmt auto|bslab")
+        from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+
+        n = param.nx * param.ny * param.nz
+        A, nnz = rgl_bslab(n, band=param.band, deg=param.deg, seed=param.seed,
+                           device=device, policy=policy, impl=args.impl,
+                           **sub)
+        param.fmt = "bslab"
+        print(f"RGL: n={n} band={param.band} deg~{param.deg} seed="
+              f"{param.seed} nnz={nnz} padding={A.padding_ratio:.2f}")
+        return A, None, None, n, nnz
+    if generated and param.fmt in ("dia", "stencil", "bslab", "sell"):
+        # analytic on-device build, no CSR
+        pick = param.fmt
+        if pick == "sell":
+            print("sell: generated problem bridged to the bslab device "
+                  "build (SELL layout remains the ingest/golden format)")
+            pick = "bslab"
+        build = {"dia": DiaMatrix, "stencil": StencilOperator,
+                 "bslab": BslabMatrix}[pick]
+        A, row_counts = build.from_stencil(
+            param.nx, param.ny, param.nz, device=device, use_7pt=use_7pt,
+            policy=policy, impl=args.impl, **(sub if pick == "bslab" else {}))
+        param.fmt = pick
+        return A, None, row_counts, A.total_nr, 27 * A.total_nr
+    csr = init_matrix(param)
+    if args.rcm:
+        from sparsebench_tpu_torch.host import permute_csr, rcm_permutation
+
+        csr = permute_csr(csr, rcm_permutation(csr))
+        print(f"RCM reordering applied ({csr.nr} rows)")
+    if param.fmt == "auto":
+        try:
+            A = from_csr("dia", csr, policy, device=device, impl=args.impl)
+            param.fmt = "dia"
+        except DiaUnsuitableError:
+            A = from_csr("bslab", csr, policy, device=device, impl=args.impl,
+                         **sub)
+            param.fmt = "bslab"
+    else:
+        opts = {"dia": {"impl": args.impl},
+                "bslab": {"impl": args.impl, **sub},
+                "sell": {"impl": args.impl, "C": param.chunk_height,
+                         "sigma": param.sigma}}.get(param.fmt, {})
+        A = from_csr(param.fmt, csr, policy, device=device, **opts)
+    model_nnz = csr.model_total_nnz if csr.model_total_nnz > 0 else \
+        csr.total_nnz
+    return A, csr, None, csr.total_nr, model_nnz
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = build_argparser()
     args = ap.parse_args(argv)
     param = apply_args(Parameter(), args)
     _refuse_unported(args, param)
 
-    from sparsebench_tpu_torch.formats import from_csr
     from sparsebench_tpu_torch.formats.base import physical_spmv_bytes
-    from sparsebench_tpu_torch.formats.dia import (
-        DiaMatrix,
-        DiaUnsuitableError,
-        resolve_impl,
-    )
-    from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.profiler import Profiler, trace
     from sparsebench_tpu_torch.solvers.cg import (
         check_residual,
@@ -179,13 +285,16 @@ def main(argv: Optional[list] = None) -> int:
     policy = DTypePolicy.from_names(param.dtype, param.index_dtype)
     try:
         device = resolve_device(args.device)
-        impl = resolve_impl(args.impl, device)
+        impl = banner_impl(args.impl, device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    generated = param.filename in ("generate", "generate7P")
-    param.fmt = "dia" if param.fmt == "auto" else param.fmt
+    if param.fmt == "auto":
+        # dia for the generated stencil, bslab for RGL; a matrix file's
+        # auto resolves at build time (dia, or bslab where DIA refuses it)
+        param.fmt = {"generate": "dia", "generate7P": "dia",
+                     "generateRGL": "bslab"}.get(param.filename, "auto")
 
     print(BANNER)
     print(
@@ -196,33 +305,19 @@ def main(argv: Optional[list] = None) -> int:
     print(print_parameter(param))  # reference printParameter
 
     t0 = time.perf_counter()
-    csr = None
-    row_counts = None
-    if generated:
-        # analytic on-device build, no CSR: DIA, or the matrix-free operator
-        build = StencilOperator if param.fmt == "stencil" else DiaMatrix
-        A, row_counts = build.from_stencil(
-            param.nx, param.ny, param.nz, device=device,
-            use_7pt=param.filename == "generate7P", policy=policy, impl=impl,
-        )
-        total_nr, model_nnz = A.total_nr, 27 * A.total_nr
-    else:
-        csr = init_matrix(param)
-        try:
-            A = from_csr(param.fmt, csr, policy, device=device, impl=impl)
-        except DiaUnsuitableError as e:
-            raise SystemExit(
-                f"{e}: this matrix needs the bslab format, which is not "
-                "ported to sparsebench_tpu_torch yet (ROADMAP.md Queue 1 "
-                "item 7)"
-            ) from None
-        except ValueError as e:  # the matrix-free stencil takes no file
-            raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
-        total_nr = csr.total_nr
-        model_nnz = (
-            csr.model_total_nnz if csr.model_total_nnz > 0 else csr.total_nnz
-        )
+    try:
+        A, csr, row_counts, total_nr, model_nnz = build_matrix(
+            param, args, policy, device)
+    except ValueError as e:  # a format or impl that cannot take the matrix
+        raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
+    rgl = param.filename == "generateRGL"
+    generated = param.filename in ("generate", "generate7P")
     print(f"Setup took {time.perf_counter() - t0:.2f}s (format {param.fmt})")
+    if param.fmt == "bslab" or getattr(A, "fast", None) is not None:
+        B = getattr(A, "fast", None) or A
+        print(f"bslab: sub {B.sub}, slices per tile {B.s_aff} affine, "
+              f"{B.s_gen} general, {B.s_wide} wide, padding "
+              f"{B.padding_ratio:.2f}, spmv {B.impl}")
     xb = policy.value_bytes
     phys = physical_spmv_bytes(A, xb) - (A.nc + A.nr) * xb
     print(
@@ -240,10 +335,15 @@ def main(argv: Optional[list] = None) -> int:
     with trace(args.trace):
         if param.bench == "cg":
             print("Test type: CG")
-            _x0, b, xexact = init_vectors(
-                csr, dtype=policy.host_value, generated=generated,
-                row_lengths=row_counts,
-            )
+            if rgl:
+                # row sums are exactly 1 (host.py): b = A 1 = ones, x == 1
+                b = np.ones(A.nr, dtype=policy.host_value)
+                xexact = np.ones(A.nr, dtype=policy.host_value)
+            else:
+                _x0, b, xexact = init_vectors(
+                    csr, dtype=policy.host_value, generated=generated,
+                    row_lengths=row_counts,
+                )
             b = torch.from_numpy(b).to(device=device, dtype=policy.value)
             try:
                 res = solve_cg(A, b, itermax=param.itermax, eps=param.eps,

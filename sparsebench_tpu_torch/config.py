@@ -38,11 +38,19 @@ class Parameter:
     fmt: str = "auto"
     dtype: str = "f32"
     index_dtype: str = "i32"
+    chunk_height: int = 0  # SELL C; 0 = the format's default
+    sigma: int = 0         # SELL sorting scope; 0 = the format's default
     shards: int = 1
+    # generateRGL, the irregular random-graph Laplacian (host.py rgl_csr)
+    band: int = 512        # half-bandwidth of the random graph
+    deg: float = 16.0      # target average degree
+    seed: int = 1          # graph seed
     bench: str = "cg"
 
 
-_INT_KEYS = {"nx", "ny", "nz", "itermax", "shards"}
+_INT_KEYS = {"nx", "ny", "nz", "itermax", "chunk_height", "sigma", "shards",
+             "band", "seed"}
+_REAL_KEYS = {"eps", "deg"}
 _STR_KEYS = {"filename", "fmt", "dtype", "index_dtype", "bench"}
 
 
@@ -58,8 +66,8 @@ def read_parameter(param: Parameter, filename: str) -> Parameter:
             key, val = toks[0], toks[1]
             if key in _INT_KEYS:
                 setattr(param, key, int(val))
-            elif key == "eps":
-                param.eps = float(val)
+            elif key in _REAL_KEYS:
+                setattr(param, key, float(val))
             elif key in _STR_KEYS:
                 setattr(param, key, val)
     return param

@@ -1,7 +1,14 @@
 """Device matrix formats. Importing this package registers every ported
-format (``dia`` and the matrix-free ``stencil``)."""
+format: ``dia``, the matrix-free ``stencil``, ``bslab``, ``sell``, ``ell``,
+``crs`` and ``ccrs``."""
 
-from sparsebench_tpu_torch.formats import dia, stencil  # noqa: F401  (register)
+from sparsebench_tpu_torch.formats import (  # noqa: F401  (register)
+    bslab,
+    crs,
+    dia,
+    sell,
+    stencil,
+)
 from sparsebench_tpu_torch.formats.registry import FORMATS, from_csr, get_format
 
 __all__ = ["FORMATS", "from_csr", "get_format"]

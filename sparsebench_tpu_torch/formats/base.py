@@ -25,12 +25,16 @@ def round_up(x: int, m: int) -> int:
 
 def physical_spmv_bytes(A, x_bytes: int = 4) -> int:
     """Bytes PHYSICALLY streamed per SpMV: every stored tensor of the
-    format (padding included, at its stored dtype) + one read of x + one
-    write of y. The reference's byte model ((value_bytes + index_bytes) *
-    nnz, src/main.c:187-189) is the profiler's "effective" count instead."""
-    mat = sum(
-        v.numel() * v.element_size()
-        for v in vars(A).values()
-        if isinstance(v, torch.Tensor)
-    )
+    format (padding included, at its stored dtype; tensors in tuples too)
+    + one read of x + one write of y. A bridged SELL matrix counts only its
+    ``fast`` delegate's tensors: its SpMV never reads the SELL layout. The
+    reference's byte model ((value_bytes + index_bytes) * nnz,
+    src/main.c:187-189) is the profiler's "effective" count instead."""
+    fast = getattr(A, "fast", None)
+    if fast is not None:
+        return physical_spmv_bytes(fast, x_bytes)
+    tensors = [t for v in vars(A).values()
+               for t in (v if isinstance(v, tuple) else (v,))
+               if isinstance(t, torch.Tensor)]
+    mat = sum(t.numel() * t.element_size() for t in tensors)
     return mat + (A.nc + A.nr) * x_bytes

@@ -1,9 +1,8 @@
 """Runtime format registry (counterpart of sparsebench_tpu/formats/registry.py).
 
-``dia`` and the matrix-free ``stencil`` are ported. Every other format
-name of the JAX package raises and names the ROADMAP.md item that ports
-it, so a request for an unported format never falls through to another
-one.
+Every format of the JAX package is ported except ``bsell``, which raises
+and names the ROADMAP.md item that ports it, so a request for it never
+falls through to another format.
 """
 
 from __future__ import annotations
@@ -13,11 +12,6 @@ from typing import Dict, Type
 FORMATS: Dict[str, type] = {}
 
 NOT_PORTED = {
-    "bslab": "Queue 1 item 7",
-    "sell": "Queue 1 item 7",
-    "crs": "Queue 1 item 7",
-    "ccrs": "Queue 1 item 7",
-    "ell": "Queue 1 item 7",
     "bsell": "Queue 1 item 10",
 }
 

@@ -1,11 +1,13 @@
 """Where the time of one CG solve goes, on a CUDA card.
 
     python -m sparsebench_tpu_torch.profile_cg [-n 100 200] [-i 150]
-        [--fmt dia|stencil] [--variant standard|cs|fused|vmem]
+        [--fmt dia|stencil|bslab|rgl] [--variant standard|cs|fused|vmem]
 
-For each grid size n (n^3 generated stencil, f32 vectors; DIA with bf16
-diagonals and the K1 kernel, or the matrix-free stencil operator with
-K2-K5) it prints:
+For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
+diagonals (K1), as the matrix-free stencil operator (K2-K5) or as bslab
+(K6); or, with ``--fmt rgl``, the RGL matrix of n rows (band 512, deg 16,
+seed 1; bslab, K6) with a seeded random b (b = 1 is an eigenvector of it,
+on which CG stops after one step). It prints:
 
 * the wall of one solve loop (``CG_LOOPS[variant]``): host clock
   ending in a synchronise, best of 3, without the profiler;
@@ -35,14 +37,19 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from sparsebench_tpu_torch.config import DTypePolicy
+from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
+from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
 from sparsebench_tpu_torch.solvers.cg import CG_LOOPS, init_vectors
 
 # the port's kernels, by the names their device events carry
 KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
            "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
-           "stencil_cg_vmem_kernel")
+           "stencil_cg_vmem_kernel", "bslab_spmv_kernel",
+           "bslab_spmv_win_kernel")
+OPERATORS = {"dia": DiaMatrix, "stencil": StencilOperator,
+            "bslab": BslabMatrix}
 
 
 def _best_wall(fn, reps: int = 3) -> float:
@@ -55,19 +62,28 @@ def _best_wall(fn, reps: int = 3) -> float:
     return min(walls)
 
 
+def operator(fmt: str, n: int, dev: torch.device):
+    """(A, b, tag) of ``fmt`` at size n (module docstring)."""
+    f32 = DTypePolicy.from_names("f32")
+    if fmt == "rgl":
+        A, _nnz = rgl_bslab(n, 512, 16.0, 1, device=dev, policy=f32,
+                            impl="kernel")
+        b = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+        return A, torch.from_numpy(b).to(dev), f"RGL {n}"
+    A, counts = OPERATORS[fmt].from_stencil(n, n, n, device=dev, policy=f32,
+                                           impl="kernel")
+    _x, b, _xe = init_vectors(dtype=np.float32, row_lengths=counts)
+    return A, torch.from_numpy(b).to(dev), f"{n}^3 {fmt}"
+
+
 def profile_size(n: int, itermax: int, fmt: str, variant: str,
                  gpu: str) -> None:
     dev = torch.device("cuda")
-    build = StencilOperator if fmt == "stencil" else DiaMatrix
-    A, counts = build.from_stencil(
-        n, n, n, device=dev, policy=DTypePolicy.from_names("f32"),
-        impl="kernel")
-    _x, b, _xe = init_vectors(dtype=np.float32, row_lengths=counts)
-    b = torch.from_numpy(b).to(dev)
+    A, b, tag = operator(fmt, n, dev)
     x0 = torch.zeros_like(b)
     eps = torch.tensor(0.0, device=dev)
     loop = CG_LOOPS[variant]
-    tag = f"{n}^3 {fmt}/{variant} x{itermax}"
+    tag = f"{tag}/{variant} x{itermax}"
 
     def run():
         return loop(A, b, x0, itermax, eps)
@@ -124,10 +140,11 @@ def profile_size(n: int, itermax: int, fmt: str, variant: str,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_cg")
     ap.add_argument("-n", type=int, nargs="+", default=[100, 200],
-                    help="grid sizes (n^3); default 100 200")
+                    help="grid sizes (n^3), or rows for --fmt rgl; default "
+                    "100 200")
     ap.add_argument("-i", type=int, default=150, dest="itermax",
                     help="CG iterations; default 150")
-    ap.add_argument("--fmt", default="dia", choices=["dia", "stencil"],
+    ap.add_argument("--fmt", default="dia", choices=[*OPERATORS, "rgl"],
                     help="operator; default dia")
     ap.add_argument("--variant", default="standard",
                     choices=list(CG_LOOPS),

@@ -97,6 +97,13 @@ class CGResult:
     solve_seconds: float
 
 
+def matvec(A):
+    """The operator's product in the space the solve runs in: a
+    row-permuting format (SELL on its gather path) solves in permuted
+    order (``solve_cg`` permutes b and x0 in and x out)."""
+    return A.spmv_permuted if getattr(A, "permuted_output", False) else A.spmv
+
+
 def _eps_tensor(eps, sdt, device):
     return eps if torch.is_tensor(eps) else torch.tensor(eps, dtype=sdt,
                                                          device=device)
@@ -108,7 +115,7 @@ def cg_init(A, b: torch.Tensor, x0: torch.Tensor, itermax: int,
     (k, x, p, r, rtrans, normr, hist, done) of device tensors."""
     sdt = default_acc_dtype(b.dtype, acc_dtype)
     p = x0
-    r = b - A.spmv(p)
+    r = b - matvec(A)(p)
     rtrans = ddot(r, r, acc_dtype=sdt)
     normr = torch.sqrt(rtrans)
     hist = torch.full((itermax,), float("nan"), dtype=sdt, device=b.device)
@@ -127,6 +134,7 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None):
     sdt = default_acc_dtype(vdt, acc_dtype)
     eps = _eps_tensor(eps, sdt, r.device)
     steps = torch.arange(hist.numel(), device=r.device)
+    spmv = matvec(A)
     for _ in range(k_end - 1):
         active = (k < k_end) & (normr > eps) & ~done
         first = k == 1
@@ -138,7 +146,7 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None):
         normr_new = torch.sqrt(rt)
         hist = torch.where(active & (steps == k), normr_new, hist)
 
-        Ap = A.spmv(p_new)
+        Ap = spmv(p_new)
         pAp = ddot(p_new, Ap, acc_dtype=sdt)
         breakdown = pAp <= rt * 1e-30
         alpha = torch.where(breakdown | ~active, 0, safe_div(rt, pAp)).to(vdt)
@@ -190,17 +198,18 @@ def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     fused = (bool(os.environ.get("SB_FUSED_CS"))
              and getattr(A, "supports_fused_cs", False)
              and sdt == torch.float32)
+    spmv = matvec(A)
 
     def spmv_dots(u):
         # (w = A u, [gamma = u.u, delta = w.u])
         if fused:
             return A.spmv_permuted_dots(u)
-        w = A.spmv(u)
+        w = spmv(u)
         return w, torch.stack([ddot(u, u, acc_dtype=sdt),
                                ddot(w, u, acc_dtype=sdt)])
 
     eps = _eps_tensor(eps, sdt, device)
-    r = b - A.spmv(x0)
+    r = b - spmv(x0)
     w, gd = spmv_dots(r)
     gamma = gd[0]
     alpha = safe_div(gamma, gd[1])
@@ -363,8 +372,10 @@ def solve_cg(
     solve, then the timed solve (closed by ``torch.cuda.synchronize`` on
     CUDA), then the residual print.
 
-    ``b`` (and ``x0``) are tensors or numpy arrays; they move to the
-    matrix's device and keep their dtype, which is the vectors' dtype.
+    ``b`` (and ``x0``) are tensors or numpy arrays in the original row
+    order, as is the returned x; they move to the matrix's device and keep
+    their dtype, which is the vectors' dtype. A format with
+    ``permuted_output`` solves in its permuted order (JAX ``solve_cg``).
     """
     loop = resolve_cg_loop(variant)
     if inv_diag is not None or precond is not None:
@@ -378,6 +389,9 @@ def solve_cg(
     else:
         x0 = torch.as_tensor(x0, dtype=b.dtype, device=device)
     eps_t = torch.tensor(eps, dtype=acc_dtype or b.dtype, device=device)
+    permuted = getattr(A, "permuted_output", False)
+    if permuted:
+        b, x0 = A.permute_vector(b), A.permute_vector(x0)
 
     # warm-up: first-use costs (kernel build and load, allocator growth)
     # stay outside the timed solve
@@ -389,6 +403,8 @@ def solve_cg(
     synchronize(device)
     t1 = time.perf_counter()
     k = int(k_dev)
+    if permuted:
+        x_dev = A.unpermute_vector(x_dev)
 
     hist = hist_dev.cpu().numpy()
     if verbose:

@@ -25,7 +25,8 @@ def bench_spmv(
     fused_reps: int = 0,
 ) -> float:
     """x = 1 and ``itermax - 1`` timed SpMVs (``A.spmv``: the DIA kernel K1,
-    or K2's apply for ``--fmt stencil``), each closed by a device
+    K2's apply for ``--fmt stencil``, the bslab kernel K6 or K7, or the
+    plain gathers of SELL, ELL and CRS), each closed by a device
     synchronise, into the SPMVM region. x has ``dtype``, the policy's value
     dtype that CG's vectors have, so this times the SpMV that CG runs. (The
     JAX package gives x the stored dtype, bf16 under the f32 policy, where
@@ -34,7 +35,8 @@ def bench_spmv(
     Returns the best per-iteration seconds. With ``fused_reps`` > 0 a run
     of that many chained SpMVs (y fed back as x), timed with CUDA events
     on the card (the host clock on the CPU), refines the time below the
-    per-call synchronise.
+    per-call synchronise; it needs a square matrix and is skipped for
+    another.
     """
     device = A.device
     x = torch.ones(A.nc, dtype=dtype, device=device)
@@ -51,7 +53,7 @@ def bench_spmv(
     iters = max(itermax - 1, 1)
     per_iter = prof.times[Region.SPMVM] / iters
 
-    if fused_reps > 0:
+    if fused_reps > 0 and A.nr == A.nc:
         def chained(v):
             for _ in range(fused_reps):
                 v = A.spmv(v)  # square operators: y has x's length

@@ -121,16 +121,22 @@ def test_generate_stencil_matches_jax(dims, rank, size, use_7pt):
 
 
 PAR_FIELDS = ("filename", "nx", "ny", "nz", "itermax", "eps", "fmt",
-              "dtype", "index_dtype", "shards", "bench")
+              "dtype", "index_dtype", "shards", "bench", "chunk_height",
+              "sigma", "band", "deg", "seed")
 
 
-@pytest.mark.parametrize("name", ["hpcg.par", "hpcgmm.par", "custom"])
+@pytest.mark.parametrize("name", ["hpcg.par", "hpcgmm.par", "custom", "rgl"])
 def test_read_parameter_matches_jax(name, tmp_path, data_dir):
     if name == "custom":
         path = tmp_path / "t.par"
         path.write_text("filename generate7P # 7-point\nnx 5\n  ny 4 \n"
                         "eps 1e-8\nitermax 9\ndtype f64\nshards 2\n"
                         "chunk_height 8\nunknown_key 3\nnz\n")
+    elif name == "rgl":
+        path = tmp_path / "rgl.par"
+        path.write_text("filename generateRGL\nnx 3000\nny 1\nnz 1\n"
+                        "band 96 # half-bandwidth\ndeg 12.5\nseed 7\n"
+                        "sigma 64\nchunk_height 16\nfmt bslab\n")
     else:
         path = data_dir.parent.parent / name
     p = read_parameter(Parameter(), str(path))
@@ -144,3 +150,68 @@ def test_parameter_defaults_match_jax():
     p, pj = Parameter(), JaxParameter()
     for f in PAR_FIELDS:
         assert getattr(p, f) == getattr(pj, f), f
+
+
+def test_par_keys_of_the_general_formats_parse_as_jax(tmp_path):
+    """band/deg/seed/chunk_height/sigma: ints and a real, as JAX parses."""
+    path = tmp_path / "k.par"
+    path.write_text("band 300\ndeg 7\nseed 11\nchunk_height 4\nsigma 2\n")
+    p = read_parameter(Parameter(), str(path))
+    assert (p.band, p.deg, p.seed, p.chunk_height, p.sigma) == (
+        300, 7.0, 11, 4, 2)
+    assert isinstance(p.deg, float) and isinstance(p.band, int)
+
+
+@pytest.mark.parametrize("n,band,deg,seed", [(500, 64, 6.0, 2),
+                                             (2000, 300, 16.0, 9)])
+def test_rgl_spec_matches_jax(n, band, deg, seed):
+    from sparsebench_tpu.host import rgl as jax_rgl
+
+    rows = np.arange(0, n, 7)
+    for a, b in zip(host.rgl_edges_for_rows(rows, n, band, deg, seed),
+                    jax_rgl.rgl_edges_for_rows(rows, n, band, deg, seed)):
+        np.testing.assert_array_equal(a, b)
+    c, cj = host.rgl_csr(n, band, deg, seed), jax_rgl.rgl_csr(n, band, deg,
+                                                              seed)
+    assert_same_csr(c, cj)
+
+
+@pytest.mark.parametrize("source", ["klein", "stencil", "rgl"])
+def test_rcm_matches_jax(source, data_dir):
+    from sparsebench_tpu.host import rcm as jax_rcm
+
+    if source == "klein":
+        cj = JaxCSR.from_coo(jax_read_mm(str(data_dir
+                                             / "matrix_band_klein.mtx")))
+    elif source == "stencil":
+        cj = jax_generate_stencil(6, 5, 4)
+    else:
+        from sparsebench_tpu.host.rgl import rgl_csr
+
+        cj = rgl_csr(400, band=50, deg=5.0, seed=4)
+    c = host.HostCSR(row_ptr=cj.row_ptr, col=cj.col, val=cj.val, nr=cj.nr,
+                     nc=cj.nc)
+    perm = host.rcm_permutation(c)
+    np.testing.assert_array_equal(perm, jax_rcm.rcm_permutation(cj))
+    np.testing.assert_array_equal(host._rcm_numpy(c), jax_rcm._rcm_numpy(cj))
+    assert_same_csr(host.permute_csr(c, perm), jax_rcm.permute_csr(cj, perm))
+    np.testing.assert_array_equal(host.inverse_permutation(perm),
+                                  jax_rcm.inverse_permutation(perm))
+    with pytest.raises(ValueError, match="square"):
+        host.rcm_permutation(host.HostCSR(row_ptr=np.zeros(3, np.int64),
+                                          col=np.zeros(0, np.int64),
+                                          val=np.zeros(0), nr=2, nc=3))
+
+
+@pytest.mark.parametrize("source", ["klein", "rank1of3"])
+def test_csr_diagonal_and_spmv_match_jax(source, data_dir):
+    if source == "klein":
+        cj = JaxCSR.from_coo(jax_read_mm(str(data_dir
+                                             / "matrix_band_klein.mtx")))
+        c = host.read_mm(str(data_dir / "matrix_band_klein.mtx"))
+    else:
+        cj = jax_generate_stencil(4, 3, 2, rank=1, size=3)
+        c = host.generate_stencil(4, 3, 2, rank=1, size=3)
+    np.testing.assert_array_equal(c.diagonal(), cj.diagonal())
+    x = np.random.default_rng(0).standard_normal(c.total_nr)  # global cols
+    np.testing.assert_allclose(c.spmv(x), cj.spmv(x), rtol=1e-14, atol=1e-14)

@@ -1,6 +1,7 @@
 """The kernels of sparsebench_tpu_torch (the DIA SpMV K1; the stencil's
-K2-K5): their wrappers, their build and, on a CUDA card, the kernels
-themselves — without the JAX package.
+K2-K5; the bslab SpMV K6 and its windowed form K7): their wrappers, their
+build and, on a CUDA card, the kernels themselves — without the JAX
+package.
 
 Here on the CPU the dispatch, the refusals and the build lookup run; the
 tests marked ``cuda`` skip without a card. On a machine with an NVIDIA
@@ -17,7 +18,9 @@ without FMA contraction — is expected to hold with equality at 0. The
 stencil kernels do the same, and their elementwise outputs are held to be
 bit-identical to the plain versions; their dots, summed per block, are
 held against their exact value to the bound of that summation,
-(2 ceil(log2 n) + 64) eps sum|terms|.
+(2 ceil(log2 n) + 64) eps sum|terms|. K6 and K7 sum each output's slices
+in the plain version's order with each operation rounded on its own, and
+are held to be bit-identical to it.
 """
 
 import math
@@ -28,11 +31,18 @@ import torch
 
 from sparsebench_tpu_torch import cli
 from sparsebench_tpu_torch.config import DTypePolicy, resolve_device
-from sparsebench_tpu_torch.formats import get_format
+from sparsebench_tpu_torch.formats import from_csr, get_format
+from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix, resolve_impl
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
-from sparsebench_tpu_torch.host import generate_stencil
+from sparsebench_tpu_torch.host import HostCSR, generate_stencil, read_mm
+from sparsebench_tpu_torch.ops.bslab_spmv import (
+    bslab_spmv,
+    bslab_spmv_torch,
+    bslab_spmv_win,
+    win_fits,
+)
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
 from sparsebench_tpu_torch.ops.stencil import (
@@ -104,8 +114,7 @@ def test_impl_and_device_resolution(monkeypatch):
 
 def test_registry_names_roadmap_item():
     assert get_format("dia") is DiaMatrix
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        get_format("bslab")
+    assert get_format("bslab") is BslabMatrix
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
         get_format("bsell")
     with pytest.raises(ValueError, match="unknown"):
@@ -146,7 +155,8 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
-        "cg_fused.cu", "dia_spmv.cu", "stencil.cu", "stencil_cg_vmem.cu"]
+        "bslab_spmv.cu", "cg_fused.cu", "dia_spmv.cu", "stencil.cu",
+        "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -508,3 +518,181 @@ def test_cli_stencil_default_device_runs_the_kernels(variant, kernels,
     if variant == "vmem":
         assert ran[4] == 2  # one launch per solve: warm-up and timed
     assert "| format stencil |" in out and "Difference between" in out
+
+
+# -- K6 and K7, the bslab SpMV ------------------------------------------------
+
+DATA = __import__("pathlib").Path(__file__).parent / "data"
+
+
+def random_csr(nr, nc, density, seed):
+    rng = np.random.default_rng(seed)
+    r, c = np.nonzero(rng.random((nr, nc)) < density)
+    row_ptr = np.zeros(nr + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=nr), out=row_ptr[1:])
+    return HostCSR(row_ptr=row_ptr, col=c.astype(np.int64),
+                   val=rng.standard_normal(r.size), nr=nr, nc=nc)
+
+
+def bslab_case(name, device):
+    """A BslabMatrix of each slice class mix (f32 policy)."""
+    from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+
+    f32 = DTypePolicy.from_names("f32")
+    if name == "stencil":
+        return BslabMatrix.from_stencil(10, 9, 7, device=device, policy=f32)[0]
+    if name == "stencil_sub8":
+        return BslabMatrix.from_stencil(8, 8, 20, device=device, policy=f32,
+                                        sub=8)[0]
+    if name == "klein":
+        csr = read_mm(str(DATA / "matrix_band_klein.mtx"))
+    elif name.startswith("test"):
+        csr = read_mm(str(DATA / "testMatrices" / f"{name}.mtx"))
+    elif name == "random":
+        csr = random_csr(300, 420, 0.03, 1)
+    else:  # RGL: exact caps, one wide pool, grouped pools of span 2
+        opts = {"rgl": {}, "rgl_pool": dict(force_caps=(1,) * 3),
+                "rgl_span2": dict(force_caps=(1,) * 3, force_span=2)}[name]
+        return rgl_bslab(3000, band=128, deg=10.0, seed=11, sub=8,
+                         device=device, policy=f32, **opts)[0]
+    return BslabMatrix.from_csr(csr, f32, device=device, sub=8)
+
+
+BSLAB_CASES = ["stencil", "stencil_sub8", "klein", "test0", "test8",
+               "random", "rgl", "rgl_pool", "rgl_span2"]
+
+
+def slices_as(A, td):
+    sl = A.slices
+    return sl._replace(vals_aff=sl.vals_aff.to(td), vals_gen=sl.vals_gen.to(td),
+                       vals_wide=sl.vals_wide.to(td))
+
+
+def test_bslab_plain_version_matches_the_host_csr():
+    """The plain version on the CPU (what the kernels are held to) against
+    the host CSR product, f64, every slice class."""
+    from sparsebench_tpu_torch.host import rgl_csr
+
+    A = bslab_case("rgl_span2", CPU)
+    assert A.s_wide > 0 and A.s_gen > 0
+    x = np.random.default_rng(0).standard_normal(A.nc)
+    y = bslab_spmv_torch(slices_as(A, torch.float64), torch.from_numpy(x),
+                         sub=A.sub, lead=A.lead, x_rows=A.x_rows)
+    want = rgl_csr(3000, band=128, deg=10.0, seed=11).spmv(x)
+    np.testing.assert_allclose(y.reshape(-1)[:A.nr].numpy(), want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def test_bslab_window_fit():
+    """K7 needs its 2W-row window in a block's 227 KB: f32 fits where f64
+    may not, and the wrapper's refusal names the size."""
+    A = bslab_case("rgl", CPU)
+    sl = A.slices
+    assert win_fits(sl, A.w_blocks, torch.float32)
+    assert win_fits(sl, 224, torch.float32)       # 100^3 at sub 64
+    assert not win_fits(sl, 224, torch.float64)
+    assert not win_fits(sl, 760, torch.float32)   # 200^3 at sub 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("case", BSLAB_CASES)
+def test_bslab_kernels_equal_plain(case, pair, cuda_device):
+    """K6 and K7 against the plain version, bit for bit."""
+    A = bslab_case(case, cuda_device)
+    sl = slices_as(A, DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(A.nr).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    y_ref = bslab_spmv_torch(sl, x, sub=A.sub, lead=A.lead, x_rows=A.x_rows)
+    before = bslab_spmv.launches
+    y = bslab_spmv(sl, x, sub=A.sub, lead=A.lead)
+    assert bslab_spmv.launches == before + 1
+    assert bool(torch.isfinite(y).all())
+    assert_bits_equal(y, y_ref)
+    if win_fits(sl, A.w_blocks, x.dtype):
+        before = bslab_spmv_win.launches
+        y = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
+                           w_blocks=A.w_blocks)
+        assert bslab_spmv_win.launches == before + 1
+        assert_bits_equal(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_bslab_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    A = bslab_case("rgl_pool", cuda_device)
+    x = torch.ones(A.nc, device=cuda_device)
+    with pytest.raises(TypeError, match="no kernel"):
+        bslab_spmv(A.slices, x.double(), sub=A.sub, lead=A.lead)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bslab_spmv(A.slices, x.cpu(), sub=A.sub, lead=A.lead)
+    with pytest.raises(ValueError, match="contiguous"):
+        bslab_spmv(A.slices, x, sub=A.sub * 2, lead=A.lead)
+    with pytest.raises(ValueError, match="shared memory"):
+        bslab_spmv_win(A.wchunk, A.slices, x, sub=A.sub, lead=A.lead,
+                       w_blocks=1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", [("auto", "kernel"),
+                                         ("kernel", "kernel"),
+                                         ("kernel_win", "kernel_win")])
+def test_bslab_cg_through_the_kernels_equals_plain(impl, kernel, cuda_device):
+    """f64 CG on the RGL matrix with a random b: the kernel and the plain
+    version give the same k and history, bit for bit."""
+    from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+
+    f64 = DTypePolicy.from_names("f64")
+    b = np.random.default_rng(3).standard_normal(3000)
+    results = []
+    for which in (impl, "torch"):
+        A, _ = rgl_bslab(3000, band=128, deg=10.0, seed=11, sub=8,
+                         device=cuda_device, policy=f64, impl=which,
+                         force_caps=(1,) * 3, force_span=2)
+        assert A.impl == (kernel if which == impl else "torch")
+        results.append(cg.solve_cg(A, b, itermax=40, verbose=False))
+    rk, rt = results
+    assert rk.iterations == rt.iterations == 40
+    np.testing.assert_array_equal(rk.residual_history, rt.residual_history)
+    np.testing.assert_array_equal(rk.x, rt.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv,kernel", [
+    (["--fmt", "bslab", "-x", "16", "-y", "16", "-z", "16"], "K6"),
+    (["--fmt", "sell", "-x", "16", "-y", "16", "-z", "16"], "K6"),
+    (["-m", "generateRGL", "-x", "20000", "-y", "1", "-z", "1", "--band",
+      "128"], "K6"),
+    (["-m", "generateRGL", "-x", "20000", "-y", "1", "-z", "1", "--band",
+      "128", "--impl", "kernel_win"], "K7"),
+])
+def test_cli_bslab_default_device_runs_the_kernels(argv, kernel, cuda_device,
+                                                   capsys):
+    before = (bslab_spmv.launches, bslab_spmv_win.launches)
+    assert cli.main(["-t", "cg", "-i", "30", *argv]) == 0
+    out = capsys.readouterr().out
+    ran = (bslab_spmv.launches - before[0],
+           bslab_spmv_win.launches - before[1])
+    assert (ran[0] > 0, ran[1] > 0) == (kernel == "K6", kernel == "K7")
+    assert "Difference between" in out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["sell", "ell", "crs", "ccrs"])
+def test_gather_formats_on_the_card_match_the_cpu(fmt, cuda_device):
+    """SELL (bridged to bslab on the card), ELL, CRS and CCRS: the f64 SpMV
+    on the card against the CPU's, and an f64 CG through it to x = 1."""
+    csr = random_csr(300, 300, 0.03, 4)
+    f64 = DTypePolicy.from_names("f64")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(300))
+    A_c = from_csr(fmt, csr, f64, device=CPU)
+    A_g = from_csr(fmt, csr, f64, device=cuda_device)
+    assert (getattr(A_g, "fast", None) is not None) == (fmt == "sell")
+    np.testing.assert_allclose(A_g.spmv(x.to(cuda_device)).cpu().numpy(),
+                               A_c.spmv(x).numpy(), rtol=1e-13, atol=1e-13)
+    stencil = generate_stencil(8, 8, 8)
+    A = from_csr(fmt, stencil, f64, device=cuda_device)
+    _x, b, xexact = cg.init_vectors(stencil)
+    before = bslab_spmv.launches
+    res = cg.solve_cg(A, b, itermax=60, verbose=False)
+    assert cg.check_residual(res.x, xexact) < 1e-10
+    assert (bslab_spmv.launches > before) == (fmt == "sell")
