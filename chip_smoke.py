@@ -45,11 +45,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    torch.nn.functional.conv3d; CG x150 seconds of each stencil variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
    GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M, and
-   bslab CG x150 seconds on each.
+   bslab CG x150 seconds on each;
+3d. the multi-RHS DIA kernel K8 against dia_spmm_torch, bit for bit, and
+   row c of its result against K1 on row c of the block, bit for bit, for
+   k in {1, 2, 8, 9, 16}, (bf16, f32), (f32, f32) and (f64, f64), at
+   10x9x7, 100^3, 200^3 and klein;
+4d. the solver family through the CLI: ``-t cg --nrhs 8`` at 100^3 and
+   ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 count set to 0
+   before and read after (at least 150 launches a solve); ``-t gmres``,
+   ``cheb``, ``bicgstab`` and ``minres``, ``-t cg --precond
+   jacobi|cheb|cheb-jacobi``, ``--cg-variant sstep|pipe``, ``--refine`` and
+   ``--checkpoint`` at 100^3 with the K1 count read; then the f64 history
+   through the kernels against the plain version for ``--nrhs 4`` and
+   GMRES(10) at 40^3, and that f32 matrix products run without TF32;
+5d. times: K8 at k = 8 (100^3 and 200^3) beside its bound, eight K1 calls,
+   the plain version and cuSPARSE SpMM (torch.sparse.mm of the CSR matrix
+   and an (n, 8) block made outside the timed region); blocked CG x150
+   seconds for 8 right-hand sides, total and per right-hand side, beside
+   one single-RHS solve; each new solver's seconds at 100^3.
 
-A bound is the larger of the bytes a call must move (each input read once,
-each output written once) over 3.35 TB/s and its operations over
-67 TFLOP/s (f32), the H100 SXM's published rates at 700 W. The last three
+Phases 3d-5d run after 5c. A bound is the larger of the bytes a call must
+move (each input read once, each output written once) over 3.35 TB/s and
+its operations over 67 TFLOP/s (f32), the H100 SXM's published rates at
+700 W. The last three
 lines are the card's name and power limit, a JSON object of the kernels and
 the result line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits non-zero before printing any result.
@@ -963,6 +981,302 @@ def phase5c_times(dev, gpu):
     return out
 
 
+# -- K8 and the solver family ---------------------------------------------------
+
+K_SET = (1, 2, 8, 9, 16)
+K_TIMED = 8
+
+
+def spmm_matrices(dev):
+    """(name, DiaMatrix) of phase 3d: the generated stencil at 10x9x7,
+    100^3 and 200^3 (bf16 diagonals) and klein (f64, uncompressed)."""
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.host import read_mm
+
+    f32 = DTypePolicy.from_names("f32")
+    for dims in [(10, 9, 7), (100, 100, 100), (200, 200, 200)]:
+        yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]}",
+               DiaMatrix.from_stencil(*dims, device=dev, policy=f32,
+                                      impl="kernel")[0])
+    klein = read_mm(str(REPO / "tests" / "data" / "matrix_band_klein.mtx"))
+    yield "matrix_band_klein.mtx", DiaMatrix.from_csr(
+        klein, DTypePolicy.from_names("f64"), device=dev, impl="kernel",
+        compress=False)
+
+
+def phase3d_spmm(dev):
+    """K8 against dia_spmm_torch and, row by row, against K1, bit for bit;
+    returns the largest |K8 - plain|."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
+    from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+    gen = torch.Generator(device=dev).manual_seed(88)
+    max_err = 0.0
+    for name, A in spmm_matrices(dev):
+        for td, tx in BSLAB_PAIRS:
+            data = A.data.to(dts[td])
+            for k in K_SET:
+                X = torch.randn((k, A.nr), generator=gen, device=dev,
+                                dtype=torch.float64).to(dts[tx])
+                before = dia_spmm.launches
+                Y = dia_spmm(data, X, A.offsets, A.nr)
+                check(dia_spmm.launches == before + 1,
+                      "the K8 counter did not count the launch")
+                Yp = dia_spmm_torch(data, X, A.offsets, A.nr)
+                same = bits_equal(Y, Yp)
+                same_k1 = all(bits_equal(Y[c], dia_spmv(data, X[c],
+                                                        A.offsets, A.nr))
+                              for c in range(k))
+                torch.cuda.synchronize()
+                ok = same and same_k1 and bool(torch.isfinite(Y).all())
+                max_err = max(max_err,
+                              float((Y.double() - Yp.double()).abs().max()))
+                print(f"[3d K8] {name} data {td} X {tx} k={k}: bit-identical "
+                      f"to the plain version {same}, to K1 row by row "
+                      f"{same_k1} {'ok' if ok else 'FAIL'}")
+                check(ok, f"K8 disagrees on {name} {td}/{tx} k={k}")
+                del X, Y, Yp
+        del A, data
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def parse_residuals(text: str):
+    return [float(v) for v in re.findall(r"Residual = (\S+)", text)]
+
+
+def phase4d_solvers(cli, gpu, tmpdir: Path):
+    """The solver family through the CLI; returns K8's launches over the
+    --nrhs 8 runs (the count set to 0 before them and read after)."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
+    from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+
+    hpcg = ["-f", str(REPO / "hpcg.par")]
+    dia_spmm.launches = 0
+    for size, argv in (("100^3", ["-t", "cg", "--nrhs", str(K_TIMED)]),
+                       ("200^3", [*hpcg, "-t", "cg", "--nrhs",
+                                  str(K_TIMED)])):
+        before = dia_spmm.launches
+        text = run_cli(cli.main, argv)
+        n = dia_spmm.launches - before
+        k, diff = parse_cg(text)
+        print(f"[4d solvers] {size} -t cg --nrhs {K_TIMED}: k={k} difference="
+              f"{diff} K8 launches={n} | {gpu}")
+        check(f"Blocked CG: {K_TIMED} right-hand sides" in text,
+              "the blocked CG line is missing")
+        check(k == 150 and diff < F32_DIFF_BOUND,
+              f"--nrhs {K_TIMED} at {size}: k={k}, difference {diff}")
+        # warm-up and timed solve: each 1 + 149 products of the block
+        check(n >= 2 * 150, f"--nrhs at {size}: only {n} K8 launches")
+    launches = dia_spmm.launches
+    print(f"[4d solvers] K8 launches over the --nrhs runs: {launches}")
+    ck = tmpdir / "cg_checkpoint.npz"
+    ck.unlink(missing_ok=True)
+    runs = [
+        (["-t", "gmres"], "residual"), (["-t", "cheb"], "residual"),
+        (["-t", "bicgstab"], "diff"), (["-t", "minres"], "diff"),
+        (["-t", "cg", "--precond", "jacobi"], "diff"),
+        (["-t", "cg", "--precond", "cheb"], "diff"),
+        (["-t", "cg", "--precond", "cheb-jacobi"], "diff"),
+        (["-t", "cg", "--cg-variant", "sstep"], "diff"),
+        (["-t", "cg", "--cg-variant", "pipe"], "diff"),
+        (["-t", "cg", "--refine"], "diff"),
+        (["-t", "cg", "--checkpoint", str(ck)], "diff"),
+    ]
+    # the initial residuals of GMRES (b = 1) and of the others (x0 = 0)
+    from sparsebench_tpu_torch.formats.stencil import stencil_row_counts
+
+    r0 = {"gmres": 1000.0, "cheb": float(np.linalg.norm(
+        27.0 - (stencil_row_counts(100, 100, 100) - 1.0)))}
+    for argv, judge in runs:
+        before = dia_spmv.launches
+        text = run_cli(cli.main, argv)
+        n = dia_spmv.launches - before
+        res = parse_residuals(text) or [float(v) for v in re.findall(
+            r"checkpoint @ iteration \d+ residual (\S+) ->", text)]
+        if argv[:2] == ["-t", "cheb"]:
+            res = [float(re.search(r"final residual (\S+)\)", text).group(1))]
+        d = re.search(r"Difference between computed and exact\s+=\s+(\S+)",
+                      text)
+        diff = float(d.group(1)) if d else float("nan")
+        print(f"[4d solvers] 100^3 {' '.join(argv)}: last residual "
+              f"{res[-1]:.6e}, difference {diff} K1 launches={n} | {gpu}")
+        check(n > 0 and np.isfinite(res).all(),
+              f"{argv}: {n} K1 launches, residuals {res[-3:]}")
+        if judge == "diff":
+            check(diff < F32_DIFF_BOUND, f"{argv}: difference {diff}")
+        else:  # GMRES and Chebyshev print no exact-solution check
+            check(res[-1] < 1e-6 * r0[argv[1]],
+                  f"{argv}: last residual {res[-1]}, initial {r0[argv[1]]}")
+    check(ck.exists(), "--checkpoint wrote no file")
+    # f64 histories through the kernels against the plain versions
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.solvers.cg import init_vectors
+    from sparsebench_tpu_torch.solvers.cg_multi import solve_cg_multi
+    from sparsebench_tpu_torch.solvers.gmres import solve_gmres
+
+    f64 = DTypePolicy.from_names("f64")
+    out = {}
+    for impl in ("kernel", "torch"):
+        A, counts = DiaMatrix.from_stencil(40, 40, 40, device=torch.device(
+            "cuda"), policy=f64, impl=impl)
+        _x, b, _xe = init_vectors(row_lengths=counts)
+        B = np.random.default_rng(12).standard_normal((A.nr, 4))
+        B[:, 0] = b
+        out[impl] = (solve_cg_multi(A, B, itermax=150, verbose=False),
+                     solve_gmres(A, np.ones(A.nr), itermax=150, restart=10,
+                                 verbose=False))
+    for i, what in enumerate(("--nrhs 4", "-t gmres")):
+        rk, rt = out["kernel"][i], out["torch"][i]
+        hk, ht = rk.residual_history, rt.residual_history
+        h0 = ht[0] if i == 0 else np.sqrt(40.0 ** 3)
+        sel = ~np.isnan(ht) & (ht >= NOISE_FLOOR * h0)
+        rel = float(np.max(np.abs(hk[sel] - ht[sel]) / ht[sel]))
+        same = bool(np.array_equal(hk, ht, equal_nan=True))
+        print(f"[4d solvers] f64 40^3 {what} history kernel vs plain: "
+              f"k={rk.iterations}/{rt.iterations}, {int(sel.sum())} entries "
+              f"above the noise floor, max rel diff {rel:.3e} (rtol "
+              f"{HIST_RTOL}); bit-identical {same}")
+        check(rk.iterations == rt.iterations and rel <= HIST_RTOL,
+              f"f64 {what} history differs")
+    # GMRES's and s-step CG's products must run in full f32
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matrix products would run in TF32")
+    print("[4d solvers] f32 matmul: allow_tf32 False, precision highest")
+    return launches
+
+
+def phase5d_times(dev, gpu):
+    """K8 at k = 8 beside its bound, eight K1 calls, the plain version and
+    cuSPARSE SpMM; blocked and single-RHS CG seconds; each new solver's
+    seconds at 100^3. Returns {n: {...}} of K8's numbers."""
+    import torch
+
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
+    from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+    from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
+    from sparsebench_tpu_torch.solvers.cg_multi import solve_cg_multi
+
+    f32 = DTypePolicy.from_names("f32")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k = K_TIMED
+    out = {}
+    for n in (100, 200):
+        A, counts = DiaMatrix.from_stencil(n, n, n, device=dev, policy=f32,
+                                           impl="kernel")
+        X = torch.randn((k, A.nr), generator=gen, device=dev)
+        rows = [X[c] for c in range(k)]
+        d, offs, nr = A.data, A.offsets, A.nr
+        k_ms, p_ms, ms, eager = time_pair(
+            lambda: dia_spmm(d, X, offs, nr),
+            lambda: dia_spmm_torch(d, X, offs, nr))
+        k1x8 = min(time_graph(lambda: [dia_spmv(d, x, offs, nr)
+                                       for x in rows]) for _ in range(2))
+        csr = dia_to_csr(A)
+        X_nk = X.t().contiguous()  # the (n, k) block, outside the timing
+        lib_err = float((torch.sparse.mm(csr, X_nk).t()
+                         - dia_spmm(d, X, offs, nr)).abs().max())
+        lib_ms = min(time_graph(lambda: torch.sparse.mm(csr, X_nk))
+                     for _ in range(2))
+        del csr, X_nk
+        nbytes = len(offs) * nr * d.element_size() + 2 * k * nr * 4
+        b_ms, b_by = bound(nbytes, 2 * A.nnz * k)
+        out[n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_ms, eager_ms=eager, k1x8_ms=k1x8)
+        print(f"[5d times] K8 {n}^3 k={k} f32 (bf16 diagonals): kernel "
+              f"{ms['kernel']} ms, plain {ms['plain']} ms (graph replay); "
+              f"kernel eager {eager:.6f} ms; {k} x K1 {k1x8:.6f} ms; "
+              f"{nbytes} B -> kernel {nbytes / (k_ms * 1e-3) / 1e9:.1f} "
+              f"GB/s; bound {b_ms:.6f} ms ({b_by}); cuSPARSE SpMM CSR f32 "
+              f"{lib_ms:.6f} ms (max|spmm - K8| {lib_err:.3e}) | {gpu}")
+        _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
+        B = np.repeat(b[:, None], k, axis=1)
+        multi = solve_cg_multi(A, B, itermax=150, verbose=False)
+        single = solve_cg(A, b, itermax=150, verbose=False)
+        diff = float(np.max(np.abs(multi.x - xexact[:, None])))
+        print(f"[5d times] {n}^3 f32 CG x150 --nrhs {k}: "
+              f"{multi.solve_seconds:.6f} s, "
+              f"{multi.solve_seconds / k:.6f} s per right-hand side; one "
+              f"single-RHS solve {single.solve_seconds:.6f} s (max|x-1| "
+              f"{diff:.3e}) | {gpu}")
+        check(multi.iterations == 150 and diff < F32_DIFF_BOUND,
+              f"{n}^3 blocked CG: k={multi.iterations}, max|x-1| {diff}")
+        out[n]["cg_nrhs8_s"] = multi.solve_seconds
+        out[n]["cg_single_s"] = single.solve_seconds
+        del A, X, rows, d, multi
+        torch.cuda.empty_cache()
+    solver_seconds(dev, gpu)
+    return out
+
+
+def solver_seconds(dev, gpu) -> None:
+    """Timed-solve seconds of each new solver at 100^3, f32, through K1
+    (each solver's own warm-up first), beside standard CG's."""
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.solvers.bicgstab import solve_bicgstab
+    from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
+    from sparsebench_tpu_torch.solvers.chebyshev import solve_chebyshev
+    from sparsebench_tpu_torch.solvers.gmres import solve_gmres
+    from sparsebench_tpu_torch.solvers.minres import solve_minres
+    from sparsebench_tpu_torch.solvers.precond import cheb_precond_for
+    from sparsebench_tpu_torch.solvers.refine import solve_cg_refine
+
+    import torch
+
+    f32 = DTypePolicy.from_names("f32")
+    A, counts = DiaMatrix.from_stencil(100, 100, 100, device=dev, policy=f32,
+                                       impl="kernel")
+    A_lo, _ = DiaMatrix.from_stencil(100, 100, 100, device=dev,
+                                     policy=DTypePolicy.from_names("bf16"),
+                                     impl="kernel")
+    _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
+    inv = np.full(A.nr, 1.0 / 27.0)
+    cheb = cheb_precond_for(A, A.nr, torch.float32)
+    cheb_j = cheb_precond_for(A, A.nr, torch.float32, inv_diag=inv)
+    runs = {
+        "cg standard": lambda: solve_cg(A, b, verbose=False),
+        "cg --precond jacobi": lambda: solve_cg(A, b, inv_diag=inv,
+                                                verbose=False),
+        "cg --precond cheb": lambda: solve_cg(A, b, precond=cheb,
+                                              verbose=False),
+        "cg --precond cheb-jacobi": lambda: solve_cg(
+            A, b, inv_diag=inv, precond=cheb_j, verbose=False),
+        "cg --cg-variant cs": lambda: solve_cg(A, b, variant="cs",
+                                               verbose=False),
+        "cg --cg-variant sstep": lambda: solve_cg(A, b, variant="sstep",
+                                                  verbose=False),
+        "cg --cg-variant pipe": lambda: solve_cg(A, b, variant="pipe",
+                                                 verbose=False),
+        "cg --refine": lambda: solve_cg_refine(A, b, A_lo=A_lo,
+                                               inner_iters=150,
+                                               verbose=False),
+        "gmres": lambda: solve_gmres(A, np.ones(A.nr, np.float32),
+                                     verbose=False),
+        "cheb": lambda: solve_chebyshev(A, b, verbose=False),
+        "bicgstab": lambda: solve_bicgstab(A, b, verbose=False),
+        "minres": lambda: solve_minres(A, b, verbose=False),
+    }
+    for name, fn in runs.items():
+        res = fn()
+        diff = (float(np.max(np.abs(res.x - xexact))) if name != "gmres"
+                else float("nan"))
+        print(f"[5d times] 100^3 f32 {name} x150: {res.solve_seconds:.6f} s "
+              f"(iterations {res.iterations}, final residual "
+              f"{res.final_normr:.6e}, max|x-1| {diff:.3e}) | {gpu}")
+        check(np.isfinite(res.final_normr), f"{name}: non-finite residual")
+
+
 def main() -> int:
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -1018,6 +1332,7 @@ def main() -> int:
     max_err = phase3_dia(dev)
     err_b, dots_rel = phase3b_stencil(dev)
     err_c, auto_c = phase3c_bslab(dev)
+    err_d = phase3d_spmm(dev)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -1073,11 +1388,14 @@ def main() -> int:
     tmpdir = REPO / "build" / "chip_smoke"
     tmpdir.mkdir(parents=True, exist_ok=True)
     launches_c = phase4c_bslab(cli, gpu, tmpdir, auto_kernel)
+
+    # -- phase 4d: the solver family through the CLI -------------------------
+    launches_d = phase4d_solvers(cli, gpu, tmpdir)
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "sparsebench_tpu"))
     check(not jax_mods, f"the port imported JAX or the JAX package: "
           f"{jax_mods[:5]}")
-    print("[4c bslab] no module of JAX or of the JAX package was imported")
+    print("[4d solvers] no module of JAX or of the JAX package was imported")
 
     # -- phase 5: times of K1 -----------------------------------------------
     timing = {}
@@ -1117,6 +1435,9 @@ def main() -> int:
 
     # -- phase 5c: times of K6 and K7 and the bslab CG -----------------------
     times_c = phase5c_times(dev, gpu)
+
+    # -- phase 5d: times of K8, blocked CG and the solver family -------------
+    times_d = phase5d_times(dev, gpu)
 
     src = "sparsebench_tpu_torch/csrc/"
 
@@ -1158,6 +1479,9 @@ def main() -> int:
             r.update({f"{k}_{case}": v
                       for k, v in times_c[key].get(case, {}).items()})
         kernels.append(r)
+    kernels.append(row("dia_spmm", "dia_spmm.cu",
+                       "sparsebench_tpu/ops/dia_pallas.py:248", launches_d,
+                       err_d, times_d[100], times_d[200]))
     kernels[1]["launches_dots_form"] = launches_b["K2 dots"]
     kernels[1]["dots_max_rel_err"] = dots_rel["K2"]
     kernels[2]["dots_max_rel_err"] = dots_rel["K3"]

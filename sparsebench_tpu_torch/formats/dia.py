@@ -12,8 +12,9 @@ bf16 compression of f32 values) is the JAX package's, so byte counts and
 results line up; only the (ndiag, nr_pad/128, 128) TPU tiling is flattened
 to (ndiag, nr_pad).
 
-``impl`` picks the SpMV: ``kernel`` (the CUDA kernel, ops/dia_spmv.py) or
-``torch`` (its plain version). ``auto`` is ``kernel`` on CUDA and ``torch``
+``impl`` picks the SpMV and the multi-RHS product ``spmm_kn``: ``kernel``
+(the CUDA kernels, ops/dia_spmv.py and ops/dia_spmm.py) or ``torch``
+(their plain versions). ``auto`` is ``kernel`` on CUDA and ``torch``
 on the CPU; ``kernel`` on the CPU raises. Unlike the JAX package there is
 no self-check that quietly swaps a failing kernel for the plain path: a
 wrong kernel fails loudly.
@@ -31,6 +32,7 @@ from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.base import default_policy, round_up
 from sparsebench_tpu_torch.formats.registry import register_format
 from sparsebench_tpu_torch.host import OFFSETS_27, HostCSR, generate_stencil
+from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
 from sparsebench_tpu_torch.ops.dia_spmv import (
     MAX_DIAGS,
     dia_spmv,
@@ -313,3 +315,17 @@ class DiaMatrix:
 
     def _spmv_torch(self, x: torch.Tensor) -> torch.Tensor:
         return dia_spmv_torch(self.data, x, self.offsets, self.nr)
+
+    def spmm_kn(self, X: torch.Tensor) -> torch.Tensor:
+        """Multi-RHS SpMV in the slab-major layout: X is (k, nc), returns
+        (k, nr) = (A @ X.T).T, the diagonals read once for all k rows (K8,
+        ops/dia_spmm.py, or its plain version). bf16 X is widened to f32
+        for the sum and the result narrowed back, as ``spmv`` does (the JAX
+        package's Pallas path, formats/dia.py:437-448), so row c of the
+        result is ``spmv(X[c])`` bit for bit."""
+        out_dtype = X.dtype
+        if out_dtype == torch.bfloat16:
+            X = X.to(torch.float32)
+        fn = dia_spmm if self.impl == "kernel" else dia_spmm_torch
+        return fn(self.data, X.contiguous(), self.offsets, self.nr).to(
+            out_dtype)

@@ -1,7 +1,10 @@
 """Where the time of one CG solve goes, on a CUDA card.
 
     python -m sparsebench_tpu_torch.profile_cg [-n 100 200] [-i 150]
-        [--fmt dia|stencil|bslab|rgl] [--variant standard|cs|fused|vmem]
+        [--fmt dia|stencil|bslab|rgl]
+        [--variant standard|cs|sstep|pipe|fused|vmem]
+        [--solver cg|nrhs|gmres|cheb|bicgstab|minres]
+    python -m sparsebench_tpu_torch.profile_cg --patterns [-n 100 200]
 
 For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
 diagonals (K1), as the matrix-free stencil operator (K2-K5) or as bslab
@@ -9,15 +12,28 @@ diagonals (K1), as the matrix-free stencil operator (K2-K5) or as bslab
 seed 1; bslab, K6) with a seeded random b (b = 1 is an eigenvector of it,
 on which CG stops after one step). It prints:
 
-* the wall of one solve loop (``CG_LOOPS[variant]``): host clock
-  ending in a synchronise, best of 3, without the profiler;
+* the wall of one solve loop (``--solver cg``: the CG variant's loop;
+  ``nrhs``: blocked CG over ``NRHS`` copies of b, K8 on DIA; ``gmres``:
+  itermax/30 restart cycles; ``cheb``, ``bicgstab``, ``minres``: their
+  loops, Chebyshev's bounds estimated once beforehand): host clock ending
+  in a synchronise, best of 3, without the profiler;
 * under ``torch.profiler``: the device-busy time and its share of that
   wall, the port's own kernels' share of device time and each of their
   device times and launch counts by name, device kernels per iteration
   and the heaviest kernels;
 * the wall of one CUDA-graph replay of the same loop, which drops the host's
-  launch overhead, and whether its history equals the eager one (not for
-  ``vmem``, which is one cooperative launch).
+  launch overhead, and whether its result equals the eager one (not for
+  ``vmem``, which is one cooperative launch, nor for the loops that read a
+  flag on the host: ``sstep``, ``pipe`` and GMRES's restarts).
+
+``--patterns`` times the multi-RHS DIA kernel (K8) instead: for the n^3
+stencil as DIA (27 diagonals, bf16) and for synthetic diagonal patterns of
+the same length (one diagonal; 27 consecutive offsets; one offset in each
+of 3 planes; 9 rows of 3 planes), at each k of ``PATTERN_KS``, K8 on a
+(k, n^3) f32 block against k K1 calls on its rows, each the better of two
+CUDA-graph replays of 20 calls timed with CUDA events, with the bytes K8
+moves at least (diagonals once, X and Y once). The patterns separate the
+cost of the matrix stream from that of the shifted x loads.
 
 ``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
 does for the CLI. Every time line carries the card's name and power limit
@@ -41,13 +57,29 @@ from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
-from sparsebench_tpu_torch.solvers.cg import CG_LOOPS, init_vectors
+from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
+from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+from sparsebench_tpu_torch.solvers.bicgstab import bicgstab_loop
+from sparsebench_tpu_torch.solvers.cg import (
+    CG_LOOPS,
+    CG_VARIANTS,
+    init_vectors,
+    resolve_cg_loop,
+)
+from sparsebench_tpu_torch.solvers.cg_multi import cg_multi_loop
+from sparsebench_tpu_torch.solvers.chebyshev import cheby_loop, estimate_bounds
+from sparsebench_tpu_torch.solvers.gmres import gmres_cycle
+from sparsebench_tpu_torch.solvers.minres import minres_loop
 
 # the port's kernels, by the names their device events carry
 KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
            "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
            "stencil_cg_vmem_kernel", "bslab_spmv_kernel",
-           "bslab_spmv_win_kernel")
+           "bslab_spmv_win_kernel", "dia_spmm_kernel")
+SOLVERS = ("cg", "nrhs", "gmres", "cheb", "bicgstab", "minres")
+GMRES_RESTART = 30
+NRHS = 8  # right-hand sides of --solver nrhs
+PATTERN_KS = (1, 2, 4, 8, 16)  # block widths of --patterns
 OPERATORS = {"dia": DiaMatrix, "stencil": StencilOperator,
             "bslab": BslabMatrix}
 
@@ -60,6 +92,39 @@ def _best_wall(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return min(walls)
+
+
+def _capture(fn, calls: int = 1):
+    """(graph, last result): ``calls`` calls of ``fn()`` captured in one
+    CUDA graph after a warm-up on a side stream, replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, out
+
+
+def _replay_ms(fn, calls: int = 20) -> float:
+    """Milliseconds per call of ``fn()``: the better of two replays of one
+    CUDA graph of ``calls`` calls, timed with CUDA events."""
+    graph, _ = _capture(fn, calls)
+    best = float("inf")
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
 
 
 def operator(fmt: str, n: int, dev: torch.device):
@@ -76,17 +141,42 @@ def operator(fmt: str, n: int, dev: torch.device):
     return A, torch.from_numpy(b).to(dev), f"{n}^3 {fmt}"
 
 
+def solve_loop(solver: str, variant: str, A, b, itermax: int):
+    """(run, graphable): one solve of ``solver`` from x = 0 as a callable
+    that returns a result tensor, and whether the solve reads nothing on
+    the host, so that a CUDA graph can capture it."""
+    x0 = torch.zeros_like(b)
+    eps = torch.tensor(0.0, device=b.device)
+    if solver == "cg":
+        loop = resolve_cg_loop(variant)
+        graphable = variant in CG_LOOPS and variant != "vmem"
+        return (lambda: loop(A, b, x0, itermax, eps)[2]), graphable
+    if solver == "nrhs":
+        B = b.repeat(NRHS, 1)  # (NRHS, n), slab-major
+        X0 = torch.zeros_like(B)
+        return (lambda: cg_multi_loop(A, B, X0, itermax, eps)[2]), True
+    if solver == "gmres":
+        def run():
+            x = x0
+            for _ in range(max(1, itermax // GMRES_RESTART)):
+                x = gmres_cycle(A, b, x, GMRES_RESTART)[0]
+            return x
+        return run, False
+    if solver == "cheb":
+        lmin, lmax = estimate_bounds(A, A.nr, b.dtype)
+        return (lambda: cheby_loop(A, b, x0, itermax, eps, lmin,
+                                   lmax)[2]), True
+    loop = {"bicgstab": bicgstab_loop, "minres": minres_loop}[solver]
+    return (lambda: loop(A, b, x0, itermax, eps)[2]), True
+
+
 def profile_size(n: int, itermax: int, fmt: str, variant: str,
-                 gpu: str) -> None:
+                 gpu: str, solver: str = "cg") -> None:
     dev = torch.device("cuda")
     A, b, tag = operator(fmt, n, dev)
-    x0 = torch.zeros_like(b)
-    eps = torch.tensor(0.0, device=dev)
-    loop = CG_LOOPS[variant]
-    tag = f"{tag}/{variant} x{itermax}"
-
-    def run():
-        return loop(A, b, x0, itermax, eps)
+    run, graphable = solve_loop(solver, variant, A, b, itermax)
+    what = {"cg": variant, "nrhs": f"cg --nrhs {NRHS}"}.get(solver, solver)
+    tag = f"{tag}/{what} x{itermax}"
 
     run()
     torch.cuda.synchronize()
@@ -94,7 +184,7 @@ def profile_size(n: int, itermax: int, fmt: str, variant: str,
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _x, _k, hist = run()
+        hist = run()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time for e in evs) * 1e-6
@@ -118,23 +208,51 @@ def profile_size(n: int, itermax: int, fmt: str, variant: str,
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    {t * 1e-3:10.3f} ms {c:6d}x  {name}")
 
-    if variant == "vmem":
+    if not graphable:
         return
-    # one CUDA graph of the whole masked loop (warm-up on a side stream)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        run()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _xg, _kg, hist_g = run()
-    graph.replay()
-    torch.cuda.synchronize()
+    graph, hist_g = _capture(run)  # the whole masked loop
     same = torch.equal(torch.nan_to_num(hist_g, nan=-1.0),
                        torch.nan_to_num(hist, nan=-1.0))
     print(f"{tag}: CUDA-graph replay {_best_wall(graph.replay):.6f}"
           f" s, history equal to eager: {same} | {gpu}")
+
+
+def patterns(n: int, dev: torch.device):
+    """(name, data, offsets) of ``--patterns`` at n^3 rows."""
+    A, _ = DiaMatrix.from_stencil(n, n, n, device=dev, impl="kernel",
+                                  policy=DTypePolicy.from_names("f32"))
+    yield "stencil", A.data, A.offsets
+    plane, row = n * n, n
+    for name, offs in (
+        ("one diagonal", (0,)),
+        ("27 consecutive", tuple(range(-13, 14))),
+        ("3 planes", (-plane, 0, plane)),
+        ("9 rows of 3 planes", tuple(sz * plane + sy * row
+                                     for sz in (-1, 0, 1)
+                                     for sy in (-1, 0, 1))),
+    ):
+        yield name, torch.ones((len(offs), A.nr_pad), device=dev,
+                               dtype=torch.bfloat16), offs
+
+
+def profile_patterns(n: int, gpu: str) -> None:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = n ** 3
+    for name, data, offs in patterns(n, dev):
+        for k in PATTERN_KS:
+            X = torch.randn((k, rows), generator=gen, device=dev)
+            cols = [X[c] for c in range(k)]
+            k8 = _replay_ms(lambda: dia_spmm(data, X, offs, rows))
+            k1 = _replay_ms(lambda: [dia_spmv(data, x, offs, rows)
+                                     for x in cols])
+            nbytes = len(offs) * rows * 2 + 2 * k * rows * 4
+            print(f"{n}^3 {name} ({len(offs)} diagonals) k={k}: K8 "
+                  f"{k8:.4f} ms ({nbytes / (k8 * 1e-3) / 1e9:.0f} GB/s), "
+                  f"{k} x K1 {k1:.4f} ms, K8 {k1 / k8:.2f}x faster | {gpu}")
+            del X, cols
+        del data
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -146,9 +264,13 @@ def main(argv=None) -> int:
                     help="CG iterations; default 150")
     ap.add_argument("--fmt", default="dia", choices=[*OPERATORS, "rgl"],
                     help="operator; default dia")
-    ap.add_argument("--variant", default="standard",
-                    choices=list(CG_LOOPS),
-                    help="CG variant; default standard")
+    ap.add_argument("--variant", default="standard", choices=CG_VARIANTS,
+                    help="CG variant of --solver cg; default standard")
+    ap.add_argument("--solver", default="cg", choices=SOLVERS,
+                    help="solver; default cg")
+    ap.add_argument("--patterns", action="store_true",
+                    help="time K8 against k x K1 on diagonal patterns "
+                    "(module docstring) instead of a solve")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cg needs a CUDA card")
@@ -159,7 +281,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} | {gpu}")
     for n in args.n:
-        profile_size(n, args.itermax, args.fmt, args.variant, gpu)
+        if args.patterns:
+            profile_patterns(n, gpu)
+        else:
+            profile_size(n, args.itermax, args.fmt, args.variant, gpu,
+                         args.solver)
     return 0
 
 

@@ -33,13 +33,17 @@ breakdown) still runs the remaining bodies, masked.
 The variants ``cs`` (single-reduction CG, ``cg_cs_loop``), ``fused``
 (p-update, apply and p.Ap in one kernel, ``cg_fused_loop``) and ``vmem``
 (the whole solve in one kernel, ``cg_vmem_loop``) are ported with the same
-masked fixed-trip design; ``resolve_cg_loop`` maps a name to its loop.
-``sstep``, ``pipe`` and preconditioning raise and name their ROADMAP item.
+masked fixed-trip design; ``sstep`` (``solvers/cg_sstep.py``) and ``pipe``
+(``solvers/cg_pipe.py``) read one flag a step on the host instead (their
+modules say why). ``resolve_cg_loop`` maps a name to its loop.
+``inv_diag`` (Jacobi) and ``precond`` (``solvers/precond.ChebPrecond``)
+precondition ``standard``, ``cs`` and ``pipe``; ``sstep`` takes Jacobi.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional
@@ -54,11 +58,7 @@ from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
     stencil_cg_vmem,
     stencil_cg_vmem_torch,
 )
-
-CG_VARIANTS_NOT_PORTED = {
-    "sstep": "Queue 1 item 9",
-    "pipe": "Queue 1 item 9",
-}
+from sparsebench_tpu_torch.solvers.precond import resolve_apply_m
 
 
 def safe_div(num, den):
@@ -110,14 +110,24 @@ def _eps_tensor(eps, sdt, device):
 
 
 def cg_init(A, b: torch.Tensor, x0: torch.Tensor, itermax: int,
-            acc_dtype: Optional[torch.dtype] = None):
+            acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
+            precond=None):
     """Initial CG state (reference src/CGSolver.c:94-104): the tuple
-    (k, x, p, r, rtrans, normr, hist, done) of device tensors."""
+    (k, x, p, r, rtrans, normr, hist, done) of device tensors, the JAX
+    package's checkpointable state. With ``inv_diag`` (Jacobi) or
+    ``precond`` (ChebPrecond) the ``rtrans`` slot carries r.z, z = M^-1 r,
+    while ``normr`` and the history keep the true ||r||."""
     sdt = default_acc_dtype(b.dtype, acc_dtype)
+    spmv = matvec(A)
+    apply_m = resolve_apply_m(precond, inv_diag, spmv, b.dtype)
     p = x0
-    r = b - matvec(A)(p)
-    rtrans = ddot(r, r, acc_dtype=sdt)
-    normr = torch.sqrt(rtrans)
+    r = b - spmv(p)
+    if apply_m is None:
+        rtrans = ddot(r, r, acc_dtype=sdt)
+        normr = torch.sqrt(rtrans)
+    else:
+        rtrans = ddot(r, apply_m(r), acc_dtype=sdt)
+        normr = torch.sqrt(ddot(r, r, acc_dtype=sdt))
     hist = torch.full((itermax,), float("nan"), dtype=sdt, device=b.device)
     hist[0] = normr
     k = torch.ones((), dtype=torch.int64, device=b.device)
@@ -125,25 +135,40 @@ def cg_init(A, b: torch.Tensor, x0: torch.Tensor, itermax: int,
     return k, x0, p, r, rtrans, normr, hist, done
 
 
-def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None):
+def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
+           inv_diag=None, precond=None, k_start: Optional[int] = None):
     """Advance CG from ``state`` until k == k_end, convergence or breakdown
-    (reference hot loop, src/CGSolver.c:107-129), as ``k_end - 1`` masked
-    bodies (k >= 1 in any state, so that many always suffice)."""
+    (reference hot loop, src/CGSolver.c:107-129), as masked bodies:
+    ``k_end - k_start`` of them when the caller knows the state's k on the
+    host (``k_start``, as the checkpointed solve does), else ``k_end - 1``
+    (k >= 1 in any state, so that many always suffice). An inactive body
+    changes no state entry, so two segments give the bits of one run.
+    ``inv_diag``/``precond`` as in ``cg_init``."""
     k, x, p, r, rtrans, normr, hist, done = state
     vdt = r.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
     eps = _eps_tensor(eps, sdt, r.device)
     steps = torch.arange(hist.numel(), device=r.device)
     spmv = matvec(A)
-    for _ in range(k_end - 1):
+    apply_m = resolve_apply_m(precond, inv_diag, spmv, vdt)
+    for _ in range(k_end - (1 if k_start is None else k_start)):
         active = (k < k_end) & (normr > eps) & ~done
         first = k == 1
-        new_rtrans = ddot(r, r, acc_dtype=sdt)
-        rt = torch.where(first, rtrans, new_rtrans)
-        # first body: p = r (beta = 0; x0 is finite, so r + 0*p == r)
-        beta = torch.where(first, 0, safe_div(new_rtrans, rtrans)).to(vdt)
-        p_new = r + beta * p
-        normr_new = torch.sqrt(rt)
+        if apply_m is None:
+            new_rtrans = ddot(r, r, acc_dtype=sdt)
+            rt = torch.where(first, rtrans, new_rtrans)
+            # first body: p = r (beta = 0; x0 is finite, so r + 0*p == r)
+            beta = torch.where(first, 0, safe_div(new_rtrans, rtrans)).to(vdt)
+            p_new = r + beta * p
+            normr_new = torch.sqrt(rt)
+        else:
+            # PCG: rtrans carries r.z; the history the true ||r||
+            z = apply_m(r)
+            rz = ddot(r, z, acc_dtype=sdt)
+            rt = torch.where(first, rtrans, rz)
+            beta = torch.where(first, 0, safe_div(rz, rtrans)).to(vdt)
+            p_new = z + beta * p
+            normr_new = torch.sqrt(ddot(r, r, acc_dtype=sdt))
         hist = torch.where(active & (steps == k), normr_new, hist)
 
         Ap = spmv(p_new)
@@ -162,58 +187,69 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None):
 
 
 def cg_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
-            acc_dtype: Optional[torch.dtype] = None):
+            acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
+            precond=None):
     """CG from x0: returns (x, k, history[itermax]) as device tensors, with
     history[j] = normr at iteration j (NaN where not reached)."""
-    state = cg_init(A, b, x0, itermax, acc_dtype)
+    state = cg_init(A, b, x0, itermax, acc_dtype, inv_diag, precond)
     k, x, _p, _r, _rtrans, _normr, hist, _done = cg_run(
-        A, state, itermax, eps, acc_dtype
+        A, state, itermax, eps, acc_dtype, inv_diag, precond
     )
     return x, k, hist
 
 
 def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
-               acc_dtype: Optional[torch.dtype] = None):
-    """Single-reduction CG (Chronopoulos & Gear 1989; JAX ``cg_cs_loop``,
-    unpreconditioned). The same Krylov iterates as standard CG, with the
-    two dots of an iteration taken together after one apply:
+               acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
+               precond=None):
+    """Single-reduction CG (Chronopoulos & Gear 1989; JAX ``cg_cs_loop``).
+    The same Krylov iterates as standard CG, with the dots of an iteration
+    taken together after one apply:
 
-        gamma = r.r, delta = w.r   (w = A r)
+        u = M^-1 r, w = A u;  gamma = r.u, delta = w.u  (+ r.r under M)
         beta  = gamma/gamma_old;  alpha = gamma / (delta - beta*gamma/alpha_old)
-        p = r + beta p;  s = w + beta s  (s carries A p)
-        x += alpha p;  r -= alpha s;  w = A r
+        p = u + beta p;  s = w + beta s  (s carries A p)
+        x += alpha p;  r -= alpha s
 
-    With ``SB_FUSED_CS`` set in the environment, an operator with
+    M = I unpreconditioned (u = r); ``inv_diag``/``precond`` as in
+    ``cg_init``, the history then the true ||r||. With ``SB_FUSED_CS`` set
+    in the environment, no preconditioner, an operator with
     ``supports_fused_cs`` (the stencil) and f32 accumulation, the apply
     returns the dots itself (K2's dots form) and the four updates are one
     kernel (K4, ``ops/cg_fused.cs_update``): the JAX package's switch, read
     the same way and kept only for parity with it (the fused body ran
     faster on the H100; ROADMAP.md Queue 1 item 6 has its removal). Masked
     like ``cg_run``: ``itermax - 1`` bodies; once
-    inactive, alpha is 0 (x and r keep their bits, so w and the dots
+    inactive, alpha is 0 (x and r keep their bits, so u, w and the dots
     recompute to theirs) and the other state is held with ``where``."""
     vdt = b.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
     device = b.device
-    fused = (bool(os.environ.get("SB_FUSED_CS"))
+    spmv = matvec(A)
+    apply_m = resolve_apply_m(precond, inv_diag, spmv, vdt)
+    has_m = apply_m is not None
+    fused = (not has_m
+             and bool(os.environ.get("SB_FUSED_CS"))
              and getattr(A, "supports_fused_cs", False)
              and sdt == torch.float32)
-    spmv = matvec(A)
 
-    def spmv_dots(u):
-        # (w = A u, [gamma = u.u, delta = w.u])
+    def spmv_dots(r, u):
+        # (w = A u, [gamma = r.u, delta = w.u] (+ [r.r] under M))
         if fused:
             return A.spmv_permuted_dots(u)
         w = spmv(u)
-        return w, torch.stack([ddot(u, u, acc_dtype=sdt),
-                               ddot(w, u, acc_dtype=sdt)])
+        parts = [ddot(r, u, acc_dtype=sdt), ddot(w, u, acc_dtype=sdt)]
+        if has_m:
+            parts.append(ddot(r, r, acc_dtype=sdt))
+        return w, torch.stack(parts)
 
     eps = _eps_tensor(eps, sdt, device)
     r = b - spmv(x0)
-    w, gd = spmv_dots(r)
+    u = apply_m(r) if has_m else r
+    w, gd = spmv_dots(r, u)
     gamma = gd[0]
+    rr = gd[2] if has_m else gamma
     alpha = safe_div(gamma, gd[1])
-    normr = torch.sqrt(gamma)
+    normr = torch.sqrt(rr)
     hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
     hist[0] = normr
     x = x0
@@ -225,20 +261,22 @@ def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     steps = torch.arange(itermax, device=device)
     for _ in range(itermax - 1):
         active = (k < itermax) & (normr > eps) & ~done
-        normr_new = torch.sqrt(gamma)
+        normr_new = torch.sqrt(rr)
         hist = torch.where(active & (steps == k), normr_new, hist)
         a = torch.where(active, alpha, 0)
         if fused:
-            p_new, s_new, x, r = cs_update(r, p, w, s, x, r, a, beta)
+            p_new, s_new, x, r = cs_update(u, p, w, s, x, r, a, beta)
         else:
             b_v = beta.to(vdt)
-            p_new = r + b_v * p
+            p_new = u + b_v * p
             s_new = w + b_v * s
             a_v = a.to(vdt)
             x = x + a_v * p_new
             r = r - a_v * s_new
-        w, gd = spmv_dots(r)
+        u = apply_m(r) if has_m else r
+        w, gd = spmv_dots(r, u)
         g_new, d_new = gd[0], gd[1]
+        rr_new = gd[2] if has_m else g_new
         beta_new = safe_div(g_new, gamma)
         denom = d_new - beta_new * safe_div(g_new, alpha)
         # denom is p.Ap in disguise: the same positivity guard as cg_run
@@ -248,6 +286,7 @@ def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
         p = torch.where(active, p_new, p)
         s = torch.where(active, s_new, s)
         gamma = torch.where(active, g_new, gamma)
+        rr = torch.where(active, rr_new, rr)
         alpha = torch.where(active, alpha_new, alpha)
         beta = torch.where(active, beta_new, beta)
         normr = torch.where(active, normr_new, normr)
@@ -256,13 +295,23 @@ def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     return x, k, hist
 
 
+def _unpreconditioned(variant: str, inv_diag, precond) -> None:
+    if inv_diag is not None or precond is not None:
+        raise ValueError(
+            f"variant {variant!r} is unpreconditioned; use 'standard'/'cs' "
+            "with inv_diag/precond"
+        )
+
+
 def cg_fused_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
-                  acc_dtype: Optional[torch.dtype] = None):
+                  acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
+                  precond=None):
     """Standard-CG iterates with the front half of each iteration in one
     kernel (JAX ``cg_fused_loop``): ``A.axpy_spmv_dots(r, p, beta)`` gives
     p = r + beta p, w = A p and delta = p.w in one pass (K3). The back half
     (x += alpha p, r -= alpha w, r.r) is plain torch. Masked like
-    ``cg_run``."""
+    ``cg_run``; unpreconditioned."""
+    _unpreconditioned("fused", inv_diag, precond)
     if not getattr(A, "supports_fused_pw", False):
         raise ValueError(
             "variant 'fused' needs a format with axpy_spmv_dots (the "
@@ -307,7 +356,8 @@ def cg_fused_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
 
 
 def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
-                 acc_dtype: Optional[torch.dtype] = None):
+                 acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
+                 precond=None):
     """The whole solve in one launch (JAX ``cg_vmem_loop``, K5): the same
     recurrence, history and breakdown as ``cg_fused_loop``, iterates equal
     to reduction-order rounding. r0 = b - A x0 goes through the operator's
@@ -315,7 +365,9 @@ def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     vectors' dtype, and a bf16 recurrence would diverge from every other
     variant's f32 accumulation. Raises unless ``A.supports_vmem_cg``; the
     kernel's wrapper alone decides whether r and p fit its L2 plan, at the
-    vectors' real width, and raises before launching if not."""
+    vectors' real width, and raises before launching if not.
+    Unpreconditioned."""
+    _unpreconditioned("vmem", inv_diag, precond)
     if not getattr(A, "supports_vmem_cg", False):
         raise ValueError(
             "variant 'vmem' needs the stencil operator (the whole solve in "
@@ -333,22 +385,28 @@ def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     return x.to(vdt), k, hist.to(default_acc_dtype(vdt, acc_dtype))
 
 
-# the ported CG variants: the one place their names live
+# the CG variants: the one place their names live. CG_LOOPS are the
+# masked fixed-trip ones, which a CUDA graph can capture; sstep and pipe
+# read a flag a step on the host.
 CG_LOOPS = {"standard": cg_loop, "cs": cg_cs_loop, "fused": cg_fused_loop,
             "vmem": cg_vmem_loop}
+CG_VARIANTS = ("standard", "cs", "sstep", "pipe", "fused", "vmem")
 
 
-def resolve_cg_loop(variant: str):
-    """The loop function of a CG variant name. An unported variant raises
-    NotImplementedError and names its ROADMAP item; an unknown one raises
-    ValueError (never a silent fall back to standard CG)."""
+def resolve_cg_loop(variant: str, sstep: int = 4):
+    """The loop function of a CG variant name (``sstep``: the basis size of
+    the s-step variant). An unknown name raises ValueError, never a silent
+    fall back to standard CG."""
+    if variant == "sstep":
+        from sparsebench_tpu_torch.solvers.cg_sstep import cg_sstep_loop
+
+        return functools.partial(cg_sstep_loop, s=sstep)
+    if variant == "pipe":
+        from sparsebench_tpu_torch.solvers.cg_pipe import cg_pipe_loop
+
+        return cg_pipe_loop
     if variant in CG_LOOPS:
         return CG_LOOPS[variant]
-    if variant in CG_VARIANTS_NOT_PORTED:
-        raise NotImplementedError(
-            f"cg variant {variant!r} is not ported yet "
-            f"(ROADMAP.md {CG_VARIANTS_NOT_PORTED[variant]})"
-        )
     raise ValueError(
         "variant must be 'standard', 'cs', 'sstep', 'pipe', 'fused' or "
         f"'vmem', got {variant!r}"
@@ -366,6 +424,7 @@ def solve_cg(
     inv_diag=None,
     precond=None,
     variant: str = "standard",
+    sstep: int = 4,
     verbose: bool = True,
 ) -> CGResult:
     """Host-side solve of ``variant`` (``resolve_cg_loop``): a warm-up
@@ -376,11 +435,16 @@ def solve_cg(
     order, as is the returned x; they move to the matrix's device and keep
     their dtype, which is the vectors' dtype. A format with
     ``permuted_output`` solves in its permuted order (JAX ``solve_cg``).
+    ``inv_diag`` (1/diag(A), original row order) gives Jacobi PCG,
+    ``precond`` (``ChebPrecond``, bounds for A, or for D^-1 A with
+    ``inv_diag``) polynomial PCG; ``sstep`` is the basis size of
+    ``variant="sstep"``.
     """
-    loop = resolve_cg_loop(variant)
-    if inv_diag is not None or precond is not None:
-        raise NotImplementedError(
-            "preconditioned CG is not ported yet (ROADMAP.md Queue 1 item 9)"
+    loop = resolve_cg_loop(variant, sstep)
+    if precond is not None and variant not in ("standard", "cs", "pipe"):
+        raise ValueError(
+            "operator preconditioning (precond=) supports cg variants "
+            f"'standard', 'cs' and 'pipe' only, not {variant!r}"
         )
     device = A.device
     b = torch.as_tensor(b, device=device)
@@ -388,18 +452,23 @@ def solve_cg(
         x0 = torch.zeros_like(b)  # reference initVectors: x = 0
     else:
         x0 = torch.as_tensor(x0, dtype=b.dtype, device=device)
+    if inv_diag is not None:
+        inv_diag = torch.as_tensor(inv_diag, device=device).to(b.dtype)
     eps_t = torch.tensor(eps, dtype=acc_dtype or b.dtype, device=device)
     permuted = getattr(A, "permuted_output", False)
     if permuted:
         b, x0 = A.permute_vector(b), A.permute_vector(x0)
+        if inv_diag is not None:
+            inv_diag = A.permute_vector(inv_diag)
+    kw = {"inv_diag": inv_diag, "precond": precond}
 
     # warm-up: first-use costs (kernel build and load, allocator growth)
     # stay outside the timed solve
-    _x, k_dev, _hist = loop(A, b, x0, itermax, eps_t, acc_dtype)
+    _x, k_dev, _hist = loop(A, b, x0, itermax, eps_t, acc_dtype, **kw)
     int(k_dev)
 
     t0 = time.perf_counter()
-    x_dev, k_dev, hist_dev = loop(A, b, x0, itermax, eps_t, acc_dtype)
+    x_dev, k_dev, hist_dev = loop(A, b, x0, itermax, eps_t, acc_dtype, **kw)
     synchronize(device)
     t1 = time.perf_counter()
     k = int(k_dev)

@@ -199,11 +199,17 @@ def test_solver_scalars():
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"variant": "sstep"}, "Queue 1 item 9"),
-    ({"variant": "pipe"}, "Queue 1 item 9"),
-    ({"inv_diag": np.ones(64)}, "Queue 1 item 9"),
+    ({"variant": "sstep", "precond": "p"}, "'standard', 'cs' and 'pipe'"),
+    ({"variant": "fused", "inv_diag": np.ones(64)}, "unpreconditioned"),
+    ({"variant": "nope"}, "variant must be"),
 ])
 def test_unported_cg_options_raise(kwargs, where):
+    """Every CG variant and preconditioner is ported; the combinations the
+    JAX package refuses raise ValueError with its wording."""
+    from sparsebench_tpu_torch.solvers.precond import ChebPrecond
+
+    if kwargs.get("precond") == "p":
+        kwargs = {**kwargs, "precond": ChebPrecond(1.0, 30.0, 2)}
     A, counts = DiaMatrix.from_stencil(4, 4, 4, device=CPU)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(ValueError, match=where):
         cg.solve_cg(A, np.ones(64), itermax=5, verbose=False, **kwargs)

@@ -149,11 +149,8 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--cg-variant", "pipe"], "item 9"),
-    (["-t", "minres"], "item 9"),
     (["--fmt", "bsell"], "item 10"),
-    (["-t", "gmres"], "item 9"),
-    (["--cg-variant", "sstep"], "item 9"),
+    (["--fmt", "bsell", "-t", "gmres"], "item 10"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, where):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {where}"):
@@ -163,7 +160,7 @@ def test_unported_flags_name_their_roadmap_item(argv, where):
 @pytest.mark.parametrize("text,where", [
     ("shards 4\n", "item 11"),
     ("fmt bsell\n", "item 10"),
-    ("bench cheb\n", "item 9"),
+    ("bench cheb\nshards 2\n", "item 11"),
 ])
 def test_unported_par_keys_name_their_roadmap_item(text, where, tmp_path):
     par = tmp_path / "t.par"
@@ -173,9 +170,8 @@ def test_unported_par_keys_name_their_roadmap_item(text, where, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--precond", "jacobi"], ["--shards", "4"], ["--profile"],
-    ["--checkpoint", "ck.npz"], ["--nrhs", "8"], ["--overlap"], ["--refine"],
-    ["-c", "m.mtx"],
+    ["--shards", "4"], ["--profile"], ["--exchange", "auto"], ["--overlap"],
+    ["--banner"], ["-c", "m.mtx"],
 ])
 def test_jax_only_flags_are_rejected(argv, capsys):
     """The JAX CLI's flags that are not ported are absent: argparse exits
@@ -341,3 +337,244 @@ def test_cli_impl_kernel_win_is_bslab_only(capsys):
     with pytest.raises(SystemExit, match="CUDA kernel"):
         cli.main(["-x", "4", "-y", "4", "-z", "4", "-i", "3", "--device",
                   "cpu", "--impl", "kernel_win", "--fmt", "bslab"])
+
+
+# -- the solver family (Queue 1 item 9) ---------------------------------------
+
+SMALL = ["-x", "10", "-y", "9", "-z", "7", "-i", "40", "--dtype", "f64"]
+# the numbers each bench prints, by line; the last group is the value
+LINES = {
+    "cg": r"(?:Initial Residual|Iteration = \d+ Residual) = (\S+)",
+    "gmres": r"GMRES cycle \d+: iterations = \d+ Residual = (\S+)",
+    "refine": r"(?:Initial Residual|Refinement sweep = \d+ Residual) = (\S+)",
+    "checkpoint": r"checkpoint @ iteration \d+ residual (\S+) ->",
+    "cheb": r"\(final residual (\S+)\)",
+}
+COUNTS = r"(Solution performed \d+ (?:iterations|sweeps / \d+ low-precision " \
+    r"iterations)|GMRES cycle \d+: iterations = \d+|Chebyshev performed \d+ " \
+    r"iterations|Chebyshev bounds: lmin = \S+ lmax = \S+|\[cg-multi\] .*|" \
+    r"Blocked CG: .*|Preconditioner: .*|Refinement: .*|Resuming .*)"
+
+
+def values(out, kind):
+    return [float(v) for v in re.findall(LINES[kind], out)]
+
+
+def diff_line(out):
+    m = re.search(r"Difference between computed and exact  = (\S+)", out)
+    return m and m.group(1)
+
+
+@pytest.mark.parametrize("argv,kind,floor,rtol", [
+    (["-t", "cg", "--nrhs", "4"], "cg", 1e-10, 2e-6),
+    (["-t", "gmres", "--restart", "10"], "gmres", 1e-8, 2e-6),
+    (["-t", "gmres", "--restart", "10", "--orth", "cgs2"], "gmres", 1e-8,
+     2e-6),
+    (["-t", "gmres", "--restart", "8", "--precond", "jacobi"], "gmres", 1e-8,
+     2e-6),
+    (["-t", "cheb"], "cheb", 1e-10, 2e-6),
+    (["-t", "cheb", "--precond", "jacobi"], "cheb", 1e-10, 2e-6),
+    (["-t", "bicgstab"], "cg", 1e-6, 2e-6),
+    (["-t", "bicgstab", "--precond", "cheb"], "cg", 1e-6, 2e-6),
+    (["-t", "minres"], "cg", 1e-10, 2e-6),
+    (["-t", "minres", "--precond", "jacobi"], "cg", 1e-10, 2e-6),
+    (["-t", "cg", "--precond", "jacobi"], "cg", 1e-10, 2e-6),
+    (["-t", "cg", "--precond", "cheb", "--precond-degree", "2"], "cg",
+     1e-10, 2e-6),
+    (["-t", "cg", "--precond", "cheb-jacobi"], "cg", 1e-10, 2e-6),
+    (["-t", "cg", "--cg-variant", "cs", "--precond", "jacobi"], "cg", 1e-10,
+     2e-6),
+    (["-t", "cg", "--cg-variant", "sstep"], "cg", 1e-6, 2e-6),
+    (["-t", "cg", "--cg-variant", "sstep", "--sstep", "2"], "cg", 1e-6,
+     2e-6),
+    (["-t", "cg", "--cg-variant", "pipe"], "cg", 1e-8, 2e-6),
+    (["-t", "cg", "--cg-variant", "pipe", "--precond", "cheb"], "cg", 1e-8,
+     2e-6),
+    (["-t", "cg", "--refine"], "refine", 1e-4, 1e-4),
+    (["-t", "cg", "--refine", "--refine-sweeps", "3"], "refine", 1e-4, 1e-4),
+])
+def test_cli_solver_family_matches_jax_cli(argv, kind, floor, rtol, capsys):
+    """Each new flag's output lines against the JAX CLI's: the same count
+    and summary lines, the printed residuals (7 significant digits) to
+    rtol 2e-6 above the method's noise floor (tests/test_torch_solvers.py
+    has the floors; --refine's inner solves are f32, so its sweeps follow
+    the f32 rule), and the same Difference line."""
+    argv = argv + SMALL
+    assert jax_cli.main(argv) == 0
+    out_j = capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    out_t = capsys.readouterr().out
+    vj, vt = values(out_j, kind), values(out_t, kind)
+    assert len(vt) == len(vj) >= (1 if kind == "cheb" else 2)
+    # the initial residual: ||b|| for GMRES (b = 1), ||b - A 0|| otherwise
+    ref = {"gmres": np.sqrt(10 * 9 * 7), "cheb": 223.9643}.get(kind, vj[0])
+    above = [i for i, v in enumerate(vj) if v >= floor * ref]
+    assert above
+    np.testing.assert_allclose([vt[i] for i in above],
+                               [vj[i] for i in above], rtol=rtol)
+    # the summary lines; the bounds are compared in their own test, and
+    # --refine's total of f32 inner iterations may differ by one a sweep
+    # (an inner eps exit lands in f32 noise), its sweep count may not
+    def summary(out):
+        lines = [re.sub(r"(lmin|lmax) = \S+", r"\1", c)
+                 for c in re.findall(COUNTS, out)]
+        return [re.sub(r"/ \d+ low", "/ N low", c) for c in lines]
+
+    assert summary(out_t) == summary(out_j) != []
+    inner = r"sweeps / (\d+) low"
+    if kind == "refine":
+        nj, nt = (int(re.search(inner, o).group(1)) for o in (out_j, out_t))
+        assert abs(nt - nj) <= len(vj)
+    assert diff_line(out_t) == diff_line(out_j)
+
+
+def test_cli_chebyshev_bounds_lines_match_jax(capsys):
+    """The printed bounds (4 or 5 significant digits) are equal."""
+    for argv in (["-t", "cheb"], ["-t", "cg", "--precond", "cheb-jacobi"]):
+        assert jax_cli.main(argv + SMALL) == 0
+        out_j = capsys.readouterr().out
+        assert cli.main(argv + SMALL + ["--device", "cpu"]) == 0
+        out_t = capsys.readouterr().out
+        pat = r"(Chebyshev bounds: .*|Preconditioner: Chebyshev.*)"
+        assert re.findall(pat, out_t) == re.findall(pat, out_j) != []
+
+
+def test_cli_checkpoint_matches_jax_cli(tmp_path, capsys):
+    """--checkpoint: the same segment lines (residuals above the floor to
+    the printed digits), a resumed run continues from the file, and the
+    Difference line of the JAX CLI."""
+    outs = []
+    for name, main, extra in (("j", jax_cli.main, []),
+                              ("t", cli.main, ["--device", "cpu"])):
+        path = str(tmp_path / f"{name}.npz")
+        argv = ["-t", "cg", "--checkpoint", path, "--checkpoint-every", "15",
+                "-x", "10", "-y", "9", "-z", "7", "--dtype", "f64"]
+        runs = []
+        for itermax in ("40", "60"):
+            assert main(argv + ["-i", itermax] + extra) == 0
+            runs.append(capsys.readouterr().out)
+        outs.append(runs)
+    (j1, j2), (t1, t2) = outs
+    for oj, ot in ((j1, t1), (j2, t2)):
+        vj, vt = values(oj, "checkpoint"), values(ot, "checkpoint")
+        assert len(vt) == len(vj) >= 1
+        sel = [i for i, v in enumerate(vj) if v >= 1e-10 * 224.0]
+        np.testing.assert_allclose([vt[i] for i in sel], [vj[i] for i in sel],
+                                   rtol=2e-6)
+        assert diff_line(ot) == diff_line(oj)
+    assert "at iteration 40" in t2 and "at iteration 40" in j2
+    assert "checkpoint @ iteration 60" in t2
+
+
+def test_cli_nrhs_lines(capsys):
+    argv = ["-t", "cg", "--nrhs", "3", *SMALL]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Blocked CG: 3 right-hand sides" in out
+    assert "[cg-multi] 3 right-hand sides, per-column iterations 40..40" in out
+    assert "Difference between computed and exact  = 0.000000" in out
+
+
+WARNINGS = [
+    (["-t", "spmv", "--orth", "cgs2", "--restart", "5"],
+     ["--orth has no effect with -t spmv",
+      "--restart has no effect with -t spmv"]),
+    (["-t", "gmres", "--cg-variant", "cs", "--nrhs", "2", "--checkpoint",
+      "ck.npz"],
+     ["--cg-variant has no effect with -t gmres",
+      "--nrhs has no effect with -t gmres",
+      "--checkpoint has no effect with -t gmres"]),
+    (["-t", "minres", "--refine"], ["--refine has no effect with -t minres"]),
+    (["-t", "cg", "--sstep", "3", "--checkpoint-every", "5",
+      "--precond-degree", "5", "--refine-sweeps", "3"],
+     ["--sstep has no effect without", "--checkpoint-every has no effect",
+      "--precond-degree has no effect", "--refine-sweeps has no effect"]),
+]
+
+
+@pytest.mark.parametrize("argv,texts", WARNINGS)
+def test_cli_warnings_match_jax(argv, texts, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    argv = argv + ["-x", "4", "-y", "4", "-z", "4", "-i", "3"]
+    assert jax_cli.main(argv) == 0
+    err_j = capsys.readouterr().err
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    err_t = capsys.readouterr().err
+    warn = lambda e: [ln for ln in e.splitlines()  # noqa: E731
+                      if ln.startswith("warning:")]
+    assert warn(err_t) == warn(err_j)
+    for t in texts:
+        assert t in err_t
+
+
+REFUSALS = [
+    ["--cg-variant", "sstep", "--sstep", "0"],
+    ["-t", "gmres", "--restart", "0"],
+    ["--refine", "--precond", "jacobi"],
+    ["--refine", "--cg-variant", "cs"],
+    ["--nrhs", "0"],
+    ["--nrhs", "2", "--cg-variant", "pipe"],
+    ["--nrhs", "2", "--precond", "jacobi"],
+    ["--nrhs", "2", "--fmt", "stencil"],
+    ["--nrhs", "2", "--refine"],
+    ["-t", "cheb", "--precond", "cheb"],
+    ["-t", "minres", "--precond", "cheb-jacobi"],
+    ["--precond", "cheb", "--cg-variant", "sstep"],
+    ["--precond", "jacobi", "--checkpoint", "ck.npz"],
+    ["--cg-variant", "pipe", "--checkpoint", "ck.npz"],
+    ["-m", "generateRGL", "-x", "3000", "-y", "1", "-z", "1", "--band", "64",
+     "--precond", "jacobi"],
+]
+
+
+@pytest.mark.parametrize("argv", REFUSALS)
+def test_cli_refusals_match_jax(argv, tmp_path, monkeypatch):
+    """The combinations the JAX CLI refuses exit with its text."""
+    monkeypatch.chdir(tmp_path)
+    argv = argv + ["-x", "4", "-y", "4", "-z", "4", "-i", "3"] \
+        if "generateRGL" not in argv else argv + ["-i", "3"]
+    with pytest.raises(SystemExit) as ej:
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit) as et:
+        cli.main(argv + ["--device", "cpu"])
+    assert str(et.value) == str(ej.value) and str(et.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--precond", "cheb", "--cg-variant", "sstep"],
+    ["--precond", "cheb", "--checkpoint", "ck.npz"],
+    ["--cg-variant", "pipe", "--checkpoint", "ck.npz"],
+])
+def test_cli_refuses_before_the_build(argv, capsys, tmp_path, monkeypatch):
+    """Every refused combination exits before the matrix is built or a
+    Chebyshev bound is estimated."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit):
+        cli.main(argv + ["-x", "4", "-y", "4", "-z", "4", "-i", "3",
+                         "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "Setup took" not in out and "Preconditioner" not in out
+    assert not (tmp_path / "ck.npz").exists()
+
+
+def test_cli_solver_family_imports_no_jax():
+    """The new benches and flags import neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "from sparsebench_tpu_torch.cli import main\n"
+        "small = ['-x', '6', '-y', '6', '-z', '6', '-i', '8', '--device', "
+        "'cpu']\n"
+        "for a in (['-t', 'gmres'], ['-t', 'cheb'], ['-t', 'bicgstab'], "
+        "['-t', 'minres'], ['--nrhs', '2'], ['--precond', 'cheb'], "
+        "['--cg-variant', 'sstep'], ['--cg-variant', 'pipe'], "
+        "['--refine']):\n"
+        "    assert main(a + small) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'sparsebench_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX_OK" in proc.stdout

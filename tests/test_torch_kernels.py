@@ -1,7 +1,7 @@
 """The kernels of sparsebench_tpu_torch (the DIA SpMV K1; the stencil's
-K2-K5; the bslab SpMV K6 and its windowed form K7): their wrappers, their
-build and, on a CUDA card, the kernels themselves — without the JAX
-package.
+K2-K5; the bslab SpMV K6 and its windowed form K7; the multi-RHS DIA
+product K8): their wrappers, their build and, on a CUDA card, the kernels
+themselves — without the JAX package.
 
 Here on the CPU the dispatch, the refusals and the build lookup run; the
 tests marked ``cuda`` skip without a card. On a machine with an NVIDIA
@@ -20,7 +20,9 @@ bit-identical to the plain versions; their dots, summed per block, are
 held against their exact value to the bound of that summation,
 (2 ceil(log2 n) + 64) eps sum|terms|. K6 and K7 sum each output's slices
 in the plain version's order with each operation rounded on its own, and
-are held to be bit-identical to it.
+are held to be bit-identical to it. K8 sums each column as K1 does and is
+held to be bit-identical to its plain version and, column by column, to
+K1.
 """
 
 import math
@@ -44,6 +46,7 @@ from sparsebench_tpu_torch.ops.bslab_spmv import (
     win_fits,
 )
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
+from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
 from sparsebench_tpu_torch.ops.stencil import (
     stencil_apply,
@@ -155,8 +158,8 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
-        "bslab_spmv.cu", "cg_fused.cu", "dia_spmv.cu", "stencil.cu",
-        "stencil_cg_vmem.cu"]
+        "bslab_spmv.cu", "cg_fused.cu", "dia_spmm.cu", "dia_spmv.cu",
+        "stencil.cu", "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -696,3 +699,117 @@ def test_gather_formats_on_the_card_match_the_cpu(fmt, cuda_device):
     res = cg.solve_cg(A, b, itermax=60, verbose=False)
     assert cg.check_residual(res.x, xexact) < 1e-10
     assert (bslab_spmv.launches > before) == (fmt == "sell")
+
+
+# -- K8: the multi-RHS DIA product ----------------------------------------------
+
+
+def test_spmm_wrapper_on_cpu_is_the_plain_version():
+    """A CPU block goes to the plain version and launches nothing; each of
+    its rows is the single-vector product of that row, bit for bit."""
+    A, _ = DiaMatrix.from_stencil(7, 6, 5, policy=DTypePolicy.from_names("f32"),
+                                  device=CPU)
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (5, A.nr)).astype(np.float32))
+    before = dia_spmm.launches
+    Y = dia_spmm(A.data, X, A.offsets, A.nr)
+    assert dia_spmm.launches == before
+    assert torch.equal(Y, dia_spmm_torch(A.data, X, A.offsets, A.nr))
+    for c in range(5):
+        assert torch.equal(Y[c], dia_spmv_torch(A.data, X[c], A.offsets, A.nr))
+
+
+def test_spmm_plain_version_masks_the_edges():
+    data = torch.ones((3, 128), dtype=torch.float64)
+    X = torch.stack([torch.arange(1.0, 6.0, dtype=torch.float64),
+                     -torch.arange(1.0, 6.0, dtype=torch.float64)])
+    Y = dia_spmm_torch(data, X, (-7, 0, 2), 5)
+    assert Y.tolist() == [[4, 6, 8, 4, 5], [-4, -6, -8, -4, -5]]
+
+
+def test_spmm_wrapper_refuses_non_cpu_non_cuda_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        dia_spmm(torch.zeros((1, 128), device="meta"),
+                 torch.zeros((2, 128), device="meta"), (0,), 128)
+
+
+def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):
+    before = dia_spmm.launches
+    Y = dia_spmm(data, X, offsets, nr)
+    assert dia_spmm.launches == before + 1
+    assert_bits_equal(Y, dia_spmm_torch(data, X, offsets, nr))
+    for c in range(X.shape[0]):
+        assert_bits_equal(Y[c], dia_spmv(data, X[c].contiguous(), offsets, nr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("k", [1, 2, 8, 9, 16])
+def test_spmm_kernel_equals_plain_and_k1(pair, k, cuda_device):
+    A, _ = DiaMatrix.from_stencil(10, 9, 7, policy=DTypePolicy.from_names("f32"),
+                                  device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (k, A.nr))).to(device=cuda_device, dtype=DT[pair[1]])
+    assert_spmm_is_k1_column_by_column(A.data.to(DT[pair[0]]), X, A.offsets,
+                                       A.nr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("offsets,nr", [((-1000, -1, 0, 1, 999), 8192),
+                                        ((0,), 1), ((-3, 5), 7)])
+def test_spmm_kernel_on_edge_offsets(pair, offsets, nr, cuda_device):
+    rng = np.random.default_rng(nr)
+    data = torch.from_numpy(rng.standard_normal((len(offsets), max(nr, 128))))
+    X = torch.from_numpy(rng.standard_normal((3, nr)))
+    assert_spmm_is_k1_column_by_column(
+        data.to(device=cuda_device, dtype=DT[pair[0]]),
+        X.to(device=cuda_device, dtype=DT[pair[1]]), offsets, nr)
+
+
+@pytest.mark.cuda
+def test_spmm_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    data = torch.zeros((2, 256), device=cuda_device)
+    X = torch.zeros((3, 256), device=cuda_device)
+    with pytest.raises(TypeError, match="no kernel"):
+        dia_spmm(data, X.double(), (0, 1), 256)
+    with pytest.raises(ValueError, match="ndiag"):
+        dia_spmm(data, X, (0,), 256)
+    with pytest.raises(ValueError, match="nr"):
+        dia_spmm(data, X[:, :100], (0, 1), 200)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmm(data, X[:, ::2], (0, 1), 128)
+    with pytest.raises(ValueError, match="both"):
+        dia_spmm(data, X.cpu(), (0, 1), 256)
+
+
+@pytest.mark.cuda
+def test_cg_multi_through_the_kernel_equals_plain(cuda_device):
+    """f64 blocked CG at 12^3 with 3 seeded right-hand sides: K8 and the
+    plain version give the same counts, history and X, bit for bit."""
+    from sparsebench_tpu_torch.solvers.cg_multi import solve_cg_multi
+
+    f64 = DTypePolicy.from_names("f64")
+    results = []
+    for impl in ("kernel", "torch"):
+        A, _ = DiaMatrix.from_stencil(12, 12, 12, device=cuda_device,
+                                      policy=f64, impl=impl)
+        B = np.random.default_rng(4).standard_normal((A.nr, 3))
+        before = dia_spmm.launches
+        results.append(solve_cg_multi(A, B, itermax=40, verbose=False))
+        assert (dia_spmm.launches - before == 2 * 40) == (impl == "kernel")
+    rk, rt = results
+    assert rk.iterations == rt.iterations == 40
+    np.testing.assert_array_equal(rk.residual_history, rt.residual_history)
+    np.testing.assert_array_equal(rk.x, rt.x)
+
+
+@pytest.mark.cuda
+def test_cli_nrhs_runs_the_kernel(cuda_device, capsys):
+    before = dia_spmm.launches
+    assert cli.main(["-t", "cg", "--nrhs", "4", "-x", "16", "-y", "16", "-z",
+                     "16", "-i", "30"]) == 0
+    out = capsys.readouterr().out
+    assert dia_spmm.launches - before == 2 * 30
+    assert "Blocked CG: 4 right-hand sides" in out
+    assert "Difference between" in out
