@@ -62,9 +62,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the plain version and cuSPARSE SpMM (torch.sparse.mm of the CSR matrix
    and an (n, 8) block made outside the timed region); blocked CG x150
    seconds for 8 right-hand sides, total and per right-hand side, beside
-   one single-RHS solve; each new solver's seconds at 100^3.
+   one single-RHS solve; each new solver's seconds at 100^3;
+3e. the read-ceiling kernel K12 against read_passes_torch, bit for bit, on
+   ones (``out`` exact) and random data (``out`` and the sink's total within
+   the bound of their f32 sums), at small and odd shapes and at the
+   measurement's 256 MiB array;
+4e. ``-t cg --profile`` at 100^3 and ``-f hpcg.par -t cg --profile`` at
+   200^3 through the CLI (k = 150, the region table, a nonzero spMVM rate)
+   with the K1 count set to 0 before and read after; ``--banner``;
+5e. K12: the read ceiling ``measure_dma_read_gbps`` (the K12 count set to 0
+   before it and read after: 8 launches), one launch per pass beside the
+   plain version, torch.sum over the same array and the bound of a pass;
+6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
+   a subprocess: rc 0 and a final JSON line of at most 1500 characters with
+   a positive value, stream_read_GBps, dma_read_GBps and cg200_seconds.
 
-Phases 3d-5d run after 5c. A bound is the larger of the bytes a call must
+The phases run in the order 3-3e, 4-4e, 5-5e, 6. A bound is the larger of the bytes a call must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over 67 TFLOP/s (f32), the H100 SXM's published rates at
 700 W. The last three
@@ -121,6 +134,10 @@ K5_FLOPS_PER_ITER = 2 + APPLY_FLOPS + 8
 # with SUM_SERIAL a generous bound on the serial runs and the product's own
 # rounding: about 1.3e-5 of sum|terms| at 200^3 in f32.
 SUM_SERIAL = 64
+# the read ceiling's array (measure_dma_read_gbps's default: 256 MiB, over
+# 5 x the 50 MB L2) and the bench suite's own time limit
+MEMROOF_FLOATS = 64 * 1024 * 1024
+BENCH_TIMEOUT_S = 600
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1277,6 +1294,193 @@ def solver_seconds(dev, gpu) -> None:
         check(np.isfinite(res.final_normr), f"{name}: non-finite residual")
 
 
+def memroof_cases():
+    """(n_tiles, reps, tile_rows) of phase 3e: small and odd shapes (the
+    unrolled loop's remainder at 63 steps), and the measurement's own array
+    (64 Mi floats in 2048-row tiles) at its two rep counts."""
+    from sparsebench_tpu_torch.ops.memroof import LANES, TILE_ROWS
+
+    n_main = MEMROOF_FLOATS // (TILE_ROWS * LANES)
+    return ((1, 1, 8), (3, 2, 16), (7, 9, TILE_ROWS), (n_main, 4, TILE_ROWS),
+            (n_main, 12, TILE_ROWS))
+
+
+def phase3e_memroof(dev):
+    """K12 against read_passes_torch, bit for bit; ``out`` exact on ones
+    and, on random data, within the bound of its f32 sum of the strips in
+    step order; the sink's total within the bound of its per-thread serial
+    sums and the block trees. Returns the largest |kernel - plain|."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.memroof import (
+        LANES,
+        STRIP_ROWS,
+        read_passes,
+        read_passes_torch,
+    )
+
+    eps = float(torch.finfo(torch.float32).eps)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    max_err = 0.0
+    for n_tiles, reps, tile_rows in memroof_cases():
+        shape = (n_tiles * tile_rows, LANES)
+        for fill in ("ones", "randn"):
+            x = (torch.ones(shape, device=dev) if fill == "ones"
+                 else torch.randn(shape, generator=gen, device=dev))
+            before = read_passes.launches
+            out, sink = read_passes(x, n_tiles, reps, tile_rows)
+            check(read_passes.launches == before + 1,
+                  "the K12 counter did not count the launch")
+            out_p, sink_p = read_passes_torch(x, n_tiles, reps, tile_rows)
+            torch.cuda.synchronize()
+            same = bits_equal(out, out_p) and bits_equal(sink, sink_p)
+            max_err = max(max_err, float((out - out_p).abs().max()),
+                          float((sink - sink_p).abs().max()))
+            n_steps = reps * n_tiles
+            strips = x.view(n_tiles, tile_rows, LANES)[:, :STRIP_ROWS]
+            exact = reps * strips.double().sum(0)
+            tol = n_steps * eps * reps * strips.double().abs().sum(0)
+            out_err = float((out.double() - exact).abs().max())
+            out_ok = bool(((out.double() - exact).abs() <= tol).all())
+            # a value read passes through at most 4 n_steps serial adds in
+            # its thread and the 8 levels of the block's tree
+            n_terms = reps * x.numel()
+            total = float(sink.double().sum())
+            exact_total = reps * float(x.double().sum())
+            tol_total = ((4 * n_steps + 8) * eps * reps
+                         * float(x.double().abs().sum()))
+            sink_ok = abs(total - exact_total) <= tol_total
+            if fill == "ones":
+                out_ok = out_ok and bool((out == n_steps).all())
+                sink_ok = sink_ok and total == n_terms
+            ok = same and out_ok and sink_ok and bool(
+                torch.isfinite(out).all())
+            print(f"[3e K12] {fill} n_tiles={n_tiles} reps={reps} tile_rows="
+                  f"{tile_rows}: bit-identical to the plain version {same}; "
+                  f"out max|out - exact| {out_err:.3e} within its bound "
+                  f"{out_ok}; sink total {total:.9e} vs exact "
+                  f"{exact_total:.9e} within {tol_total:.3e} {sink_ok} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K12 disagrees: {fill} {n_tiles} {reps} {tile_rows}")
+            del x, out, sink, out_p, sink_p, strips, exact, tol
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase4e_profile(cli, gpu):
+    """``-t cg --profile`` at 100^3 and 200^3 through the CLI (k = 150, the
+    difference below F32_DIFF_BOUND, the region table with a nonzero spMVM
+    rate), the K1 count set to 0 before and read after; then ``--banner``.
+    Returns K1's launches over the two profiled runs."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+
+    dia_spmv.launches = 0
+    for size, argv in (("100^3", ["-t", "cg", "--profile"]),
+                       ("200^3", ["-f", str(REPO / "hpcg.par"), "-t", "cg",
+                                  "--profile"])):
+        before = dia_spmv.launches
+        text = run_cli(cli.main, argv)
+        n = dia_spmv.launches - before
+        k, diff = parse_cg(text)
+        rows = dict(re.findall(r"^(\w+):\s+(\S+)\s+\S+\s+\S+$", text, re.M))
+        print(f"[4e profile] {size} -t cg --profile: k={k} difference={diff} "
+              f"K1 launches={n} spMVM rate {rows.get('spMVM')} MB/s | {gpu}")
+        check(k == 150 and diff < F32_DIFF_BOUND,
+              f"--profile at {size}: k={k}, difference {diff}")
+        check(list(rows) == ["waxpby", "spMVM", "ddot"]
+              and float(rows["spMVM"]) > 0, f"--profile table: {rows}")
+        # the untimed warm-up product, the initial one, 149 in the loop
+        check(n >= 150, f"--profile at {size}: only {n} K1 launches")
+    launches = dia_spmv.launches
+    text = run_cli(cli.main, ["-t", "cg", "--banner", "-x", "16", "-y", "16",
+                              "-z", "16", "-i", "10"])
+    check(re.search(r"^Process \d+ on host \S+:$", text, re.M) is not None
+          and torch.cuda.get_device_name(0) in text
+          and "power limit" in text, "--banner printed no device table")
+    print(f"[4e profile] --banner printed the device table; K1 launches over "
+          f"the --profile runs: {launches}")
+    return launches
+
+
+def phase5e_memroof_times(dev, gpu):
+    """K12: the bench's read ceiling (``measure_dma_read_gbps`` with its
+    defaults) with the K12 count set to 0 before and read after; one
+    reps = 4 launch per pass beside the plain version, torch.sum over the
+    same array and the bound of a pass. Returns (K12's launches in the
+    measurement, K12's row numbers)."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.memroof import (
+        LANES,
+        TILE_ROWS,
+        measure_dma_read_gbps,
+        read_passes,
+        read_passes_torch,
+    )
+
+    read_passes.launches = 0
+    gbps = measure_dma_read_gbps()
+    launches = read_passes.launches
+    check(launches == 8, f"measure_dma_read_gbps launched K12 {launches} "
+          "times, expected 8")
+    nbytes = MEMROOF_FLOATS * 4
+    n_tiles = MEMROOF_FLOATS // (TILE_ROWS * LANES)
+    x = torch.ones((n_tiles * TILE_ROWS, LANES), device=dev)
+    reps = 4
+    k_ms, p_ms, ms, _eager = time_pair(
+        lambda: read_passes(x, n_tiles, reps),
+        lambda: read_passes_torch(x, n_tiles, reps), graph=False, reps=5)
+    lib_ms = min(time_graph(lambda: torch.sum(x)) for _ in range(2))
+    b_ms, b_by = bound(nbytes, MEMROOF_FLOATS)
+    diff_ms = nbytes / (gbps * 1e9) * 1e3
+    print(f"[5e K12] {MEMROOF_FLOATS} f32 ({nbytes / 2**20:.0f} MiB), "
+          f"2048-row tiles: read ceiling {gbps:.1f} GB/s "
+          f"({gbps / (HBM_BYTES_PER_S / 1e9):.3f} of 3350), differential "
+          f"{diff_ms:.6f} ms a pass, K12 launches={launches}; one reps={reps} "
+          f"launch {ms['kernel']} ms -> {k_ms / reps:.6f} ms a pass; plain "
+          f"{ms['plain']} ms -> {p_ms / reps:.6f} ms a pass; torch.sum "
+          f"{lib_ms:.6f} ms ({nbytes / (lib_ms * 1e-3) / 1e9:.1f} GB/s); "
+          f"bound {b_ms:.6f} ms a pass ({b_by}) | {gpu}")
+    check(0 < gbps <= 1.02 * HBM_BYTES_PER_S / 1e9,
+          f"read ceiling {gbps} GB/s is not below the data sheet's rate")
+    del x
+    torch.cuda.empty_cache()
+    return launches, dict(ms=k_ms / reps, plain_ms=p_ms / reps,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          dma_read_GBps=gbps, ms_differential=diff_ms)
+
+
+def phase6_bench(gpu, tmpdir: Path):
+    """``python -m sparsebench_tpu_torch.bench`` (the full suite) as a
+    subprocess: rc 0 and a final line of at most 1500 characters that
+    parses, with a positive value, stream_read_GBps, dma_read_GBps and
+    cg200_seconds. Its output goes to ``tmpdir/bench.log`` and is echoed."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparsebench_tpu_torch.bench"], cwd=REPO,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    (tmpdir / "bench.log").write_text(proc.stderr + proc.stdout)
+    for line in proc.stderr.splitlines():
+        print(f"[6 bench] {line}")
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"the bench exited {proc.returncode}")
+    last = json.loads(lines[-1])
+    extra = last.get("extra", {})
+    print(f"[6 bench] final line ({len(lines[-1])} characters): {lines[-1]}")
+    print(f"[6 bench] python -m sparsebench_tpu_torch.bench: rc 0 in "
+          f"{wall:.1f} s | {gpu}")
+    check(len(lines[-1]) <= 1500, "the bench's final line is too long")
+    check(last.get("value", 0) > 0 and all(
+        extra.get(key, 0) > 0 for key in ("stream_read_GBps", "dma_read_GBps",
+                                          "cg200_seconds")),
+        f"the bench's final line lacks a key: {lines[-1]}")
+    return wall
+
+
 def main() -> int:
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -1333,6 +1537,7 @@ def main() -> int:
     err_b, dots_rel = phase3b_stencil(dev)
     err_c, auto_c = phase3c_bslab(dev)
     err_d = phase3d_spmm(dev)
+    err_e = phase3e_memroof(dev)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -1391,11 +1596,14 @@ def main() -> int:
 
     # -- phase 4d: the solver family through the CLI -------------------------
     launches_d = phase4d_solvers(cli, gpu, tmpdir)
+
+    # -- phase 4e: --profile and --banner through the CLI --------------------
+    launches_e = phase4e_profile(cli, gpu)
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "sparsebench_tpu"))
     check(not jax_mods, f"the port imported JAX or the JAX package: "
           f"{jax_mods[:5]}")
-    print("[4d solvers] no module of JAX or of the JAX package was imported")
+    print("[4e profile] no module of JAX or of the JAX package was imported")
 
     # -- phase 5: times of K1 -----------------------------------------------
     timing = {}
@@ -1438,6 +1646,12 @@ def main() -> int:
 
     # -- phase 5d: times of K8, blocked CG and the solver family -------------
     times_d = phase5d_times(dev, gpu)
+
+    # -- phase 5e: the read ceiling K12 ---------------------------------------
+    launches_k12, times_e = phase5e_memroof_times(dev, gpu)
+
+    # -- phase 6: the bench suite -------------------------------------------
+    phase6_bench(gpu, tmpdir)
 
     src = "sparsebench_tpu_torch/csrc/"
 
@@ -1482,9 +1696,26 @@ def main() -> int:
     kernels.append(row("dia_spmm", "dia_spmm.cu",
                        "sparsebench_tpu/ops/dia_pallas.py:248", launches_d,
                        err_d, times_d[100], times_d[200]))
+    kernels.append(row("read_passes", "memroof.cu",
+                       "sparsebench_tpu/ops/memroof.py:67", launches_k12,
+                       err_e, times_e))
+    kernels[0]["launches_profile"] = launches_e
     kernels[1]["launches_dots_form"] = launches_b["K2 dots"]
     kernels[1]["dots_max_rel_err"] = dots_rel["K2"]
     kernels[2]["dots_max_rel_err"] = dots_rel["K3"]
+    # each byte-bound kernel's rate as a share of the data sheet's 3.35 TB/s
+    # and of the read ceiling K12 measured in phase 5e
+    ceiling = times_e["dma_read_GBps"] * 1e9
+    for r in kernels:
+        for case in ("", "_100", "_200"):
+            ms, b_ms = r.get("ms" + case), r.get("bound_ms" + case)
+            if ms is None or r.get("bound_by" + case) != "bytes":
+                continue
+            r["ceiling_share" + case] = b_ms * HBM_BYTES_PER_S / (ms * ceiling)
+            print(f"[5e K12] {r['name']}{case or ' (main case)'}: "
+                  f"{b_ms / ms:.3f} of 3.35 TB/s, "
+                  f"{r['ceiling_share' + case]:.3f} of the read ceiling "
+                  f"{ceiling / 1e9:.1f} GB/s | {gpu}")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

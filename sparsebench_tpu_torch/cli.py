@@ -6,10 +6,11 @@ The reference flags ``-h -f -m -t -x -y -z -i -e`` plus ``--fmt``,
 ``--seed``, ``--rcm``, ``--dtype``, ``--index-dtype``, ``--impl``,
 ``--device``, ``--trace`` and the solver family's ``--cg-variant``,
 ``--sstep``, ``--precond``, ``--precond-degree``, ``--nrhs``, ``--refine``,
-``--refine-sweeps``, ``--restart``, ``--orth``, ``--checkpoint`` and
-``--checkpoint-every``. Flow (src/main.c:83-230): banner -> matrix ->
-profiler factors -> the bench (``-t cg`` in any CG variant, blocked over
-``--nrhs`` right-hand sides, refined or checkpointed; ``spmv``; ``gmres``,
+``--refine-sweeps``, ``--restart``, ``--orth``, ``--checkpoint``,
+``--checkpoint-every``, ``--profile`` and ``--banner``. Flow
+(src/main.c:83-230): banner -> matrix -> profiler factors -> the bench
+(``-t cg`` in any CG variant, blocked over ``--nrhs`` right-hand sides,
+refined, checkpointed or profiled by region; ``spmv``; ``gmres``,
 ``cheb``, ``bicgstab`` or ``minres``) -> report. Warnings for flags that do
 not reach the chosen bench, and refusals of combinations, keep the JAX
 CLI's wording. The matrix is one of:
@@ -27,8 +28,8 @@ The default device is ``cuda``; without CUDA the run exits with an error
 instead of running on the CPU (``--device cpu`` runs the plain PyTorch
 path). A ``--fmt`` choice or a .par file's ``shards`` that is not ported
 exits and names the ROADMAP.md item that ports it; the JAX CLI's other
-flags (``--shards``, ``--exchange``, ``--overlap``, ``--profile``, ``-c``,
-``--banner``) are absent, so argparse rejects them.
+flags (``--shards``, ``--exchange``, ``--overlap``, ``-c``) are absent, so
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -107,6 +108,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device, cuda (default) or cpu. Without CUDA "
                     "the default exits with an error.")
+    ap.add_argument("--profile", action="store_true",
+                    help="Per-region timing report (reference profiler table)")
     ap.add_argument("--trace", metavar="DIR", default=None,
                     help="Write a torch.profiler Chrome trace to DIR")
     ap.add_argument("--checkpoint", metavar="PATH", default=None,
@@ -160,6 +163,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--rcm", action="store_true",
                     help="Reverse Cuthill-McKee row/column reordering of a "
                     "matrix file before the format conversion")
+    ap.add_argument("--banner", action="store_true",
+                    help="Print the device table (reference affinity map)")
     ap.add_argument("--version", action="version", version=__version__)
     return ap
 
@@ -315,6 +320,10 @@ def _validate(ap: argparse.ArgumentParser, args: argparse.Namespace,
                                   "minres")),
         ("--refine", "refine", ("cg",)),
         ("--nrhs", "nrhs", ("cg",)),
+        # only the CG loop and the SpMV bench feed the region timers
+        # (reference PROFILE sites: CGSolver.c + main.c:200-216); other
+        # benches would print an all-zeros table
+        ("--profile", "profile", ("cg", "spmv")),
     ):
         if getattr(args, attr) != ap.get_default(attr) and (
             param.bench not in benches
@@ -340,7 +349,7 @@ def _validate(ap: argparse.ArgumentParser, args: argparse.Namespace,
               file=sys.stderr)
     if args.refine and (args.precond != "none"
                         or args.cg_variant != "standard"
-                        or args.checkpoint):
+                        or args.checkpoint or args.profile):
         raise SystemExit(
             "--refine combines with the plain CG path only (no "
             "--precond/--cg-variant/--checkpoint/--profile: the inner "
@@ -350,7 +359,8 @@ def _validate(ap: argparse.ArgumentParser, args: argparse.Namespace,
         raise SystemExit("--nrhs must be >= 1")
     if args.nrhs > 1 and param.bench == "cg" and (
         args.precond != "none" or args.cg_variant != "standard"
-        or args.checkpoint or args.refine or param.fmt == "stencil"
+        or args.checkpoint or args.profile or args.refine
+        or param.fmt == "stencil"
     ):
         raise SystemExit(
             "--nrhs > 1 uses the blocked serial CG path on a stored "
@@ -375,9 +385,10 @@ def _validate(ap: argparse.ArgumentParser, args: argparse.Namespace,
                 f"--precond {args.precond} combines with "
                 "--cg-variant standard/cs/pipe only"
             )
-        if args.precond != "none" and args.checkpoint:
+        if args.precond != "none" and (args.checkpoint or args.profile):
             raise SystemExit("--precond combines with the plain CG path only")
-        if args.cg_variant != "standard" and args.checkpoint:
+        if args.cg_variant != "standard" and (args.checkpoint
+                                              or args.profile):
             raise SystemExit(
                 "--cg-variant combines with the plain CG path only")
 
@@ -437,7 +448,10 @@ def main(argv: Optional[list] = None) -> int:
         init_vectors,
         solve_cg,
     )
-    from sparsebench_tpu_torch.solvers.profiled import bench_spmv
+    from sparsebench_tpu_torch.solvers.profiled import (
+        bench_spmv,
+        solve_cg_profiled,
+    )
 
     policy = DTypePolicy.from_names(param.dtype, param.index_dtype)
     try:
@@ -459,6 +473,10 @@ def main(argv: Optional[list] = None) -> int:
         f"precision {param.dtype}/{param.index_dtype} | {device_name} | "
         f"spmv {impl}"
     )
+    if args.banner:
+        from sparsebench_tpu_torch.utils import device_banner
+
+        print(device_banner())
     print(print_parameter(param))  # reference printParameter
     _validate(ap, args, param)
 
@@ -589,6 +607,9 @@ def main(argv: Optional[list] = None) -> int:
                         A, b, checkpoint_path=args.checkpoint,
                         checkpoint_every=args.checkpoint_every,
                         itermax=param.itermax, eps=param.eps)
+                elif args.profile:
+                    res = solve_cg_profiled(A, b, prof, itermax=param.itermax,
+                                            eps=param.eps)
                 else:
                     res = solve_cg(A, b, itermax=param.itermax, eps=param.eps,
                                    inv_diag=inv_diag, precond=precond,
@@ -652,7 +673,8 @@ def main(argv: Optional[list] = None) -> int:
                 report_difference(res.x, xexact)
         except ValueError as e:  # a solver that cannot take the options
             raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
-    if param.bench == "spmv":
+    if (args.profile and param.bench == "cg") or param.bench == "spmv":
+        # gated to the benches that feed the timers (warned above)
         print(prof.report(iterations))
     return 0
 

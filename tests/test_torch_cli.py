@@ -170,8 +170,8 @@ def test_unported_par_keys_name_their_roadmap_item(text, where, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--shards", "4"], ["--profile"], ["--exchange", "auto"], ["--overlap"],
-    ["--banner"], ["-c", "m.mtx"],
+    ["--shards", "4"], ["--shards", "1"], ["--exchange", "auto"],
+    ["--overlap"], ["--exchange", "ppermute"], ["-c", "m.mtx"],
 ])
 def test_jax_only_flags_are_rejected(argv, capsys):
     """The JAX CLI's flags that are not ported are absent: argparse exits

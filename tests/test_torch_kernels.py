@@ -1,7 +1,7 @@
 """The kernels of sparsebench_tpu_torch (the DIA SpMV K1; the stencil's
 K2-K5; the bslab SpMV K6 and its windowed form K7; the multi-RHS DIA
-product K8): their wrappers, their build and, on a CUDA card, the kernels
-themselves — without the JAX package.
+product K8; the read ceiling K12): their wrappers, their build and, on a
+CUDA card, the kernels themselves — without the JAX package.
 
 Here on the CPU the dispatch, the refusals and the build lookup run; the
 tests marked ``cuda`` skip without a card. On a machine with an NVIDIA
@@ -22,7 +22,8 @@ held against their exact value to the bound of that summation,
 in the plain version's order with each operation rounded on its own, and
 are held to be bit-identical to it. K8 sums each column as K1 does and is
 held to be bit-identical to its plain version and, column by column, to
-K1.
+K1. K12 adds in the plain version's step order, each add rounded on its
+own, and is held to be bit-identical to it.
 """
 
 import math
@@ -48,6 +49,11 @@ from sparsebench_tpu_torch.ops.bslab_spmv import (
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
 from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
+from sparsebench_tpu_torch.ops.memroof import (
+    measure_dma_read_gbps,
+    read_passes,
+    read_passes_torch,
+)
 from sparsebench_tpu_torch.ops.stencil import (
     stencil_apply,
     stencil_apply_dots,
@@ -159,7 +165,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
         "bslab_spmv.cu", "cg_fused.cu", "dia_spmm.cu", "dia_spmv.cu",
-        "stencil.cu", "stencil_cg_vmem.cu"]
+        "memroof.cu", "stencil.cu", "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -813,3 +819,46 @@ def test_cli_nrhs_runs_the_kernel(cuda_device, capsys):
     assert dia_spmm.launches - before == 2 * 30
     assert "Blocked CG: 4 right-hand sides" in out
     assert "Difference between" in out
+
+
+# -- K12: the read ceiling -----------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles,reps,tile_rows",
+                         [(1, 1, 8), (3, 2, 16), (7, 9, 2048)])
+def test_read_passes_kernel_matches_plain(n_tiles, reps, tile_rows,
+                                          cuda_device):
+    """K12's out and sink equal the plain version's bit for bit, on ones
+    (out exactly reps * n_tiles) and on seeded random data; 63 steps take
+    the unrolled loop's remainder."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    shape = (n_tiles * tile_rows, 128)
+    for fill in ("ones", "randn"):
+        x = (torch.ones(shape, device=cuda_device) if fill == "ones"
+             else torch.randn(shape, generator=gen, device=cuda_device))
+        before = read_passes.launches
+        out, sink = read_passes(x, n_tiles, reps, tile_rows)
+        assert read_passes.launches == before + 1
+        out_p, sink_p = read_passes_torch(x, n_tiles, reps, tile_rows)
+        assert torch.equal(out, out_p) and torch.equal(sink, sink_p)
+        if fill == "ones":
+            assert bool((out == reps * n_tiles).all())
+
+
+@pytest.mark.cuda
+def test_read_passes_refusals_on_the_card(cuda_device):
+    x = torch.ones((32, 256), device=cuda_device)[:, :128]
+    with pytest.raises(ValueError, match="contiguous"):
+        read_passes(x, 2, 1, 16)
+    with pytest.raises(ValueError, match="L2"):
+        measure_dma_read_gbps(n_floats=1 << 20)
+
+
+@pytest.mark.cuda
+def test_read_ceiling_launches_the_kernel(cuda_device):
+    """Two warm-ups, then three trials at reps and three at 3 reps."""
+    before = read_passes.launches
+    gbps = measure_dma_read_gbps()
+    assert read_passes.launches - before == 8
+    assert math.isfinite(gbps) and gbps > 0
