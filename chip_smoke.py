@@ -30,9 +30,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    before and read after those runs; then the f64 residual history at 100^3
    through the kernel against the plain version;
 4b. the stencil path: ``--fmt stencil -t cg`` with each CG variant at 100^3
-   and (but vmem, which must refuse there) at 200^3, ``cs`` with
-   SB_FUSED_CS=1, and ``-t spmv --fmt stencil``, with every stencil
-   kernel's launch count set to 0 before and read after;
+   and 200^3, ``cs`` with SB_FUSED_CS=1, and ``-t spmv --fmt stencil``,
+   with every stencil kernel's launch count set to 0 before and read after;
+   then K5 at 200^3 against stencil_cg_vmem_torch, the f64 history to rtol
+   1e-9 above 1e-10 of the start;
 4c. the bslab path: ``--fmt bslab -t cg`` at 100^3 and 200^3, ``--fmt sell
    -t cg`` at 100^3 (bridged to bslab), ``-m generateRGL`` at 2M with
    ``-t cg`` and ``-t spmv``, and ``-m <file> -t cg`` on a host RGL matrix
@@ -41,8 +42,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5. times: CG solve seconds and per-SpMV milliseconds of K1 and its plain
    version at 100^3 and 200^3, with physical GB/s, beside the same product
    as a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x);
-5b. times of K2-K5 beside their plain versions, their bounds and, for K2,
-   torch.nn.functional.conv3d; CG x150 seconds of each stencil variant;
+5b. times of K2-K5 (K5 at 100^3 and 200^3) beside their plain versions,
+   their bounds and, for K2, torch.nn.functional.conv3d; CG x150 seconds of
+   each stencil variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
    GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M, and
    bslab CG x150 seconds on each;
@@ -73,11 +75,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5e. K12: the read ceiling ``measure_dma_read_gbps`` (the K12 count set to 0
    before it and read after: 8 launches), one launch per pass beside the
    plain version, torch.sum over the same array and the bound of a pass;
+3f. the bsell kernels K9, K10 and K11 (both windowed) against
+   bsell_spmv_torch, bit for bit, for (bf16, f32), (f32, f32) and (f64,
+   f64) on the stencil through the host CSR (7x6x5, 20^3, 100^3) and on the
+   device (10x9x7, 20x20x12, 100^3, 200^3), klein, the small test matrices
+   and a random banded matrix of 50k rows; K10 and K11 where the window fits
+   a block, their refusal checked where it does not;
+4f. the bsell path: ``--fmt bsell -t cg`` at 100^3 with ``--impl`` auto
+   (K9), kernel_win2 (K10), kernel_win (K11) and torch, then ``-t spmv``,
+   with the K9-K11 counts set to 0 before and read after; the f64 residual
+   lines of ``--impl kernel`` and ``--impl torch`` equal;
+5f. times of K9-K11 at 100^3 (the CLI's host CSR build and the device
+   build) and 200^3 (device build) beside their bounds, the plain version,
+   cuSPARSE CSR f32 on the same matrix and K6 and K1 on the same problem,
+   and bsell CG x150 seconds;
 6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
    a subprocess: rc 0 and a final JSON line of at most 1500 characters with
-   a positive value, stream_read_GBps, dma_read_GBps and cg200_seconds.
+   a positive value, stream_read_GBps, dma_read_GBps, cg200_seconds and
+   cg200_vmem_seconds; then ``python -m sparsebench_tpu_torch.bench spmv
+   200 dia,bslab,bsell``, rc 0.
 
-The phases run in the order 3-3e, 4-4e, 5-5e, 6. A bound is the larger of the bytes a call must
+The phases run in the order 3-3f, 4-4f, 5-5f, 6. A bound is the larger of the bytes a call must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over 67 TFLOP/s (f32), the H100 SXM's published rates at
 700 W. The last three
@@ -495,8 +513,8 @@ def phase4b_stencil(cli, gpu):
                 "K5": stencil_cg_vmem}
     for w in wrappers.values():
         w.launches = 0
-    runs = [(100, v, False) for v in VARIANTS] + [
-        (200, v, False) for v in VARIANTS[:3]] + [(100, "cs", True)]
+    runs = [(n, v, False) for n in (100, 200) for v in VARIANTS] + [
+        (100, "cs", True)]
     for n, variant, fused_cs in runs:
         size = [] if n == 100 else ["-f", str(REPO / "hpcg.par")]
         argv = [*size, "-t", "cg", "--fmt", "stencil", "--cg-variant",
@@ -526,15 +544,6 @@ def phase4b_stencil(cli, gpu):
                   f"times, expected {want}")
         if variant == "vmem":
             check(ran["K5"] == 2, "K5: one launch per solve expected")
-    # vmem at 200^3 does not fit the L2 plan and must refuse, loudly
-    try:
-        run_cli(cli.main, ["-f", str(REPO / "hpcg.par"), "-t", "cg",
-                           "--fmt", "stencil", "--cg-variant", "vmem"])
-        check(False, "vmem at 200^3 ran; it must refuse")
-    except SystemExit as e:
-        check("not viable at 200x200x200" in str(e),
-              f"vmem at 200^3 refused with another message: {e}")
-        print(f"[4b stencil] 200^3 vmem refused: {e}")
     before = stencil_apply.launches
     text = run_cli(cli.main, ["-t", "spmv", "--fmt", "stencil"])
     n = stencil_apply.launches - before
@@ -546,7 +555,43 @@ def phase4b_stencil(cli, gpu):
     print(f"[4b stencil] launches over the stencil path: {launches}")
     for key, count in launches.items():
         check(count > 0, f"{key} was not launched on the stencil path")
+    vmem200_history()
     return launches
+
+
+def vmem200_history() -> None:
+    """K5 at 200^3 (r and p stream from device memory there) against its
+    plain version from the same r0 and x0: k equal and the history to rtol
+    1e-9 above 1e-10 of the start in f64, x to 1e-10."""
+    import torch
+
+    from sparsebench_tpu_torch.formats.stencil import StencilOperator
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+        stencil_cg_vmem,
+        stencil_cg_vmem_torch,
+    )
+
+    dev = torch.device("cuda")
+    A, counts = StencilOperator.from_stencil(200, 200, 200, device=dev)
+    b = torch.from_numpy(27.0 - (counts - 1.0)).to(dev, torch.float64)
+    x0 = torch.zeros_like(b)
+    r0 = b - A.spmv(x0)
+    x_k, h_k = stencil_cg_vmem(r0, x0, 0.0, 200, 200, 200, 150)
+    x_p, h_p = stencil_cg_vmem_torch(r0, x0, 0.0, 200, 200, 200, 150)
+    h_k, h_p = h_k.cpu().numpy(), h_p.cpu().numpy()
+    k_k, k_p = int(np.sum(~np.isnan(h_k))), int(np.sum(~np.isnan(h_p)))
+    sel = h_p[:k_p] >= NOISE_FLOOR * h_p[0]
+    rel = float(np.max(np.abs(h_k[:k_p][sel] - h_p[:k_p][sel])
+                       / h_p[:k_p][sel]))
+    ex = float((x_k - x_p).abs().max())
+    ok = (k_k == k_p == 150 and rel <= HIST_RTOL and ex <= 1e-10
+          and bool(torch.isfinite(x_k).all()))
+    print(f"[4b stencil] K5 200^3 f64 x150: k {k_k} vs plain {k_p}; "
+          f"{int(sel.sum())} history entries above {NOISE_FLOOR} of the "
+          f"start, max rel diff {rel:.3e} (rtol {HIST_RTOL}); max|x_kernel - "
+          f"x_plain| {ex:.3e}; max|x-1| {float((x_k - 1).abs().max()):.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "K5 at 200^3 disagrees with its plain version in f64")
 
 
 def stencil_cg_seconds(dev, gpu) -> None:
@@ -560,8 +605,6 @@ def stencil_cg_seconds(dev, gpu) -> None:
         _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
         for variant, fused_cs in [(v, False) for v in VARIANTS] + [
                 ("cs", True)]:
-            if n == 200 and variant == "vmem":
-                continue  # refused: r and p do not fit the L2 plan
             if fused_cs:
                 os.environ["SB_FUSED_CS"] = "1"
             try:
@@ -649,27 +692,31 @@ def phase5b_times(dev, gpu):
               f"{eager:.6f} ms; bound {b_ms:.6f} ms "
               f"({b_by}) | {gpu}")
         del x, r, p, vecs, x5
-    # K5: one whole solve at 100^3 f32, 150 iterations
-    b = torch.from_numpy((27.0 - (stencil_row_counts(100, 100, 100) - 1.0))
-                         .astype(np.float32)).to(dev)
-    x0 = torch.zeros_like(b)
-    r0 = b - stencil_apply(x0, 100, 100, 100)
-    _x, hist = stencil_cg_vmem(r0, x0, 0.0, 100, 100, 100, 150)
-    iters = int(torch.sum(~torch.isnan(hist))) - 1
-    # eager: the plain version reads scalars on the host each iteration,
-    # and one launch of the kernel takes milliseconds
-    k_ms, p_ms, all_ms, eager = time_pair(
-        lambda: stencil_cg_vmem(r0, x0, 0.0, 100, 100, 100, 150),
-        lambda: stencil_cg_vmem_torch(r0, x0, 0.0, 100, 100, 100, 150),
-        graph=False, reps=3)
-    pts = 100 ** 3
-    b_ms, b_by = bound(3 * 4 * pts, (2 + K5_FLOPS_PER_ITER * iters) * pts)
-    out["K5"][100] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, eager_ms=eager)
-    print(f"[5b times] K5 whole CG solve 100^3 f32 x150 ({iters} iterations "
-          f"run): kernel {all_ms['kernel']} ms, plain {all_ms['plain']} ms; "
-          f"bound {b_ms:.6f} ms ({b_by}: r0 and x0 read, x written once; "
-          f"{K5_FLOPS_PER_ITER} flops a point an iteration) | {gpu}")
+    # K5: one whole solve in f32, 150 iterations (at 200^3 r and p stream
+    # from device memory)
+    for n in (100, 200):
+        b = torch.from_numpy((27.0 - (stencil_row_counts(n, n, n) - 1.0))
+                             .astype(np.float32)).to(dev)
+        x0 = torch.zeros_like(b)
+        r0 = b - stencil_apply(x0, n, n, n)
+        _x, hist = stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150)
+        iters = int(torch.sum(~torch.isnan(hist))) - 1
+        # eager: the plain version reads scalars on the host each
+        # iteration, and one launch of the kernel takes milliseconds
+        k_ms, p_ms, all_ms, eager = time_pair(
+            lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
+            lambda: stencil_cg_vmem_torch(r0, x0, 0.0, n, n, n, 150),
+            graph=False, reps=3)
+        pts = n ** 3
+        b_ms, b_by = bound(3 * 4 * pts, (2 + K5_FLOPS_PER_ITER * iters) * pts)
+        out["K5"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None, eager_ms=eager)
+        print(f"[5b times] K5 whole CG solve {n}^3 f32 x150 ({iters} "
+              f"iterations run): kernel {all_ms['kernel']} ms, plain "
+              f"{all_ms['plain']} ms; bound {b_ms:.6f} ms ({b_by}: r0 and x0 "
+              f"read, x written once; {K5_FLOPS_PER_ITER} flops a point an "
+              f"iteration) | {gpu}")
+        del b, x0, r0, _x, hist
     return out
 
 
@@ -1452,11 +1499,305 @@ def phase5e_memroof_times(dev, gpu):
                           dma_read_GBps=gbps, ms_differential=diff_ms)
 
 
+# -- K9, K10 and K11: the bsell SpMV ------------------------------------------
+
+
+def banded_csr(n: int, band: int, density: float, seed: int):
+    """A numpy-seeded random banded host CSR (rows column-sorted, a unit
+    diagonal shift keeps it nonsingular)."""
+    from sparsebench_tpu_torch.host import HostCSR
+
+    rng = np.random.default_rng(seed)
+    per_row = max(1, int(density * (2 * band + 1)))
+    rows = np.repeat(np.arange(n), per_row)
+    cols = np.clip(rows + rng.integers(-band, band + 1, rows.size), 0, n - 1)
+    keys = np.unique(np.concatenate([rows * n + cols,
+                                     np.arange(n) * (n + 1)]))
+    r, c = keys // n, keys % n
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=n), out=row_ptr[1:])
+    val = rng.standard_normal(r.size) + np.where(r == c, 2.0 * band, 0.0)
+    return HostCSR(row_ptr=row_ptr, col=c.astype(np.int64), val=val, nr=n,
+                   nc=n)
+
+
+def bsell_matrices(dev):
+    """(name, BsellMatrix) of phase 3f, built one at a time with the f32
+    policy (bf16 values where lossless): the stencil through the host CSR
+    (the CLI's build) at 7x6x5, 20^3 and 100^3 and on the device
+    (``from_stencil``) at 10x9x7, 20x20x12, 100^3 and 200^3, klein and the
+    small test matrices, and a random banded matrix of 50k rows."""
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.bsell import BsellMatrix
+    from sparsebench_tpu_torch.host import generate_stencil, read_mm
+
+    f32 = DTypePolicy.from_names("f32")
+    for dims in [(7, 6, 5), (20, 20, 20), (100, 100, 100)]:
+        yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]} from_csr",
+               BsellMatrix.from_csr(generate_stencil(*dims), f32, device=dev))
+    for dims in [(10, 9, 7), (20, 20, 12), (100, 100, 100), (200, 200, 200)]:
+        yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]} from_stencil",
+               BsellMatrix.from_stencil(*dims, device=dev, policy=f32)[0])
+    data = REPO / "tests" / "data"
+    files = [data / "matrix_band_klein.mtx"] + sorted(
+        (data / "testMatrices").glob("test*.mtx"))
+    for path in files:
+        yield path.name, BsellMatrix.from_csr(read_mm(str(path)), f32,
+                                              device=dev)
+    yield "banded random 50k", BsellMatrix.from_csr(
+        banded_csr(50_000, 300, 0.05, 3), f32, device=dev)
+
+
+def phase3f_bsell(dev):
+    """K9, K10 and K11 against bsell_spmv_torch, bit for bit, in all three
+    (values, x) pairs; K10 and K11 wherever the window fits, and a refusal
+    checked where it does not. Returns {kernel: max |kernel - plain|}."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.bsell_spmv import (
+        LANES,
+        bsell_spmv,
+        bsell_spmv_torch,
+        bsell_spmv_win2,
+        bsell_spmv_windowed,
+        win_fits,
+        win_smem_bytes,
+    )
+
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+    rng = np.random.default_rng(41)
+    err = {"K9": 0.0, "K10": 0.0, "K11": 0.0}
+    win_cases = refused = 0
+    windowed = (("K10", bsell_spmv_win2), ("K11", bsell_spmv_windowed))
+    for name, A in bsell_matrices(dev):
+        x0 = rng.standard_normal(A.nc)
+        for td, tx in BSLAB_PAIRS:
+            vals = A.vals.to(dts[td])
+            x = torch.from_numpy(x0).to(dev, dts[tx])
+            x2d = A.padded_x(x, A.nc_pad // LANES)
+            y_p = bsell_spmv_torch(A.blocks, A.win_base, x2d, vals, A.lidx)
+            before = bsell_spmv.launches
+            y_k = bsell_spmv(A.blocks, A.win_base, x2d, vals, A.lidx)
+            check(bsell_spmv.launches == before + 1,
+                  "the K9 counter did not count the launch")
+            torch.cuda.synchronize()
+            same = bits_equal(y_k, y_p) and bool(torch.isfinite(y_k).all())
+            err["K9"] = max(err["K9"], float((y_k - y_p).abs().max()))
+            line, ok = f"K9 bit-identical {same}", same
+            xw = A.padded_x(x, A.xw_rows)
+            if win_fits(A.w_blocks, x.dtype):
+                for key, fn in windowed:
+                    before = fn.launches
+                    y_w = fn(A.wchunk, A.blocks, xw, vals, A.lidx,
+                             w_blocks=A.w_blocks)
+                    check(fn.launches == before + 1,
+                          f"the {key} counter did not count the launch")
+                    torch.cuda.synchronize()
+                    same_w = bits_equal(y_w, y_p)
+                    err[key] = max(err[key], float((y_w - y_p).abs().max()))
+                    line += f"; {key} bit-identical {same_w}"
+                    ok &= same_w
+                win_cases += 1
+            else:
+                need = win_smem_bytes(A.w_blocks, x.dtype)
+                for key, fn in windowed:
+                    try:
+                        fn(A.wchunk, A.blocks, xw, vals, A.lidx,
+                           w_blocks=A.w_blocks)
+                        check(False, f"{key} ran a {need} B window")
+                    except ValueError as e:
+                        check(str(need) in str(e), f"{key} refused with "
+                              f"another message: {e}")
+                refused += 1
+                line += f"; K10/K11 window {need} B does not fit: refused"
+            print(f"[3f bsell] {name} ({A.n_tiles} tiles, s_max {A.s_max}, W "
+                  f"{A.w_blocks}, auto {A.impl}) values {td} x {tx}: {line} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K9-K11 disagree with the plain version on {name} "
+                  f"{td}/{tx}")
+            del vals, x, x2d, xw, y_p, y_k
+        del A
+        torch.cuda.empty_cache()
+    check(win_cases > 0 and refused > 0,
+          f"K10/K11 compared on {win_cases} cases, refused on {refused}")
+    return err
+
+
+BSELL_KERNELS = ("K9", "K10", "K11")
+
+
+def bsell_wrappers():
+    from sparsebench_tpu_torch.ops.bsell_spmv import (
+        bsell_spmv,
+        bsell_spmv_win2,
+        bsell_spmv_windowed,
+    )
+
+    return dict(zip(BSELL_KERNELS, (bsell_spmv, bsell_spmv_win2,
+                                    bsell_spmv_windowed)))
+
+
+def phase4f_bsell(cli, gpu):
+    """The bsell path through the CLI at 100^3 (the host CSR build, as the
+    JAX CLI builds it) with the K9-K11 counts set to 0 before and read
+    after; returns {kernel: launches}."""
+    wrappers = bsell_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    # warm-up and timed solve, 150 SpMVs each; auto adds the build's check
+    for impl, key in (("auto", "K9"), ("kernel_win2", "K10"),
+                      ("kernel_win", "K11"), ("torch", None)):
+        argv = ["-t", "cg", "--fmt", "bsell", "--impl", impl]
+        before = {k: w.launches for k, w in wrappers.items()}
+        text = run_cli(cli.main, argv)
+        ran = {k: w.launches - before[k] for k, w in wrappers.items()}
+        k, diff = parse_cg(text)
+        print(f"[4f bsell] 100^3 -t cg --impl {impl}: k={k} difference={diff}"
+              f" launches {ran} | {gpu}")
+        check(k == 150 and diff < F32_DIFF_BOUND,
+              f"{argv}: k={k}, difference {diff}")
+        check("(format bsell)" in text, f"{argv} did not build bsell")
+        for kk, n in ran.items():
+            check(n >= 300 if kk == key else n == 0,
+                  f"{argv}: {kk} launched {n} times")
+    before = wrappers["K9"].launches
+    text = run_cli(cli.main, ["-t", "spmv", "--fmt", "bsell"])
+    n = wrappers["K9"].launches - before
+    m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
+    check(m is not None and n >= 150, f"-t spmv --fmt bsell: {n} launches")
+    print(f"[4f bsell] 100^3 -t spmv --fmt bsell: K9 launches={n}, reported "
+          f"per-SpMV time {m.group(1)} ms | {gpu}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[4f bsell] launches over the bsell path: {launches}")
+    for key, count in launches.items():
+        check(count > 0, f"{key} was not launched on the bsell path")
+    # f64 through K9 and through the plain version: the same lines
+    lines = {}
+    for impl in ("kernel", "torch"):
+        text = run_cli(cli.main, ["-t", "cg", "--fmt", "bsell", "--dtype",
+                                  "f64", "--impl", impl])
+        k, diff = parse_cg(text)
+        check(k == 150 and diff < F64_DIFF_BOUND,
+              f"f64 --impl {impl}: k={k}, difference {diff}")
+        lines[impl] = re.findall(r"Residual = \S+", text)
+    same = lines["kernel"] == lines["torch"] and len(lines["kernel"]) > 10
+    print(f"[4f bsell] 100^3 f64 -t cg --fmt bsell: the {len(lines['kernel'])}"
+          f" residual lines of --impl kernel and --impl torch equal: {same}")
+    check(same, "f64 bsell residual lines differ between K9 and the plain "
+          "version")
+    return launches
+
+
+def phase5f_times(dev, gpu):
+    """Per-call ms of K9-K11 and the plain version (graph replay, eager
+    beside it), bounds, cuSPARSE CSR f32 on the same matrix and K6 and K1 on
+    the same problem, at 100^3 (host CSR and device builds) and 200^3
+    (device build), and bsell CG x150 seconds; returns {kernel: {case:
+    {...}}} with the cases "100" (the CLI's build), "100s" and "200"."""
+    import torch
+
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.bsell import BsellMatrix
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.host import generate_stencil
+    from sparsebench_tpu_torch.ops.bsell_spmv import (
+        LANES,
+        bsell_spmv,
+        bsell_spmv_torch,
+        bsell_spmv_win2,
+        bsell_spmv_windowed,
+        win_fits,
+    )
+    from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
+
+    f32 = DTypePolicy.from_names("f32")
+    out = {k: {} for k in BSELL_KERNELS}
+    rng = np.random.default_rng(17)
+    others = {}  # n -> (K6 ms, K1 ms, cuSPARSE ms, csr)
+    for case in ("100", "100s", "200"):
+        n = int(case[:3])
+        if case == "100":
+            csr = generate_stencil(n, n, n)
+            A = BsellMatrix.from_csr(csr, f32, device=dev)
+            counts = csr.row_lengths
+            del csr
+        else:
+            A, counts = BsellMatrix.from_stencil(n, n, n, device=dev,
+                                                 policy=f32)
+        x = torch.from_numpy(rng.standard_normal(A.nc).astype(
+            np.float32)).to(dev)
+        x2d = A.padded_x(x, A.nc_pad // LANES)
+        xw = A.padded_x(x, A.xw_rows)
+        if n not in others:
+            Ab, _ = BslabMatrix.from_stencil(n, n, n, device=dev, policy=f32)
+            Ad, _ = DiaMatrix.from_stencil(n, n, n, device=dev, policy=f32)
+            csr = dia_to_csr(Ad)
+            others[n] = (min(time_graph(lambda: Ab.spmv(x)) for _ in range(2)),
+                         min(time_graph(lambda: Ad.spmv(x)) for _ in range(2)),
+                         min(time_graph(lambda: csr @ x) for _ in range(2)),
+                         csr)
+            del Ab, Ad
+        k6_ms, k1_ms, lib_ms, csr = others[n]
+        lib_err = float((csr @ x - bsell_spmv(
+            A.blocks, A.win_base, x2d, A.vals, A.lidx).reshape(-1)[
+                :A.nr]).abs().max())
+        planes = sum(t.numel() * t.element_size()
+                     for t in (A.vals, A.lidx, A.blocks))
+        y_bytes = A.n_tiles * 1024 * 4
+        plain = lambda: bsell_spmv_torch(A.blocks, A.win_base,  # noqa: E731
+                                         x2d, A.vals, A.lidx)
+        kernels = {"K9": (lambda: bsell_spmv(A.blocks, A.win_base, x2d,
+                                             A.vals, A.lidx),
+                          planes + 4 * A.win_base.numel() + 4 * x2d.numel())}
+        if win_fits(A.w_blocks, x.dtype):
+            for key, fn in (("K10", bsell_spmv_win2),
+                            ("K11", bsell_spmv_windowed)):
+                kernels[key] = (
+                    lambda fn=fn: fn(A.wchunk, A.blocks, xw, A.vals, A.lidx,
+                                     w_blocks=A.w_blocks),
+                    planes + 4 * A.wchunk.numel() + 4 * xw.numel())
+        label = {"100": "100^3 host CSR build", "100s": "100^3 device build",
+                 "200": "200^3 device build"}[case]
+        for key, (fn, inputs) in kernels.items():
+            nbytes = inputs + y_bytes
+            b_ms, b_by = bound(nbytes, 2 * A.nnz)
+            k_ms, p_ms, ms, eager = time_pair(fn, plain)
+            out[key][case] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms,
+                                  eager_ms=eager, k6_ms=k6_ms, k1_ms=k1_ms)
+            print(f"[5f times] {key} {label} f32 (bf16 values, {A.n_tiles} "
+                  f"tiles x {A.s_max} slices, W {A.w_blocks}, padding "
+                  f"{A.padding_ratio:.2f}): kernel {ms['kernel']} ms, plain "
+                  f"{ms['plain']} ms (graph replay); kernel eager "
+                  f"{eager:.6f} ms; {nbytes} B -> kernel "
+                  f"{nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s; bound "
+                  f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
+                  f"(max|csr - K9| {lib_err:.3e}); same problem: K6 "
+                  f"{k6_ms:.6f} ms, K1 {k1_ms:.6f} ms | {gpu}")
+        if not win_fits(A.w_blocks, x.dtype):
+            print(f"[5f times] K10/K11 {label}: the window of 2*{A.w_blocks} "
+                  f"rows does not fit a block; not timed")
+        _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
+        res = solve_cg(A, b, itermax=150, verbose=False)
+        diff = float(np.max(np.abs(res.x - xexact)))
+        print(f"[5f times] {label} f32 bsell CG x150 (spmv {A.impl}): "
+              f"{res.solve_seconds:.6f} s (k={res.iterations}, max|x-1| "
+              f"{diff:.3e}) | {gpu}")
+        check(res.iterations == 150 and diff < F32_DIFF_BOUND,
+              f"{label}: bsell CG k={res.iterations}, max|x-1| {diff}")
+        del A, x, x2d, xw
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase6_bench(gpu, tmpdir: Path):
     """``python -m sparsebench_tpu_torch.bench`` (the full suite) as a
     subprocess: rc 0 and a final line of at most 1500 characters that
-    parses, with a positive value, stream_read_GBps, dma_read_GBps and
-    cg200_seconds. Its output goes to ``tmpdir/bench.log`` and is echoed."""
+    parses, with a positive value, stream_read_GBps, dma_read_GBps,
+    cg200_seconds and cg200_vmem_seconds; then its ``spmv 200
+    dia,bslab,bsell`` mode, rc 0. Their output goes to ``tmpdir/bench.log``
+    and ``tmpdir/bench_spmv.log`` and is echoed."""
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "sparsebench_tpu_torch.bench"], cwd=REPO,
@@ -1476,8 +1817,19 @@ def phase6_bench(gpu, tmpdir: Path):
     check(len(lines[-1]) <= 1500, "the bench's final line is too long")
     check(last.get("value", 0) > 0 and all(
         extra.get(key, 0) > 0 for key in ("stream_read_GBps", "dma_read_GBps",
-                                          "cg200_seconds")),
+                                          "cg200_seconds",
+                                          "cg200_vmem_seconds")),
         f"the bench's final line lacks a key: {lines[-1]}")
+    argv = ["spmv", "200", "dia,bslab,bsell"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparsebench_tpu_torch.bench", *argv],
+        cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    (tmpdir / "bench_spmv.log").write_text(proc.stderr + proc.stdout)
+    for line in proc.stderr.splitlines():
+        print(f"[6 bench spmv] {line}")
+    print(f"[6 bench spmv] final line: {proc.stdout.strip()}")
+    check(proc.returncode == 0 and "bsell: build" in proc.stderr,
+          f"bench {' '.join(argv)} exited {proc.returncode}")
     return wall
 
 
@@ -1538,6 +1890,7 @@ def main() -> int:
     err_c, auto_c = phase3c_bslab(dev)
     err_d = phase3d_spmm(dev)
     err_e = phase3e_memroof(dev)
+    err_f = phase3f_bsell(dev)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -1599,6 +1952,9 @@ def main() -> int:
 
     # -- phase 4e: --profile and --banner through the CLI --------------------
     launches_e = phase4e_profile(cli, gpu)
+
+    # -- phase 4f: the bsell path through the CLI ----------------------------
+    launches_f = phase4f_bsell(cli, gpu)
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "sparsebench_tpu"))
     check(not jax_mods, f"the port imported JAX or the JAX package: "
@@ -1650,6 +2006,9 @@ def main() -> int:
     # -- phase 5e: the read ceiling K12 ---------------------------------------
     launches_k12, times_e = phase5e_memroof_times(dev, gpu)
 
+    # -- phase 5f: times of K9-K11 and the bsell CG ---------------------------
+    times_f = phase5f_times(dev, gpu)
+
     # -- phase 6: the bench suite -------------------------------------------
     phase6_bench(gpu, tmpdir)
 
@@ -1679,7 +2038,7 @@ def main() -> int:
             times_b["K4"][200]),
         row("stencil_cg_vmem", "stencil_cg_vmem.cu",
             "sparsebench_tpu/ops/stencil_cg_vmem.py:274", launches_b["K5"],
-            err_b["K5"], times_b["K5"][100]),
+            err_b["K5"], times_b["K5"][100], times_b["K5"][200]),
     ]
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):
@@ -1699,6 +2058,20 @@ def main() -> int:
     kernels.append(row("read_passes", "memroof.cu",
                        "sparsebench_tpu/ops/memroof.py:67", launches_k12,
                        err_e, times_e))
+    for name, key, line in (("bsell_spmv", "K9", 131),
+                            ("bsell_spmv_win2", "K10", 200),
+                            ("bsell_spmv_windowed", "K11", 240)):
+        # the main numbers at 100^3 through the CLI's host CSR build, the
+        # slice's own path; the device builds' beside them (K10/K11's
+        # window does not fit 200^3)
+        r = {"name": name, "route": "cuda", "source": src + "bsell_spmv.cu",
+             "replaces": f"sparsebench_tpu/ops/bsell_pallas.py:{line}",
+             "launches": launches_f[key], "max_abs_err": err_f[key],
+             **times_f[key]["100"]}
+        for case in ("100s", "200"):
+            r.update({f"{k}_{case}": v
+                      for k, v in times_f[key].get(case, {}).items()})
+        kernels.append(r)
     kernels[0]["launches_profile"] = launches_e
     kernels[1]["launches_dots_form"] = launches_b["K2 dots"]
     kernels[1]["dots_max_rel_err"] = dots_rel["K2"]
@@ -1707,7 +2080,7 @@ def main() -> int:
     # and of the read ceiling K12 measured in phase 5e
     ceiling = times_e["dma_read_GBps"] * 1e9
     for r in kernels:
-        for case in ("", "_100", "_200"):
+        for case in ("", "_100", "_100s", "_200"):
             ms, b_ms = r.get("ms" + case), r.get("bound_ms" + case)
             if ms is None or r.get("bound_by" + case) != "bytes":
                 continue

@@ -19,17 +19,18 @@ CLI's wording. The matrix is one of:
   device straight into bslab (formats/rgl_build.py), n = x*y*z;
 * the generated stencil built on the device into DIA (``auto``), bslab, or
   the matrix-free ``stencil`` operator; ``--fmt sell`` runs the bslab build
-  (the JAX CLI's bridge), and crs, ccrs and ell go through the host CSR;
+  (the JAX CLI's bridge), and bsell, crs, ccrs and ell go through the host
+  CSR;
 * a .mtx/.bmx file through the host CSR (``--rcm`` reorders it first) into
   the format asked for; ``auto`` takes DIA and falls back to bslab where
   the matrix has too many diagonals.
 
 The default device is ``cuda``; without CUDA the run exits with an error
 instead of running on the CPU (``--device cpu`` runs the plain PyTorch
-path). A ``--fmt`` choice or a .par file's ``shards`` that is not ported
-exits and names the ROADMAP.md item that ports it; the JAX CLI's other
-flags (``--shards``, ``--exchange``, ``--overlap``, ``-c``) are absent, so
-argparse rejects them.
+path). A .par file's ``shards``, which is not ported, exits and names the
+ROADMAP.md item that ports it; the JAX CLI's other flags (``--shards``,
+``--exchange``, ``--overlap``, ``-c``) are absent, so argparse rejects
+them.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ from sparsebench_tpu_torch.config import (
     read_parameter,
     resolve_device,
 )
-from sparsebench_tpu_torch.formats.registry import NOT_PORTED
 from sparsebench_tpu_torch.solvers.cg import CG_VARIANTS
 from sparsebench_tpu_torch.version import __version__
 
@@ -87,7 +87,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Matrix format. Default auto: dia, and bslab for a "
                     "matrix file DIA refuses (generateRGL is always bslab). "
                     "stencil is matrix-free and takes generated problems "
-                    "only; bsell is not ported yet.")
+                    "only; bsell goes through the host CSR.")
     ap.add_argument("--sub", type=int, default=None,
                     help="bslab slice height in 128-row lane groups "
                     "(default 64, shrunk for small matrices)")
@@ -98,11 +98,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-C", "--chunk-height", type=int, default=None,
                     help="SELL-C-sigma chunk height C (0 = auto)")
     ap.add_argument("--impl", default="auto",
-                    choices=["auto", "torch", "kernel", "kernel_win"],
-                    help="Kernel implementation: the CUDA kernels or their "
-                    "plain PyTorch versions. Default auto: kernel on CUDA, "
-                    "torch on the CPU. kernel_win: bslab's windowed kernel "
-                    "(x staged in shared memory where the window fits).")
+                    help="Kernel implementation: auto, torch (the plain "
+                    "PyTorch versions), kernel (the CUDA kernels), "
+                    "kernel_win (bslab's and bsell's windowed kernels, x "
+                    "staged in shared memory where the window fits) or "
+                    "kernel_win2 (bsell's chunk-resident windowed kernel). "
+                    "Default auto: kernel on CUDA, torch on the CPU.")
     ap.add_argument("--sigma", type=int, default=None,
                     help="SELL-C-sigma sorting scope (0 = full sort)")
     ap.add_argument("--device", default="cuda",
@@ -133,7 +134,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     "SB_FUSED_CS=1 fuses it on --fmt stencil), sstep "
                     "(s-step CG, one gram reduction per --sstep "
                     "iterations), pipe (pipelined CG), fused and vmem "
-                    "(--fmt stencil only; vmem while r and p fit the L2)")
+                    "(--fmt stencil only; vmem: the whole solve in one "
+                    "launch)")
     ap.add_argument("--sstep", type=int, default=4,
                     help="Basis size s for --cg-variant sstep (default 4)")
     ap.add_argument("--nrhs", type=int, default=1,
@@ -189,18 +191,11 @@ def apply_args(param: Parameter, args: argparse.Namespace) -> Parameter:
 
 
 def _refuse_unported(param: Parameter) -> None:
-    """SystemExit naming the ROADMAP.md item for a choice that is not
-    ported (a format, or a .par file's shards)."""
+    """SystemExit naming the ROADMAP.md item of a .par file's shards, which
+    is not ported."""
     if param.shards > 1:
         raise SystemExit("shards > 1 is not ported to sparsebench_tpu_torch "
                          "yet (ROADMAP.md Queue 1 item 11)")
-    if param.fmt in NOT_PORTED:
-        from sparsebench_tpu_torch.formats import get_format
-
-        try:
-            get_format(param.fmt)
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
 
 
 def init_matrix(param: Parameter):
@@ -221,17 +216,23 @@ def init_matrix(param: Parameter):
     raise SystemExit(f"Unknown matrix file format: {fn}")
 
 
-def banner_impl(impl: str, device: torch.device) -> str:
+def banner_impl(impl: str, device: torch.device, fmt: str) -> str:
     """The --impl choice as the banner shows it: ``auto`` resolves to
-    ``kernel`` on CUDA and ``torch`` on the CPU; a kernel on the CPU
-    raises. Each format resolves ``impl`` again for itself (only bslab
-    has ``kernel_win``)."""
-    from sparsebench_tpu_torch.formats.dia import resolve_impl
+    ``kernel`` on CUDA and ``torch`` on the CPU; a kernel on the CPU and a
+    name the format does not know raise (bsell and bslab check their own
+    names, with the JAX CLI's wording). Each format resolves ``impl`` again
+    for itself (bslab has ``kernel_win``, bsell ``kernel_win`` and
+    ``kernel_win2``)."""
+    from sparsebench_tpu_torch.formats import bsell, bslab, dia
 
-    if impl == "kernel_win":
-        resolve_impl("kernel", device)
+    if fmt == "bsell":
+        return bsell.resolve_impl(impl, device)
+    if fmt == "bslab":
+        return bslab.resolve_impl(impl, device)
+    if impl in ("kernel_win", "kernel_win2"):
+        dia.resolve_impl("kernel", device)
         return impl
-    return resolve_impl(impl, device)
+    return dia.resolve_impl(impl, device)
 
 
 def build_matrix(param: Parameter, args: argparse.Namespace,
@@ -252,8 +253,10 @@ def build_matrix(param: Parameter, args: argparse.Namespace,
         # the irregular matrix, generated and laid out on the device
         if param.fmt not in ("auto", "bslab"):
             raise SystemExit(
-                "generateRGL builds on the device in bslab layout; use "
-                "--fmt auto|bslab")
+                "generateRGL builds on-device in bslab layout; use "
+                "--fmt auto|bslab (host formats would need a "
+                "disqualifyingly slow host build + upload at scale)"
+            )
         from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
 
         n = param.nx * param.ny * param.nz
@@ -397,6 +400,7 @@ def _format_opts(param: Parameter, args: argparse.Namespace) -> dict:
     """``from_csr`` keywords of ``param.fmt`` from the CLI's flags."""
     sub = {"sub": args.sub} if args.sub else {}
     return {"dia": {"impl": args.impl},
+            "bsell": {"impl": args.impl},
             "bslab": {"impl": args.impl, **sub},
             "sell": {"impl": args.impl, "C": param.chunk_height,
                      "sigma": param.sigma}}.get(param.fmt, {})
@@ -456,7 +460,7 @@ def main(argv: Optional[list] = None) -> int:
     policy = DTypePolicy.from_names(param.dtype, param.index_dtype)
     try:
         device = resolve_device(args.device)
-        impl = banner_impl(args.impl, device)
+        impl = banner_impl(args.impl, device, param.fmt)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"sparsebench_tpu_torch: {e}") from None
     device_name = (torch.cuda.get_device_name(device)
@@ -494,6 +498,9 @@ def main(argv: Optional[list] = None) -> int:
         print(f"bslab: sub {B.sub}, slices per tile {B.s_aff} affine, "
               f"{B.s_gen} general, {B.s_wide} wide, padding "
               f"{B.padding_ratio:.2f}, spmv {B.impl}")
+    elif param.fmt == "bsell":
+        print(f"bsell: {A.n_tiles} tiles, {A.s_max} slices per tile, W "
+              f"{A.w_blocks}, padding {A.padding_ratio:.2f}, spmv {A.impl}")
     xb = policy.value_bytes
     phys = physical_spmv_bytes(A, xb) - (A.nc + A.nr) * xb
     print(

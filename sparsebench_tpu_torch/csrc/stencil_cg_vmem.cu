@@ -21,8 +21,9 @@
 // (cudaLaunchCooperativeKernel; the grid is exactly the number of blocks
 // that fit on the card at once, or grid.sync() deadlocks) walks all
 // iterations. r and p stay in device memory, and the 50 MB L2 holds them
-// when they fit: 8 MB at 100^3 in f32 (the wrapper's viability plan,
-// ops/stencil_cg_vmem.py, admits up to 40 MB). Each iteration is three
+// when they fit: 8 MB at 100^3 in f32; at 200^3 (64 MB) they stream from
+// device memory (the wrapper, ops/stencil_cg_vmem.py, takes every grid whose
+// vectors fit the card and notes which of the two). Each iteration is three
 // phases separated by grid.sync(): the p-update; p.Ap with the apply
 // recomputed from p; then r -= alpha Ap (the apply recomputed again: the
 // operator reads no matrix, so a second apply costs flops, not a pass over

@@ -1,8 +1,9 @@
-"""Device matrix formats. Importing this package registers every ported
-format: ``dia``, the matrix-free ``stencil``, ``bslab``, ``sell``, ``ell``,
-``crs`` and ``ccrs``."""
+"""Device matrix formats. Importing this package registers every format:
+``dia``, the matrix-free ``stencil``, ``bslab``, ``bsell``, ``sell``,
+``ell``, ``crs`` and ``ccrs``."""
 
 from sparsebench_tpu_torch.formats import (  # noqa: F401  (register)
+    bsell,
     bslab,
     crs,
     dia,

@@ -164,6 +164,6 @@ class StencilOperator:
 
     # ------------------------------------------ whole-solve CG in one launch
     # ``cg_vmem_loop`` (variant 'vmem', K5) runs on this operator; whether
-    # a grid fits the kernel's L2 plan is for ops/stencil_cg_vmem.py alone
-    # to decide, at the vectors' width
+    # a grid is viable is for ops/stencil_cg_vmem.py alone to decide, at
+    # the vectors' width
     supports_vmem_cg = True

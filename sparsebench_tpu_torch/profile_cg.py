@@ -1,16 +1,17 @@
 """Where the time of one CG solve goes, on a CUDA card.
 
     python -m sparsebench_tpu_torch.profile_cg [-n 100 200] [-i 150]
-        [--fmt dia|stencil|bslab|rgl]
+        [--fmt dia|stencil|bslab|bsell|rgl]
         [--variant standard|cs|sstep|pipe|fused|vmem]
         [--solver cg|nrhs|gmres|cheb|bicgstab|minres]
     python -m sparsebench_tpu_torch.profile_cg --patterns [-n 100 200]
 
 For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
-diagonals (K1), as the matrix-free stencil operator (K2-K5) or as bslab
-(K6); or, with ``--fmt rgl``, the RGL matrix of n rows (band 512, deg 16,
-seed 1; bslab, K6) with a seeded random b (b = 1 is an eigenvector of it,
-on which CG stops after one step). It prints:
+diagonals (K1), as the matrix-free stencil operator (K2-K5), as bslab
+(K6) or as bsell (K9, built on the device as the bench builds it); or,
+with ``--fmt rgl``, the RGL matrix of n rows (band 512, deg 16, seed 1;
+bslab, K6) with a seeded random b (b = 1 is an eigenvector of it, on which
+CG stops after one step). It prints:
 
 * the wall of one solve loop (``--solver cg``: the CG variant's loop;
   ``nrhs``: blocked CG over ``NRHS`` copies of b, K8 on DIA; ``gmres``:
@@ -53,6 +54,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from sparsebench_tpu_torch.config import DTypePolicy
+from sparsebench_tpu_torch.formats.bsell import BsellMatrix
 from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
@@ -75,13 +77,14 @@ from sparsebench_tpu_torch.solvers.minres import minres_loop
 KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
            "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
            "stencil_cg_vmem_kernel", "bslab_spmv_kernel",
-           "bslab_spmv_win_kernel", "dia_spmm_kernel")
+           "bslab_spmv_win_kernel", "dia_spmm_kernel", "bsell_spmv_kernel",
+           "bsell_spmv_win_kernel")
 SOLVERS = ("cg", "nrhs", "gmres", "cheb", "bicgstab", "minres")
 GMRES_RESTART = 30
 NRHS = 8  # right-hand sides of --solver nrhs
 PATTERN_KS = (1, 2, 4, 8, 16)  # block widths of --patterns
 OPERATORS = {"dia": DiaMatrix, "stencil": StencilOperator,
-            "bslab": BslabMatrix}
+             "bslab": BslabMatrix, "bsell": BsellMatrix}
 
 
 def _best_wall(fn, reps: int = 3) -> float:

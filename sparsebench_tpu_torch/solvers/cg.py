@@ -364,8 +364,9 @@ def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     apply (K2). bf16 vectors run in f32: the kernel computes in its
     vectors' dtype, and a bf16 recurrence would diverge from every other
     variant's f32 accumulation. Raises unless ``A.supports_vmem_cg``; the
-    kernel's wrapper alone decides whether r and p fit its L2 plan, at the
-    vectors' real width, and raises before launching if not.
+    kernel's wrapper alone decides whether the grid is viable
+    (ops/stencil_cg_vmem.vmem_cg_viable), at the vectors' real width, and
+    raises before launching if not.
     Unpreconditioned."""
     _unpreconditioned("vmem", inv_diag, precond)
     if not getattr(A, "supports_vmem_cg", False):

@@ -18,6 +18,7 @@ import torch
 from sparsebench_tpu.config import DTypePolicy as JaxPolicy
 from sparsebench_tpu.formats import from_csr as jax_from_csr
 from sparsebench_tpu.formats.base import physical_spmv_bytes
+from sparsebench_tpu.formats.bsell import BsellMatrix as JaxBsell
 from sparsebench_tpu.formats.bslab import BslabMatrix as JaxBslab
 from sparsebench_tpu.formats.dia import DiaMatrix as JaxDia
 from sparsebench_tpu.formats.stencil import StencilOperator as JaxStencil
@@ -25,6 +26,7 @@ from sparsebench_tpu.host import generate_stencil as jax_generate_stencil
 from sparsebench_tpu_torch import bench
 from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats import from_csr
+from sparsebench_tpu_torch.formats.bsell import BsellMatrix
 from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
@@ -102,6 +104,9 @@ def phys_pair(fmt, n):
     if fmt == "bslab":
         return (JaxBslab.from_stencil(n, n, n, policy=jp, impl="xla")[0],
                 BslabMatrix.from_stencil(n, n, n, policy=tp, device=CPU)[0])
+    if fmt == "bsell":  # the device build, as the bench's spmv mode takes
+        return (JaxBsell.from_stencil(n, n, n, policy=jp, impl="xla")[0],
+                BsellMatrix.from_stencil(n, n, n, policy=tp, device=CPU)[0])
     if fmt == "stencil":
         return (JaxStencil.from_stencil(n, n, n, policy=jp)[0],
                 StencilOperator.from_stencil(n, n, n, policy=tp,
@@ -114,7 +119,7 @@ def phys_pair(fmt, n):
                      bridge=True))
 
 
-@pytest.mark.parametrize("fmt", ["dia", "bslab", "sell", "stencil"])
+@pytest.mark.parametrize("fmt", ["dia", "bslab", "sell", "stencil", "bsell"])
 def test_phys_gbps_counts_the_jax_byte_model(fmt):
     Aj, At = phys_pair(fmt, 12)
     nbytes = physical_spmv_bytes(Aj, 4)
@@ -143,8 +148,13 @@ def suite():
 
 
 def test_ceilings_and_headline_sections(suite):
-    for key in ("stream_triad_GBps", "stream_read_GBps", "dma_read_GBps",
-                "setup100_seconds", "cg100_cs_seconds"):
+    # the rates: the unrounded ceilings (the line rounds to 0.1 GB/s, which
+    # a loaded CPU's may fall below); the seconds as the line has them
+    assert suite.sizes.dma_floats == suite.sizes.dma_tile_rows * 128
+    assert min(suite.stream, suite.read_bw, suite.dma) > 0
+    for key in ("stream_triad_GBps", "stream_read_GBps", "dma_read_GBps"):
+        assert suite.extra[key] >= 0
+    for key in ("setup100_seconds", "cg100_cs_seconds"):
         assert suite.extra[key] > 0
     # no data-sheet rate on the CPU: the best measured ceiling
     assert suite.nominal is None
@@ -166,6 +176,7 @@ def test_ceilings_and_headline_sections(suite):
     (bench.section_stencil, ["stencilfree100_spmv_ms", "cg100_fused_seconds",
                              "cg100_stencilfree_seconds",
                              "cg200_stencilfree_seconds"]),
+    (bench.section_vmem200, ["cg200_vmem_seconds"]),
     (bench.section_mixed, ["cg200_stencil_bf16_seconds",
                            "cg200_refine_seconds"]),
     (bench.section_7pt, ["cg100_7pt_seconds"]),

@@ -26,9 +26,15 @@ from sparsebench_tpu.formats.stencil import (  # noqa: E402
     StencilOperator as JaxStencil,
 )
 from sparsebench_tpu.solvers import cg as jax_cg  # noqa: E402
+from sparsebench_tpu.ops.stencil_cg_vmem import (  # noqa: E402
+    vmem_cg_viable as jax_vmem_cg_viable,
+)
 from sparsebench_tpu_torch import cli  # noqa: E402
 from sparsebench_tpu_torch.formats.dia import DiaMatrix  # noqa: E402
 from sparsebench_tpu_torch.formats.stencil import StencilOperator  # noqa: E402
+from sparsebench_tpu_torch.ops.stencil_cg_vmem import (  # noqa: E402
+    vmem_cg_viable,
+)
 from sparsebench_tpu_torch.solvers import cg  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -230,19 +236,33 @@ def test_variant_refused_on_dia_with_jax_wording(variant):
 
 
 def test_vmem_refused_at_200_cubed():
-    """The kernel's wrapper alone judges the L2 plan, at the vectors' width:
-    200^3 is refused in f32, 100^3 runs in f32 and f64 (bf16 runs in f32)."""
+    """The kernel's wrapper alone judges viability, at the vectors' width:
+    on the CPU, as the JAX package's VMEM plan there, 200^3 is refused and
+    100^3 runs in f32 and f64 (bf16 runs in f32). (The card takes 200^3:
+    tests/test_torch_kernels.py test_vmem_viability_plan.)"""
     A, counts = StencilOperator.from_stencil(200, 200, 200, device=CPU)
     assert A.supports_vmem_cg
     b = torch.ones(A.nr)
-    with pytest.raises(ValueError, match=r"not viable at 200x200x200: r and "
-                       r"p take 61\.0 MB in torch\.float32"):
+    with pytest.raises(ValueError, match=r"not viable at 200x200x200 on cpu: "
+                       r"the JAX package's VMEM plan refuses it"):
         cg.cg_vmem_loop(A, b, torch.zeros_like(b), 150, 0.0)
     small, counts = StencilOperator.from_stencil(100, 100, 100, device=CPU)
     for dt in (torch.float64, torch.bfloat16):
         b = torch.from_numpy(27.0 - (counts - 1.0)).to(dt)
         x, k, hist = cg.cg_vmem_loop(small, b, torch.zeros_like(b), 3, 0.0)
         assert int(k) == 3 and x.dtype == dt
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 16), (100, 100, 100),
+                                  (200, 200, 200), (150, 150, 150),
+                                  (128, 5, 4), (130, 2, 3)])
+def test_vmem_viability_equals_jax_on_the_cpu(dims):
+    """On the CPU both packages refuse the same grids (the JAX package's
+    conservative VMEM plan), whatever the vectors' width."""
+    want = jax_vmem_cg_viable(*dims)
+    assert want == (dims != (200, 200, 200) and dims != (150, 150, 150))
+    for itemsize in (4, 8):
+        assert vmem_cg_viable(*dims, itemsize) == want
 
 
 # -- the CLI ------------------------------------------------------------------

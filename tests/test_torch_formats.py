@@ -30,6 +30,7 @@ from sparsebench_tpu_torch.config import DTypePolicy  # noqa: E402
 from sparsebench_tpu_torch.formats import from_csr, get_format  # noqa: E402
 from sparsebench_tpu_torch.formats import scs_host  # noqa: E402
 from sparsebench_tpu_torch.formats.base import physical_spmv_bytes  # noqa: E402
+from sparsebench_tpu_torch.formats.bsell import BsellMatrix  # noqa: E402
 from sparsebench_tpu_torch.formats.bslab import BslabMatrix  # noqa: E402
 from sparsebench_tpu_torch.formats.crs import CCRSMatrix, CRSMatrix  # noqa: E402
 from sparsebench_tpu_torch.formats.sell import EllMatrix, SellMatrix  # noqa: E402
@@ -166,8 +167,7 @@ def test_registry_and_crs_guards():
                       ("crs", CRSMatrix), ("ccrs", CCRSMatrix),
                       ("bslab", BslabMatrix)):
         assert get_format(name) is cls
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_format("bsell")
+    assert get_format("bsell") is BsellMatrix  # ported (Queue 1 item 10)
     A = CRSMatrix.from_csr(to_port(CSR_CASES["empty"]()), device=CPU)
     assert torch.equal(A.spmv(torch.ones(10)), torch.zeros(10))
 

@@ -1,7 +1,8 @@
 """The kernels of sparsebench_tpu_torch (the DIA SpMV K1; the stencil's
 K2-K5; the bslab SpMV K6 and its windowed form K7; the multi-RHS DIA
-product K8; the read ceiling K12): their wrappers, their build and, on a
-CUDA card, the kernels themselves — without the JAX package.
+product K8; the bsell SpMV K9 and its windowed forms K10 and K11; the read
+ceiling K12): their wrappers, their build and, on a CUDA card, the kernels
+themselves — without the JAX package.
 
 Here on the CPU the dispatch, the refusals and the build lookup run; the
 tests marked ``cuda`` skip without a card. On a machine with an NVIDIA
@@ -22,8 +23,10 @@ held against their exact value to the bound of that summation,
 in the plain version's order with each operation rounded on its own, and
 are held to be bit-identical to it. K8 sums each column as K1 does and is
 held to be bit-identical to its plain version and, column by column, to
-K1. K12 adds in the plain version's step order, each add rounded on its
-own, and is held to be bit-identical to it.
+K1. K9-K11 sum each output's slices in stored order, each operation rounded
+on its own, and are held to be bit-identical to their plain version. K12
+adds in the plain version's step order, each add rounded on its own, and
+is held to be bit-identical to it.
 """
 
 import math
@@ -35,11 +38,13 @@ import torch
 from sparsebench_tpu_torch import cli
 from sparsebench_tpu_torch.config import DTypePolicy, resolve_device
 from sparsebench_tpu_torch.formats import from_csr, get_format
+from sparsebench_tpu_torch.formats.bsell import BsellMatrix
 from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix, resolve_impl
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
 from sparsebench_tpu_torch.host import HostCSR, generate_stencil, read_mm
+from sparsebench_tpu_torch.ops import bsell_spmv as bsell_ops
 from sparsebench_tpu_torch.ops.bslab_spmv import (
     bslab_spmv,
     bslab_spmv_torch,
@@ -124,8 +129,7 @@ def test_impl_and_device_resolution(monkeypatch):
 def test_registry_names_roadmap_item():
     assert get_format("dia") is DiaMatrix
     assert get_format("bslab") is BslabMatrix
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        get_format("bsell")
+    assert get_format("bsell") is BsellMatrix  # ported (Queue 1 item 10)
     with pytest.raises(ValueError, match="unknown"):
         get_format("nope")
 
@@ -164,8 +168,8 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
-        "bslab_spmv.cu", "cg_fused.cu", "dia_spmm.cu", "dia_spmv.cu",
-        "memroof.cu", "stencil.cu", "stencil_cg_vmem.cu"]
+        "bsell_spmv.cu", "bslab_spmv.cu", "cg_fused.cu", "dia_spmm.cu",
+        "dia_spmv.cu", "memroof.cu", "stencil.cu", "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -251,11 +255,17 @@ def test_stencil_operator_guards():
 
 
 def test_vmem_viability_plan():
-    """r and p within 40 MB of the 50 MB L2: 100^3 in f32 and f64 fit,
-    200^3 in f32 does not, and asking for it raises."""
+    """On the CPU the JAX package's conservative plan: 100^3 fits, 200^3
+    does not, and asking for it raises. On CUDA every grid whose five
+    vectors fit the card: 200^3 in f32 and f64 on an 80 GB card, not 2000^3
+    in f64."""
     assert vmem_cg_viable(100, 100, 100, 4)
     assert vmem_cg_viable(100, 100, 100, 8)
     assert not vmem_cg_viable(200, 200, 200, 4)
+    for itemsize in (4, 8):
+        assert vmem_cg_viable(200, 200, 200, itemsize, "cuda", 80 * 10**9)
+    assert not vmem_cg_viable(2000, 2000, 2000, 8, "cuda", 80 * 10**9)
+    assert not vmem_cg_viable(200, 200, 200, 4, "cuda", 10**8)
     with pytest.raises(ValueError, match="not viable at 200x200x200"):
         stencil_cg_vmem_torch(torch.zeros(8), torch.zeros(8), 0.0,
                               200, 200, 200, 5)
@@ -862,3 +872,120 @@ def test_read_ceiling_launches_the_kernel(cuda_device):
     gbps = measure_dma_read_gbps()
     assert read_passes.launches - before == 8
     assert math.isfinite(gbps) and gbps > 0
+
+
+# -- K9, K10 and K11: the bsell SpMV ------------------------------------------
+
+
+def bsell_case(name, device):
+    """A BsellMatrix (f32 policy: bf16 values where lossless): the stencil
+    through the host CSR and on the device (several tiles, windows past
+    chunk 0), klein, a test matrix and a random banded matrix."""
+    f32 = DTypePolicy.from_names("f32")
+    if name == "stencil_device":
+        return BsellMatrix.from_stencil(20, 20, 12, device=device,
+                                        policy=f32)[0]
+    if name == "stencil_csr":
+        csr = generate_stencil(20, 20, 12)
+    elif name == "klein":
+        csr = read_mm(str(DATA / "matrix_band_klein.mtx"))
+    elif name == "test9":
+        csr = read_mm(str(DATA / "testMatrices" / "test9.mtx"))
+    else:
+        csr = random_csr(5000, 5000, 0.002, 7)
+    return BsellMatrix.from_csr(csr, f32, device=device)
+
+
+BSELL_CASES = ["stencil_device", "stencil_csr", "klein", "test9", "random"]
+
+
+def test_bsell_window_fit():
+    """K10 and K11 need the 2W-row window in a block's 227 KB: the CLI's
+    100^3 build (W 168) fits in f32 and not in f64; 200^3 on the device
+    (W 640) does not fit."""
+    assert bsell_ops.win_smem_bytes(168, torch.float32) == 172_032
+    assert bsell_ops.win_fits(168, torch.float32)
+    assert not bsell_ops.win_fits(168, torch.float64)
+    assert not bsell_ops.win_fits(640, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("case", BSELL_CASES)
+def test_bsell_kernels_equal_plain(case, pair, cuda_device):
+    """K9, K10 and K11 against the plain version, bit for bit."""
+    A = bsell_case(case, cuda_device)
+    vals = A.vals.to(DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(A.nr).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    x2d = A.padded_x(x, A.nc_pad // 128)
+    y_ref = bsell_ops.bsell_spmv_torch(A.blocks, A.win_base, x2d, vals,
+                                       A.lidx)
+    before = bsell_ops.bsell_spmv.launches
+    y = bsell_ops.bsell_spmv(A.blocks, A.win_base, x2d, vals, A.lidx)
+    assert bsell_ops.bsell_spmv.launches == before + 1
+    assert bool(torch.isfinite(y).all())
+    assert_bits_equal(y, y_ref)
+    xw = A.padded_x(x, A.xw_rows)
+    for fn in (bsell_ops.bsell_spmv_win2, bsell_ops.bsell_spmv_windowed):
+        before = fn.launches
+        y = fn(A.wchunk, A.blocks, xw, vals, A.lidx, w_blocks=A.w_blocks)
+        assert fn.launches == before + 1
+        assert_bits_equal(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_bsell_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    A = bsell_case("stencil_csr", cuda_device)
+    x2d = A.padded_x(torch.ones(A.nc, device=cuda_device), A.nc_pad // 128)
+    with pytest.raises(TypeError, match="no kernel"):
+        bsell_ops.bsell_spmv(A.blocks, A.win_base, x2d.double(), A.vals,
+                             A.lidx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bsell_ops.bsell_spmv(A.blocks, A.win_base, x2d.cpu(), A.vals, A.lidx)
+    with pytest.raises(ValueError, match="lidx"):
+        bsell_ops.bsell_spmv(A.blocks, A.win_base, x2d, A.vals,
+                             A.lidx.to(torch.int32))
+    for fn in (bsell_ops.bsell_spmv_win2, bsell_ops.bsell_spmv_windowed):
+        before = fn.launches
+        with pytest.raises(ValueError, match="655360 B of shared memory"):
+            fn(A.wchunk, A.blocks, x2d, A.vals, A.lidx, w_blocks=640)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", [
+    ("auto", "kernel"), ("kernel", "kernel"), ("kernel_win2", "kernel_win2"),
+    ("kernel_win", "kernel_win")])
+def test_bsell_cg_through_the_kernels_equals_plain(impl, kernel, cuda_device):
+    """f64 CG on the 20x20x12 stencil through the host CSR: each kernel and
+    the plain version give the same k and history, bit for bit."""
+    f64 = DTypePolicy.from_names("f64")
+    csr = generate_stencil(20, 20, 12)
+    b = 27.0 - (csr.row_lengths - 1.0)
+    results = []
+    for which in (impl, "torch"):
+        A = BsellMatrix.from_csr(csr, f64, device=cuda_device, impl=which)
+        assert A.impl == (kernel if which == impl else "torch")
+        results.append(cg.solve_cg(A, b, itermax=60, verbose=False))
+    rk, rt = results
+    assert rk.iterations == rt.iterations
+    np.testing.assert_array_equal(rk.residual_history, rt.residual_history)
+    np.testing.assert_array_equal(rk.x, rt.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,kernel", [
+    ("auto", "bsell_spmv"), ("kernel_win2", "bsell_spmv_win2"),
+    ("kernel_win", "bsell_spmv_windowed")])
+def test_cli_bsell_default_device_runs_the_kernels(impl, kernel, cuda_device,
+                                                   capsys):
+    fns = {name: getattr(bsell_ops, name) for name in (
+        "bsell_spmv", "bsell_spmv_win2", "bsell_spmv_windowed")}
+    before = {name: fn.launches for name, fn in fns.items()}
+    assert cli.main(["-t", "cg", "-i", "30", "--fmt", "bsell", "-x", "16",
+                     "-y", "16", "-z", "16", "--impl", impl]) == 0
+    out = capsys.readouterr().out
+    for name, fn in fns.items():
+        assert (fn.launches > before[name]) == (name == kernel), name
+    assert "Difference between" in out
