@@ -89,13 +89,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    build) and 200^3 (device build) beside their bounds, the plain version,
    cuSPARSE CSR f32 on the same matrix and K6 and K1 on the same problem,
    and bsell CG x150 seconds;
+3g. the prototype kernels P1-P5 against their plain versions, bit for bit:
+   P1's four schedules (dia_window: direct, grouped, qfloor, floor) and P2's
+   two variants (dia_shear: roll, shear_chunk; tpc 2 and 3, so the last
+   chunk is partial) with the real 200^3 shifts at the 200^3 extent (245
+   tiles of 256 rows) and at small grids; P3's eight variants (slab_slices)
+   with bf16 and f32 values at 1024 tiles x 54 slices; P4's four
+   (slab_slices_tall) at SUB 8, 16, 32 and 64 in both dtypes; P5's pass 1
+   (pass1_products) on RGL 2M and on the 8192- and 8000-row builds (the
+   latter with phantom rows);
+5g. the prototype modules as a user runs them (``python -m
+   sparsebench_tpu_torch.benchmarks.<name>`` in-process, each at its full
+   size: csr_twopass_proto on RGL 2M, dia_micro and dia_shear at 256 x 245,
+   slab_micro and slab_micro2 at their defaults), with the P1-P5 counts set
+   to 0 before and read after; then each kernel's per-call ms (graph replay)
+   beside its plain version and bound at those shapes, with cuSPARSE CSR f32
+   for P5's whole SpMV and for P1/P2's 27-diagonal product, and K1 at 200^3
+   from phase 5 beside P1/P2;
 6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
    a subprocess: rc 0 and a final JSON line of at most 1500 characters with
    a positive value, stream_read_GBps, dma_read_GBps, cg200_seconds and
    cg200_vmem_seconds; then ``python -m sparsebench_tpu_torch.bench spmv
    200 dia,bslab,bsell``, rc 0.
 
-The phases run in the order 3-3f, 4-4f, 5-5f, 6. A bound is the larger of the bytes a call must
+The phases run in the order 3-3g, 4-4f, 5-5g, 6. A bound is the larger of the bytes a call must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over 67 TFLOP/s (f32), the H100 SXM's published rates at
 700 W. The last three
@@ -107,6 +124,7 @@ a checkout, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -1791,6 +1809,390 @@ def phase5f_times(dev, gpu):
     return out
 
 
+# -- P1-P5: the prototype kernels --------------------------------------------
+
+PROTO_MODULES = ("csr_twopass_proto", "dia_micro", "dia_shear", "slab_micro",
+                 "slab_micro2")
+# the 200^3 extent of the DIA window prototypes: 245 tiles of 256 rows
+DIA_TILE, DIA_GRID = 256, 245
+# RGL 2M as P5 lays it out (the JAX prototype's full size)
+P5_N, P5_BAND, P5_R = 2_000_000, 512, 1024
+
+
+def proto_wrappers():
+    """{kernel: wrapper} of P1-P5, each with its launch counter."""
+    from sparsebench_tpu_torch.ops.csr_twopass import pass1_products
+    from sparsebench_tpu_torch.ops.dia_window import dia_shear, dia_window
+    from sparsebench_tpu_torch.ops.slab_slices import (
+        slab_slices,
+        slab_slices_tall,
+    )
+
+    return {"P5": pass1_products, "P1": dia_window, "P2": dia_shear,
+            "P3": slab_slices, "P4": slab_slices_tall}
+
+
+def counted(key, fn, *args, **kw):
+    """One wrapper call that must add exactly one launch to its count."""
+    w = proto_wrappers()[key]
+    before = w.launches
+    y = fn(*args, **kw)
+    check(w.launches == before + 1, f"the {key} counter did not count the "
+          "launch")
+    return y
+
+
+def dia_inputs(dev, n_rows: int, x_len: int, seed: int):
+    """(x1d f32, data3d bf16) of 27 planes from a seeded torch.Generator."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x1d = torch.randn(x_len, generator=g, device=dev)
+    data3d = torch.randn((27, n_rows, 128), generator=g,
+                         device=dev).to(torch.bfloat16)
+    return x1d, data3d
+
+
+def phase3g_protos(dev):
+    """P1-P5 against their plain versions, bit for bit: P1's four schedules
+    and P2's two variants with the real 200^3 shifts at the 200^3 extent and
+    at small grids, P2 with tpc 2 and 3 (partial last chunks); P3's eight
+    variants with bf16 and f32 values at 54 x 1024 slices; P4's four variants
+    at every SUB in both dtypes; P5's pass 1 on RGL 2M and on the small and
+    phantom-row builds. Returns {kernel: max |kernel - plain|}."""
+    import torch
+
+    from sparsebench_tpu_torch.benchmarks import csr_twopass_proto as p5
+    from sparsebench_tpu_torch.benchmarks.dia_micro import (
+        span_rows,
+        stencil_shifts,
+    )
+    from sparsebench_tpu_torch.benchmarks.slab_micro import (
+        build_inputs,
+        metas_of,
+    )
+    from sparsebench_tpu_torch.benchmarks.slab_micro2 import (
+        SUBS,
+        draw_vals,
+        sub_inputs,
+    )
+    from sparsebench_tpu_torch.ops.csr_twopass import (
+        pass1_products,
+        pass1_products_torch,
+    )
+    from sparsebench_tpu_torch.ops.dia_window import (
+        SCHEDULES,
+        SHEAR_VARIANTS,
+        TPU_SCHEDULE,
+        dia_shear,
+        dia_window,
+        dia_window_torch,
+        shear_x_floats,
+    )
+    from sparsebench_tpu_torch.ops.slab_slices import (
+        P3,
+        P4,
+        slab_slices,
+        slab_slices_tall,
+        slab_slices_torch,
+    )
+
+    t0 = time.perf_counter()
+    err = {k: 0.0 for k in ("P1", "P2", "P3", "P4", "P5")}
+    cases = {k: 0 for k in err}
+
+    def compare(key, label, y_k, y_p):
+        torch.cuda.synchronize()
+        same = bits_equal(y_k, y_p) and bool(torch.isfinite(y_k).all())
+        err[key] = max(err[key], float((y_k - y_p).abs().max()))
+        cases[key] += 1
+        check(same, f"{key} {label}: the kernel differs from its plain "
+              "version")
+
+    shifts = stencil_shifts()
+    span = span_rows(shifts)
+    for tile, grid in ((DIA_TILE, DIA_GRID), (8, 3), (16, 5), (24, 7)):
+        n_rows = tile * grid
+        x1d, data3d = dia_inputs(dev, n_rows, (n_rows + span) * 128, grid)
+        for s in SCHEDULES:
+            compare("P1", f"{s} {tile}x{grid}",
+                    counted("P1", dia_window, x1d, data3d, shifts, s, tile),
+                    dia_window_torch(x1d, data3d, shifts, s))
+        for tpc in (2, 3):
+            x_len = shear_x_floats(n_rows, tile, tpc, span)
+            x2, _ = dia_inputs(dev, 0, x_len, 100 * grid + tpc)
+            for v in SHEAR_VARIANTS:
+                compare("P2", f"{v} {tile}x{grid} tpc {tpc}",
+                        counted("P2", dia_shear, x2, data3d, shifts, v, tile,
+                                tpc),
+                        dia_window_torch(x2, data3d, shifts,
+                                         TPU_SCHEDULE[v]))
+        print(f"[3g protos] P1 {SCHEDULES} and P2 {SHEAR_VARIANTS} (tpc 2, 3;"
+              f" {-(-grid // 2) * 2 - grid} and {-(-grid // 3) * 3 - grid} "
+              f"tiles short of a whole chunk) at {tile} x {grid} rows of 128, "
+              "27 shifts of 200^3 (10 q-groups): bit-identical")
+        del x1d, data3d, x2
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x2d, vals, lidx, m_slab, m_slab_a, m_sc = build_inputs(54, 1024, gen,
+                                                           device=dev)
+    for vd in (torch.bfloat16, torch.float32):
+        v_t = vals.to(vd)
+        for variant, meta in metas_of(m_slab, m_slab_a, m_sc).items():
+            compare("P3", f"{variant} {vd}",
+                    counted("P3", slab_slices, meta, x2d, v_t, lidx, variant),
+                    slab_slices_torch(meta, x2d, v_t, lidx, *P3[variant]))
+    print(f"[3g protos] P3 {tuple(P3)} with bf16 and f32 values, 1024 tiles "
+          "x 54 slices: bit-identical")
+    del x2d, vals, lidx
+    for sub in SUBS:
+        n_tiles, x2d, lidx, meta = sub_inputs(55296, sub, gen, dev)
+        for vd in (torch.bfloat16, torch.float32):
+            v_t = draw_vals((n_tiles, 16, sub, 128), gen, dev).to(vd)
+            for variant in P4:
+                compare("P4", f"SUB {sub} {variant} {vd}",
+                        counted("P4", slab_slices_tall, meta, x2d, v_t, lidx,
+                                variant),
+                        slab_slices_torch(meta, x2d, v_t, lidx,
+                                          *P4[variant]))
+    print(f"[3g protos] P4 {tuple(P4)} at SUB {SUBS} with bf16 and f32 "
+          "values, 55,296 unit slices: bit-identical")
+    for n, band, R in ((P5_N, P5_BAND, P5_R), (8192, 128, 512),
+                       (8000, 128, 512)):
+        S = p5.build_streams(n, band, 16.0, 1, R, dev)
+        xpad = torch.randn(n + R + 2 * band, generator=gen, device=dev)
+        compare("P5", f"n {n}",
+                counted("P5", pass1_products, S["val"], S["colrel"], xpad,
+                        band, R),
+                pass1_products_torch(S["val"], S["colrel"], xpad, band, R))
+        print(f"[3g protos] P5 pass 1, RGL n {n} band {band} R {R} ({S['nb']}"
+              f" blocks x {S['block_cap']} slots, {S['nb'] * R - n} phantom "
+              "rows): bit-identical")
+        del S
+    torch.cuda.empty_cache()
+    print(f"[3g protos] {cases} cases bit-identical in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def run_module(name: str, argv: list, tmpdir: Path) -> dict:
+    """``python -m sparsebench_tpu_torch.benchmarks.<name> <argv>``
+    in-process: its stderr echoed, rc 0, and its final JSON line."""
+    mod = importlib.import_module(f"sparsebench_tpu_torch.benchmarks.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main(argv)
+    wall = time.perf_counter() - t
+    (tmpdir / f"{name}.log").write_text(err.getvalue() + out.getvalue())
+    for line in err.getvalue().splitlines():
+        print(f"[5g {name}] {line}")
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and lines, f"{name} {argv} exited {rc}")
+    print(f"[5g {name}] {' '.join(argv) or '(defaults)'}: rc 0 in {wall:.1f} "
+          f"s; {lines[-1]}")
+    return json.loads(lines[-1])
+
+
+def diagonals_to_csr(data3d, shifts, x_len: int):
+    """The product y[i] = sum_d data[d, i] x[s_d + i] as a
+    torch.sparse_csr_tensor (f32 values, int32 indices; the shifts ascend,
+    so each row's columns do), for the cuSPARSE yardstick."""
+    import torch
+
+    nd, n_rows, _ = data3d.shape
+    n = n_rows * 128
+    dev = data3d.device
+    sh = torch.tensor(shifts, dtype=torch.int32, device=dev)
+    cols = (torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+            + sh[None, :]).reshape(-1)
+    vals = data3d.reshape(nd, n).t().to(torch.float32).reshape(-1)
+    crow = torch.arange(0, nd * (n + 1), nd, dtype=torch.int32, device=dev)
+    return torch.sparse_csr_tensor(crow, cols, vals, (n, x_len),
+                                   check_invariants=False)
+
+
+def phase5g_protos(dev, gpu, tmpdir: Path, k1_200: dict):
+    """The slice's main path: each prototype module at its full size, the
+    P1-P5 counts set to 0 before and read after; then each kernel's
+    per-call ms (graph replay) at those shapes beside its plain version, its
+    bound and, for P5 (the whole SpMV) and P1/P2 (the 27-diagonal product),
+    cuSPARSE CSR f32. Returns ({kernel: launches}, {kernel: times})."""
+    import torch
+
+    from sparsebench_tpu_torch.benchmarks import csr_twopass_proto as p5
+    from sparsebench_tpu_torch.benchmarks.dia_micro import (
+        span_rows,
+        stencil_shifts,
+    )
+    from sparsebench_tpu_torch.benchmarks.slab_micro import (
+        build_inputs,
+        metas_of,
+    )
+    from sparsebench_tpu_torch.benchmarks.slab_micro2 import (
+        SUBS,
+        draw_vals,
+        sub_inputs,
+    )
+    from sparsebench_tpu_torch.ops.csr_twopass import (
+        pass1_products,
+        pass1_products_torch,
+    )
+    from sparsebench_tpu_torch.ops.dia_window import (
+        SCHEDULES,
+        dia_shear,
+        dia_window,
+        dia_window_torch,
+        shear_x_floats,
+    )
+    from sparsebench_tpu_torch.ops.slab_slices import (
+        P3,
+        P4,
+        slab_slices,
+        slab_slices_tall,
+        slab_slices_torch,
+    )
+
+    t0 = time.perf_counter()
+    wrappers = proto_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    runs = {
+        "csr_twopass_proto": [],
+        "dia_micro": [str(DIA_TILE), str(DIA_GRID)],
+        "dia_shear": [str(DIA_TILE), str(DIA_GRID)],
+        "slab_micro": [],
+        "slab_micro2": [],
+    }
+    lines = {name: run_module(name, argv, tmpdir)
+             for name, argv in runs.items()}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[5g protos] launches over the five modules' runs: {launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for key, count in launches.items():
+        check(count > 0, f"{key} was not launched by its module")
+    rgl = lines["csr_twopass_proto"]
+    check(rgl["twopass_segsum_err_ones"] == 0.0
+          and rgl["cusparse_csr_err"] < 1e-3,
+          f"P5 validation: {rgl}")
+
+    times = {}
+
+    def row(key, label, kernel, plain, nbytes, flops, lib_ms=None,
+            lib_label=""):
+        b_ms, b_by = bound(nbytes, flops)
+        k_ms, p_ms, ms, eager = time_pair(kernel, plain)
+        times[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms, eager_ms=eager)
+        print(f"[5g times] {label}: kernel {ms['kernel']} ms, plain "
+              f"{ms['plain']} ms (graph replay); kernel eager {eager:.6f} ms;"
+              f" {nbytes} B -> {nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s; bound"
+              f" {b_ms:.6f} ms ({b_by}); {lib_label} | {gpu}")
+
+    # P5: pass 1 on RGL 2M; cuSPARSE CSR f32 computes the whole SpMV
+    S = p5.build_streams(P5_N, P5_BAND, 16.0, 1, P5_R, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    xpad = torch.randn(P5_N + P5_R + 2 * P5_BAND, generator=gen, device=dev)
+    csr = p5.streams_csr(S, P5_N, P5_BAND, P5_R)
+    x = xpad[P5_BAND: P5_BAND + P5_N]
+    lib_ms = min(time_graph(lambda: csr @ x) for _ in range(2))
+    slots = S["val"].numel()
+    row("P5", f"P5 pass 1, RGL 2M ({S['nb']} blocks x {S['block_cap']} slots, "
+        f"{S['nnz']} nnz)",
+        lambda: pass1_products(S["val"], S["colrel"], xpad, P5_BAND, P5_R),
+        lambda: pass1_products_torch(S["val"], S["colrel"], xpad, P5_BAND,
+                                     P5_R),
+        12 * slots + 4 * xpad.numel(), slots, lib_ms,
+        f"cuSPARSE CSR f32 SpMV {lib_ms:.6f} ms")
+    times["P5"].update({f"{k}_ms": rgl[f"{k}_ms"] for k in (
+        "twopass_segsum", "twopass_cumsum", "pass1_only", "csrseg_onepass",
+        "positional_bslab", "cusparse_csr")})
+    del S, csr, xpad, x
+
+    # P1 and P2 at the 200^3 extent; cuSPARSE CSR f32 of the 27 diagonals
+    shifts = stencil_shifts()
+    span = span_rows(shifts)
+    n_rows = DIA_TILE * DIA_GRID
+    x1d, data3d = dia_inputs(dev, n_rows, (n_rows + span) * 128, 1)
+    y_bytes = n_rows * 128 * 4
+    flops = 2 * 27 * n_rows * 128
+    csr = diagonals_to_csr(data3d, shifts, x1d.numel())
+    lib_err = float((csr @ x1d - dia_window(
+        x1d, data3d, shifts, "direct", DIA_TILE).reshape(-1)).abs().max())
+    lib_ms = min(time_graph(lambda: csr @ x1d) for _ in range(2))
+    del csr
+    lib = (f"cuSPARSE CSR f32 {lib_ms:.6f} ms (max|csr - P1| {lib_err:.3e});"
+           f" K1 at 200^3 {k1_200['ms']:.6f} ms")
+    nbytes = data3d.numel() * 2 + x1d.numel() * 4 + y_bytes
+    for s in SCHEDULES:
+        row("P1" if s == "direct" else f"P1 {s}", f"P1 {s}, {n_rows} rows",
+            lambda s=s: dia_window(x1d, data3d, shifts, s, DIA_TILE),
+            lambda s=s: dia_window_torch(x1d, data3d, shifts, s),
+            nbytes, flops, lib_ms, lib)
+    x2, _ = dia_inputs(dev, 0, shear_x_floats(n_rows, DIA_TILE, 2, span), 2)
+    nbytes = data3d.numel() * 2 + x2.numel() * 4 + y_bytes
+    for v in ("shear_chunk", "roll"):
+        row("P2" if v == "shear_chunk" else f"P2 {v}",
+            f"P2 {v}, {n_rows} rows, tpc 2",
+            lambda v=v: dia_shear(x2, data3d, shifts, v, DIA_TILE, 2),
+            lambda v=v: dia_window_torch(x2, data3d, shifts,
+                                         "direct"),
+            nbytes, flops, lib_ms, lib)
+    for key in ("P1", "P2"):
+        times[key]["k1_200_ms"] = k1_200["ms"]
+    for s in SCHEDULES[1:]:
+        times["P1"][f"ms_{s}"] = times.pop(f"P1 {s}")["ms"]
+    times["P2"]["ms_roll"] = times.pop("P2 roll")["ms"]
+    del x1d, data3d, x2
+
+    # P3: 54 x 1024 slices, bf16 values (main: slab_u); P4: 55,296 units
+    x2d, vals, lidx, m_slab, m_slab_a, m_sc = build_inputs(54, 1024, gen,
+                                                           device=dev)
+    y_bytes = 1024 * 8 * 128 * 4
+    for variant, meta in metas_of(m_slab, m_slab_a, m_sc).items():
+        use_lidx = P3[variant][1] == "lidx"
+        nbytes = (vals.numel() * 2 + (lidx.numel() if use_lidx else 0)
+                  + meta.numel() * 4 + x2d.numel() * 4 + y_bytes)
+        row("P3" if variant == "slab_u" else f"P3 {variant}",
+            f"P3 {variant}, bf16 values, 1024 tiles x 54 slices",
+            lambda meta=meta, variant=variant: slab_slices(
+                meta, x2d, vals, lidx, variant),
+            lambda meta=meta, variant=variant: slab_slices_torch(
+                meta, x2d, vals, lidx, *P3[variant]),
+            nbytes, 2 * vals.numel(), None, "no library call")
+    for variant in P3:
+        if variant != "slab_u":
+            times["P3"][f"ms_{variant}"] = times.pop(f"P3 {variant}")["ms"]
+    del x2d, vals, lidx
+    for sub in SUBS:
+        n_tiles, x2d, lidx, meta = sub_inputs(55296, sub, gen, dev)
+        v_t = draw_vals((n_tiles, 16, sub, 128), gen, dev).to(torch.bfloat16)
+        for variant in P4:
+            table, lane = P4[variant]
+            nbytes = (v_t.numel() * 2 + (lidx.numel() if lane == "lidx"
+                                         else 0)
+                      + (0 if table == "none" else meta.numel() * 4
+                         + x2d.numel() * 4) + n_tiles * sub * 128 * 4)
+            key = "P4" if (sub, variant) == (8, "gather") else \
+                f"P4 {sub} {variant}"
+            row(key, f"P4 SUB {sub} {variant}, bf16 values, {n_tiles} tiles "
+                f"x 16",
+                lambda meta=meta, variant=variant: slab_slices_tall(
+                    meta, x2d, v_t, lidx, variant),
+                lambda meta=meta, variant=variant: slab_slices_torch(
+                    meta, x2d, v_t, lidx, *P4[variant]),
+                nbytes, (1 if table == "none" else 2) * v_t.numel(), None,
+                "no library call")
+        del x2d, lidx, v_t
+    for key in [k for k in times if k.startswith("P4 ")]:
+        _, sub, variant = key.split()
+        t = times.pop(key)
+        times["P4"][f"ms_sub{sub}_{variant}"] = t["ms"]
+        times["P4"][f"bound_ms_sub{sub}_{variant}"] = t["bound_ms"]
+    torch.cuda.empty_cache()
+    print(f"[5g protos] phase wall {time.perf_counter() - t0:.1f} s | {gpu}")
+    return launches, times
+
+
 def phase6_bench(gpu, tmpdir: Path):
     """``python -m sparsebench_tpu_torch.bench`` (the full suite) as a
     subprocess: rc 0 and a final line of at most 1500 characters that
@@ -1861,6 +2263,8 @@ def main() -> int:
     from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
 
+    for name in PROTO_MODULES:  # held to the JAX-free check after phase 4f
+        importlib.import_module(f"sparsebench_tpu_torch.benchmarks.{name}")
     print(f"[1 fingerprint] imports of the port took "
           f"{time.perf_counter() - t:.3f} s")
     nvcc = _build.find_nvcc()
@@ -1891,6 +2295,7 @@ def main() -> int:
     err_d = phase3d_spmm(dev)
     err_e = phase3e_memroof(dev)
     err_f = phase3f_bsell(dev)
+    err_g = phase3g_protos(dev)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -1959,7 +2364,11 @@ def main() -> int:
         "jax", "jaxlib", "flax", "sparsebench_tpu"))
     check(not jax_mods, f"the port imported JAX or the JAX package: "
           f"{jax_mods[:5]}")
-    print("[4e profile] no module of JAX or of the JAX package was imported")
+    check(all(f"sparsebench_tpu_torch.benchmarks.{m}" in sys.modules
+              for m in PROTO_MODULES), "the prototype modules were not "
+          "imported before the check")
+    print("[4e profile] no module of JAX or of the JAX package was imported "
+          "(the port's prototype modules included)")
 
     # -- phase 5: times of K1 -----------------------------------------------
     timing = {}
@@ -2008,6 +2417,9 @@ def main() -> int:
 
     # -- phase 5f: times of K9-K11 and the bsell CG ---------------------------
     times_f = phase5f_times(dev, gpu)
+
+    # -- phase 5g: the prototype modules (P1-P5) and their kernels' times ---
+    launches_g, times_g = phase5g_protos(dev, gpu, tmpdir, timing[200])
 
     # -- phase 6: the bench suite -------------------------------------------
     phase6_bench(gpu, tmpdir)
@@ -2072,6 +2484,15 @@ def main() -> int:
             r.update({f"{k}_{case}": v
                       for k, v in times_f[key].get(case, {}).items()})
         kernels.append(r)
+    for key, name, replaces, route_src in (
+            ("P5", "pass1_products", "csr_twopass_proto.py:207",
+             "csr_twopass.cu"),
+            ("P1", "dia_window", "dia_micro.py:162", "dia_window.cu"),
+            ("P2", "dia_shear", "dia_shear.py:108", "dia_window.cu"),
+            ("P3", "slab_slices", "slab_micro.py:111", "slab_slices.cu"),
+            ("P4", "slab_slices_tall", "slab_micro2.py:70", "slab_slices.cu")):
+        kernels.append(row(name, route_src, f"benchmarks/{replaces}",
+                           launches_g[key], err_g[key], times_g[key]))
     kernels[0]["launches_profile"] = launches_e
     kernels[1]["launches_dots_form"] = launches_b["K2 dots"]
     kernels[1]["dots_max_rel_err"] = dots_rel["K2"]

@@ -168,8 +168,9 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
-        "bsell_spmv.cu", "bslab_spmv.cu", "cg_fused.cu", "dia_spmm.cu",
-        "dia_spmv.cu", "memroof.cu", "stencil.cu", "stencil_cg_vmem.cu"]
+        "bsell_spmv.cu", "bslab_spmv.cu", "cg_fused.cu", "csr_twopass.cu",
+        "dia_spmm.cu", "dia_spmv.cu", "dia_window.cu", "memroof.cu",
+        "slab_slices.cu", "stencil.cu", "stencil_cg_vmem.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
