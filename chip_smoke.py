@@ -22,9 +22,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    f64 and f32 at 100^3;
 3c. the bslab kernels K6 and K7 (windowed) against bslab_spmv_torch, bit
    for bit, for (bf16, f32), (f32, f32) and (f64, f64) on the generated
-   stencil at 10x9x7, 100^3 and 200^3 (K7 where its window fits a block),
+   stencil at 10x9x7, 100^3 and 200^3 (K7 through a cluster of 4, f64 7),
    klein and the small test matrices, RGL at 2M and RGL at 200k with one
-   wide pool and with grouped pools;
+   wide pool and with grouped pools; K7 again with a forced cluster of 2
+   wherever one block would do;
 4. main path: the CLI as a user runs it (``-t cg`` at 100^3, ``-f hpcg.par
    -t cg`` at 200^3, ``-t spmv``), with the kernel launch count set to 0
    before and read after those runs; then the f64 residual history at 100^3
@@ -36,7 +37,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    1e-9 above 1e-10 of the start;
 4c. the bslab path: ``--fmt bslab -t cg`` at 100^3 and 200^3, ``--fmt sell
    -t cg`` at 100^3 (bridged to bslab), ``-m generateRGL`` at 2M with
-   ``-t cg`` and ``-t spmv``, and ``-m <file> -t cg`` on a host RGL matrix
+   ``-t cg`` and ``-t spmv`` (also ``--impl kernel_win``: K7), ``-f
+   hpcg.par -t spmv --fmt bslab --impl kernel_win`` (K7 at 200^3, in a
+   cluster), and ``-m <file> -t cg`` on a host RGL matrix
    of 100k rows written as .mtx (DIA refuses it, auto falls back to
    bslab), with the K6 and K7 counts set to 0 before and read after;
 5. times: CG solve seconds and per-SpMV milliseconds of K1 and its plain
@@ -46,7 +49,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    their bounds and, for K2, torch.nn.functional.conv3d; CG x150 seconds of
    each stencil variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
-   GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M, and
+   GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M (K7 with
+   win_plan's unit, and with a third ring slot in a forced cluster), and
    bslab CG x150 seconds on each;
 3d. the multi-RHS DIA kernel K8 against dia_spmm_torch, bit for bit, and
    row c of its result against K1 on row c of the block, bit for bit, for
@@ -784,23 +788,25 @@ def slices_as(A, td):
 
 def phase3c_bslab(dev):
     """K6 and K7 against bslab_spmv_torch, bit for bit, in all three
-    (values, x) pairs; K7 wherever its window fits. Returns ({kernel: max
-    |kernel - plain|}, {case: the impl auto picked})."""
+    (values, x) pairs; K7 with win_plan's unit (a cluster where the ring
+    exceeds a block: 200^3) and, where that unit is one block, again with a
+    forced cluster of 2, so the distributed-shared-memory path runs on
+    small problems too. Returns ({kernel: max |kernel - plain|}, {case: the
+    impl auto picked})."""
     import torch
 
     from sparsebench_tpu_torch.ops.bslab_spmv import (
         bslab_spmv,
         bslab_spmv_torch,
         bslab_spmv_win,
-        win_fits,
-        win_smem_bytes,
+        win_plan,
     )
 
     dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
     rng = np.random.default_rng(31)
     err = {"K6": 0.0, "K7": 0.0}
     auto = {}
-    k7_cases = 0
+    clusters = set()
     for name, A in bslab_matrices(dev):
         auto[name] = A.impl
         x0 = rng.standard_normal(A.nc)
@@ -815,18 +821,20 @@ def phase3c_bslab(dev):
             err["K6"] = max(err["K6"], float((y_k - y_p).abs().max()))
             line = f"K6 bit-identical {same}"
             ok = same
-            if win_fits(sl, A.w_blocks, x.dtype):
+            plan = win_plan(sl, A.w_blocks, x.dtype)
+            forced = [0] + ([2] if plan.cluster == 1 else [])
+            for cluster in forced:
+                p = win_plan(sl, A.w_blocks, x.dtype, cluster)
                 y_w = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
-                                     w_blocks=A.w_blocks)
+                                     w_blocks=A.w_blocks, cluster=cluster)
                 torch.cuda.synchronize()
                 same_w = bits_equal(y_w, y_p)
                 err["K7"] = max(err["K7"], float((y_w - y_p).abs().max()))
-                line += f"; K7 bit-identical {same_w}"
+                line += (f"; K7 ({'forced ' if cluster else ''}cluster "
+                         f"{p.cluster}, ring {p.ring}, {p.smem} B a block) "
+                         f"bit-identical {same_w}")
                 ok &= same_w
-                k7_cases += 1
-            else:
-                need = win_smem_bytes(sl, A.w_blocks, x.dtype)
-                line += f"; K7 window {need} B does not fit a block"
+                clusters.add(p.cluster)
             print(f"[3c bslab] {name} (sub {A.sub}, slices {A.s_aff}/{A.s_gen}"
                   f"/{A.s_wide}, W {A.w_blocks}, auto {A.impl}) values {td} x "
                   f"{tx}: {line} {'ok' if ok else 'FAIL'}")
@@ -835,7 +843,10 @@ def phase3c_bslab(dev):
             del sl, x, y_p, y_k
         del A
         torch.cuda.empty_cache()
-    check(k7_cases > 0, "K7 was compared on no case")
+    print(f"[3c bslab] K7 ran with clusters of {sorted(clusters)}")
+    check({1, 2}.issubset(clusters) and max(clusters) >= 4,
+          f"K7 ran with clusters {sorted(clusters)} only: the one-block, "
+          "forced and 200^3 units must all run")
     return err, auto
 
 
@@ -910,6 +921,14 @@ def phase4c_bslab(cli, gpu, tmpdir: Path, auto_kernel: str):
     check(m is not None, "generateRGL spmv --impl kernel_win output missing")
     print(f"[4c bslab] generateRGL 2M -t spmv --impl kernel_win: launches "
           f"{ran}, reported per-SpMV time {m.group(1)} ms | {gpu}")
+    text, ran = bslab_cli_checks(
+        cli, [*hpcg, "-t", "spmv", "--fmt", "bslab", "--impl", "kernel_win"],
+        gpu, wrappers, {"K7": 150})
+    m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
+    check(m is not None, "200^3 spmv --impl kernel_win output missing")
+    print(f"[4c bslab] -f hpcg.par -t spmv --fmt bslab --impl kernel_win "
+          f"(200^3, K7 in a cluster): launches {ran}, reported per-SpMV time "
+          f"{m.group(1)} ms | {gpu}")
     text, ran = bslab_cli_checks(cli, ["-m", str(mtx), "-t", "cg"], gpu,
                                  wrappers, {auto_kernel: 2})
     res = [float(v) for v in re.findall(r"Residual = (\S+)", text)]
@@ -926,45 +945,6 @@ def phase4c_bslab(cli, gpu, tmpdir: Path, auto_kernel: str):
     return launches
 
 
-def bslab_to_csr(A):
-    """The bslab matrix as a torch.sparse_csr_tensor (f32 values, int32
-    indices), built on the device, for the cuSPARSE yardstick."""
-    import torch
-
-    dev = A.device
-    t = torch.arange(A.n_tiles, device=dev)[:, None, None, None]
-    s = torch.arange(A.sub, device=dev)[None, None, :, None]
-    lane = torch.arange(128, device=dev)[None, None, None, :]
-    row = ((t * A.sub + s) * 128 + lane).expand(-1, 1, -1, -1)
-    parts = []
-    classes = [(A.meta_aff, A.vals_aff, None, None),
-               (A.meta_gen, A.vals_gen, A.lidx_gen, None),
-               (A.meta_wide, A.vals_wide, A.lidx_wide, A.dblk_wide)]
-    for meta, vals, lidx, dblk in classes:
-        if vals.shape[1] == 0:
-            continue
-        blk = meta[:, :, 0].long()[:, :, None, None] + s - A.lead
-        if lidx is None:
-            idx = (lane + meta[:, :, 1].long()[:, :, None, None]) & 127
-        else:
-            idx = lidx.long()
-        if dblk is not None:
-            blk = blk + dblk.long()
-        col = blk * 128 + idx
-        keep = vals != 0
-        parts.append((row.expand_as(col)[keep], col[keep],
-                      vals[keep].float()))
-    r = torch.cat([p[0] for p in parts])
-    c = torch.cat([p[1] for p in parts])
-    v = torch.cat([p[2] for p in parts])
-    order = torch.argsort(r * A.nc + c)
-    r, c, v = r[order], c[order], v[order]
-    crow = torch.zeros(A.nr + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(r, minlength=A.nr), 0)
-    return torch.sparse_csr_tensor(crow.to(torch.int32), c.to(torch.int32),
-                                   v, (A.nr, A.nc), check_invariants=False)
-
-
 def phase5c_times(dev, gpu):
     """Per-call ms of K6, K7 and the plain version (graph replay, eager
     beside it), bounds, physical GB/s and cuSPARSE at 100^3, 200^3 and RGL
@@ -979,8 +959,9 @@ def phase5c_times(dev, gpu):
         bslab_spmv,
         bslab_spmv_torch,
         bslab_spmv_win,
-        win_fits,
+        win_plan,
     )
+    from sparsebench_tpu_torch.profile_bslab import csr_of
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
 
     f32 = DTypePolicy.from_names("f32")
@@ -1005,7 +986,7 @@ def phase5c_times(dev, gpu):
         plain = lambda: bslab_spmv_torch(sl, x, sub=A.sub,  # noqa: E731
                                          lead=A.lead, x_rows=A.x_rows)
         if case == "rgl":
-            csr = bslab_to_csr(A)
+            csr = csr_of(A)
         else:
             from sparsebench_tpu_torch.formats.dia import DiaMatrix
 
@@ -1017,23 +998,36 @@ def phase5c_times(dev, gpu):
         lib_ms = min(time_graph(lambda: csr @ x) for _ in range(2))
         del csr
         kernels = {"K6": lambda: bslab_spmv(sl, x, sub=A.sub, lead=A.lead)}
-        if win_fits(sl, A.w_blocks, x.dtype):
-            kernels["K7"] = lambda: bslab_spmv_win(
-                A.wchunk, sl, x, sub=A.sub, lead=A.lead, w_blocks=A.w_blocks)
+        plan = win_plan(sl, A.w_blocks, x.dtype)
+        kernels["K7"] = lambda: bslab_spmv_win(
+            A.wchunk, sl, x, sub=A.sub, lead=A.lead, w_blocks=A.w_blocks)
         label = "RGL 2M" if case == "rgl" else f"{case}^3"
         for key, fn in kernels.items():
             k_ms, p_ms, ms, eager = time_pair(fn, plain)
             out[key][case] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms,
                                   eager_ms=eager)
+            unit = (f", cluster {plan.cluster} ring {plan.ring}"
+                    if key == "K7" else "")
             print(f"[5c times] {key} {label} f32 (values "
                   f"{str(A.vals_gen.dtype if A.s_gen else A.vals_aff.dtype)}"
-                  f", slices {A.s_aff}/{A.s_gen}/{A.s_wide}): kernel "
+                  f", slices {A.s_aff}/{A.s_gen}/{A.s_wide}{unit}): kernel "
                   f"{ms['kernel']} ms, plain {ms['plain']} ms (graph replay);"
                   f" kernel eager {eager:.6f} ms; physical {phys} B -> "
-                  f"kernel {phys / (k_ms * 1e-3) / 1e9:.1f} GB/s; bound "
+                  f"kernel {phys / (k_ms * 1e-3) / 1e9:.1f} GB/s, "
+                  f"{b_ms / k_ms:.3f} of the bound; bound "
                   f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
                   f"(max|csr - K6| {lib_err:.3e}) | {gpu}")
+        # K7 with other units than the plan's: a third ring slot (clusters
+        # of 6 and 8 at 200^3, 2 at 100^3 and on RGL)
+        for cluster in {"100": (2,), "200": (6, 8), "rgl": (2,)}[case]:
+            p = win_plan(sl, A.w_blocks, x.dtype, cluster)
+            ms = min(time_graph(lambda: bslab_spmv_win(
+                A.wchunk, sl, x, sub=A.sub, lead=A.lead, w_blocks=A.w_blocks,
+                cluster=cluster)) for _ in range(2))
+            print(f"[5c times] K7 {label} f32, forced cluster {p.cluster} ring "
+                  f"{p.ring} ({p.smem} B a block): kernel {ms:.6f} ms, "
+                  f"{phys / (ms * 1e-3) / 1e9:.1f} GB/s | {gpu}")
         res = solve_cg(A, b, itermax=150, verbose=False)
         diff = (float(np.max(np.abs(res.x - xexact)))
                 if xexact is not None else float("nan"))
@@ -1794,8 +1788,16 @@ def phase5f_times(dev, gpu):
                   f"(max|csr - K9| {lib_err:.3e}); same problem: K6 "
                   f"{k6_ms:.6f} ms, K1 {k1_ms:.6f} ms | {gpu}")
         if not win_fits(A.w_blocks, x.dtype):
+            # the bound of the work all the same: the planes, wchunk, the
+            # windowed layout's padded x and y, each once
+            nbytes = (planes + 4 * A.wchunk.numel() + 4 * xw.numel()
+                      + y_bytes)
+            b_ms, b_by = bound(nbytes, 2 * A.nnz)
+            for key in ("K10", "K11"):
+                out[key][case] = dict(bound_ms=b_ms, bound_by=b_by)
             print(f"[5f times] K10/K11 {label}: the window of 2*{A.w_blocks} "
-                  f"rows does not fit a block; not timed")
+                  f"rows does not fit a block; not timed; bound {b_ms:.6f} "
+                  f"ms ({b_by}, {nbytes} B) | {gpu}")
         _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
         res = solve_cg(A, b, itermax=150, verbose=False)
         diff = float(np.max(np.abs(res.x - xexact)))
@@ -2455,7 +2457,7 @@ def main() -> int:
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):
         # the main numbers at RGL 2M, the slice's own workload; the
-        # generated stencil's beside them (K7's window does not fit 200^3)
+        # generated stencil's beside them
         r = {"name": name, "route": "cuda", "source": src + "bslab_spmv.cu",
              "replaces": f"sparsebench_tpu/ops/bslab_pallas.py:{line}",
              "launches": launches_c[key], "max_abs_err": err_c[key],

@@ -19,25 +19,65 @@
 // zero-padded x of ``lead`` leading rows; here x is read unpadded and an index
 // outside it gives 0, the same value, which saves the pad copy of every SpMV.
 //
-// What it computes and none of how: the lane rolls, the SMEM metadata blocks,
-// the static unroll limit and the per-group hoisted wide tables are ways
-// around Mosaic. Here one thread computes one output element at a time and
-// loops over the tile's slices at run time; the block first copies the tile's
-// slice metadata into shared memory. Reads of the value, index and block
-// planes are coalesced along the lanes.
+// The slice loop (both kernels). A warp computes one lane group: thread i
+// owns the four consecutive lanes 4i..4i+3, so a slice's values arrive in
+// one vector load a thread (8 B of bf16, 16 B of f32, 32 B of f64) with its
+// four index and block bytes in one 4 B load each. Slices go in batches
+// (K6: four, K7: two; f64 half that): a batch issues its plane loads, then
+// checks that every row it reads is a full row of x (and of K7's window);
+// if so all its x loads go out at once and the sums follow with no branch,
+// else every value comes through an exact, guarded read (x's first and last
+// rows, a class's last partial batch). An affine slice reads lanes
+// (4i + r + v) & 127 of one x row: the aligned 16 B (f64: 32 B) piece that
+// holds the first and the piece after it, whose lanes are shifted into
+// place by r & 3 (K6 loads both pieces; K7 loads one and takes the next
+// thread's by a warp shuffle, which halves its requests to a cluster peer).
+// General and wide slices gather lane by lane. Planes load with the
+// last-use hint (ld.global.lu: they are read once; on the H100 it and the
+// streaming hint ld.global.cs beat default caching in every case); x loads
+// (K6) with an L2 evict-last policy, so x (8 MB on RGL 2M, 32 MB f32 at
+// 200^3) stays in the 50 MB L2 while hundreds of MB of planes stream past.
+// No device- or stream-wide cache setting is changed. The loop's
+// instructions, not its bytes, bound it first: every branch and address
+// that a batch does not need was taken out of its fast path (PERF.md §6
+// says what each step bought).
 //
-// K6 gathers x through L1/L2 (all of x is 32 MB at 200^3 in f32, inside the
-// 50 MB L2). K7 stages the tile's window, x rows [wchunk*W, wchunk*W + 2W),
-// in shared memory and gathers from there; the window must fit the block's
-// 227 KB (the wrapper refuses otherwise and never falls back to K6). A read
-// outside the window gives NaN, so a layout whose slices leave their window
-// shows in the output instead of reading another block's memory.
+// Schedule (both kernels): persistent. The grid is as many blocks (K7:
+// clusters) as fit the card at once; unit u of U walks the lane groups
+// [u N / U, (u+1) N / U) of the N = n_tiles * sub in order, a step of one
+// lane group a warp, never crossing a tile. The block stages a tile's slice
+// metadata in shared memory when it reaches the tile, once. The tests walk
+// K7's schedule in Python (tests/test_torch_bslab_plan.py k7_schedule).
 //
-// What bounds them: memory. Per SpMV every slice plane is read once (values,
-// plus an int8 index plane per general slice and index and block planes per
-// wide slice), x once and y written once; 2 flops per stored element. A
-// faster schedule (several outputs per thread with vector loads, TMA staging
-// of the planes) is later work.
+// K7's window. Tile t reads x rows [wchunk[t] W, wchunk[t] W + 2W) (the chunk
+// plan of formats/bslab.py). The unit keeps a ring of ``ring`` (2 or 3)
+// W-row chunks in shared memory, chunk k in slot k % ring, and fetches a
+// chunk only when wchunk advances past what is resident: the TPU kernel's
+// "copy when c != prev" rule, and when c advances by one only the one new
+// chunk is copied, the old window's upper half being the new one's lower
+// half. Thread 0 copies with one 1-D bulk copy (cp.async.bulk, the TMA's
+// non-tensor form) a chunk, completed on the slot's mbarrier; the block
+// waits for it only after it has staged the tile's metadata. With a third
+// slot the chunk after the window (c + 2) is fetched at the same time and
+// lands while the block computes on c and c + 1. Only full x rows are
+// copied; rows outside x read 0 and the partial last row of x reads x
+// itself, so a copy never reads past x. A read outside the tile's window
+// gives NaN, so a layout whose slices leave their window shows in the output.
+// Where the ring is larger than a block's 227 KB the unit is a thread-block
+// cluster of C (<= 8) blocks: each block holds rows [q S, (q+1) S) of every
+// chunk (S = ceil(W / C)), copies that stripe itself, and reads the others'
+// through distributed shared memory (map_shared_rank); the cluster's blocks
+// share the unit's lane groups and pass its barriers together. At 200^3 f32
+// (2W = 1520 rows, 778 KB) the smallest cluster that holds two chunks is 4
+// (ops/bslab_spmv.py win_plan picks it; a third chunk would take 6).
+//
+// What bounds them: memory, and the instructions of the gathers. Per SpMV
+// every slice plane is read once (values, plus an int8 index plane per
+// general slice and index and block planes per wide slice), x once and y
+// written once; 2 flops per stored element. The loop's instructions keep
+// K6 below that bound (PERF.md §6). K7 adds the chunk copies, W rows of x a
+// chunk a unit; in a cluster three of four x reads at 200^3 go to a peer's
+// shared memory, and those requests bound K7 there.
 //
 // Products and sums are rounded one by one (__fmul_rn / __fadd_rn, no FMA
 // contraction) in the slice order above, so the kernels give the bits of the
@@ -45,21 +85,40 @@
 // the x type before the multiply. Instances (values, x): (bf16, f32) the
 // default f32 path with losslessly compressed values, (f32, f32), (f64, f64).
 // Entry points launch on the stream they are given, do not synchronise,
-// allocate nothing, and return the launch's error code.
+// allocate nothing, and return the launch's error code. x and the planes
+// must be 16 B aligned (the wrapper copies an x that is not).
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using sb::add_rn;
 using sb::mul_rn;
 using sb::widen;
 
 constexpr int kLanes = 128;
-constexpr int kRowsK6 = 2;        // lane groups a K6 block covers
-constexpr int kThreadsK6 = kRowsK6 * kLanes;
-constexpr int kThreadsK7 = 512;   // 4 lane groups at a time
+constexpr int kThreadsK6 = 512;        // 16 warps, a lane group each; 2 an SM
+constexpr int kThreadsK7 = 1024;       // 32 warps: one block an SM (its ring)
+constexpr int kWarpsK6 = kThreadsK6 / 32;
+constexpr int kWarpsK7 = kThreadsK7 / 32;
+constexpr int kMaxRing = 3;
+constexpr int kMaxCluster = 8;
+constexpr int kBarBytes = 128;         // K7's mbarriers, ahead of the ring
 constexpr int kMetaSmemK6 = 48 * 1024;
+constexpr long long kMaxX = (1LL << 31) - 1;  // x is indexed in int
+
+// slices a batch of the slice loop: K6 four (f64 two); K7, whose gathers
+// keep more state, half that
+template <typename TD>
+constexpr int kBatchK6 = sizeof(TD) == 8 ? 2 : 4;
+template <typename TD>
+constexpr int kBatchK7 = kBatchK6<TD> / 2;
 
 struct Slices {
   const int* meta_aff;  // (n_tiles, s_aff, 2) [dbase, r]
@@ -74,6 +133,112 @@ struct Slices {
   int s_aff, s_gen, s_wide;
 };
 
+// -- loads ------------------------------------------------------------------------
+
+using Policy = unsigned long long;
+
+__device__ __forceinline__ Policy evict_last() {
+  Policy p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// x loads (K6): kept in L2 ahead of the planes
+__device__ __forceinline__ float ld_x(const float* p, Policy pol) {
+  float r;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(r) : "l"(p), "l"(pol));
+  return r;
+}
+
+__device__ __forceinline__ double ld_x(const double* p, Policy pol) {
+  double r;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
+      : "=d"(r) : "l"(p), "l"(pol));
+  return r;
+}
+
+// four consecutive x values from a 16 B (f32) or 32 B (f64) aligned
+// address, kept in L2 ahead of the planes (K6)
+__device__ __forceinline__ void ld_x4(const float* p, Policy pol, float out[4]) {
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(out[0]), "=f"(out[1]), "=f"(out[2]), "=f"(out[3])
+      : "l"(p), "l"(pol));
+}
+
+__device__ __forceinline__ void ld_x4(const double* p, Policy pol,
+                                      double out[4]) {
+  asm("ld.global.nc.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(out[0]), "=d"(out[1]) : "l"(p), "l"(pol));
+  asm("ld.global.nc.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(out[2]), "=d"(out[3]) : "l"(p + 2), "l"(pol));
+}
+
+// the same from shared memory (K7; a generic address, local or a peer's)
+__device__ __forceinline__ void ld_win4(const float* p, float out[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__device__ __forceinline__ void ld_win4(const double* p, double out[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+// out[v] = (a ++ b)[o + v] for a warp-uniform o in 0..3
+template <typename TX>
+__device__ __forceinline__ void shift4(const TX a[4], const TX b[4], int o,
+                                       TX out[4]) {
+  TX f[8] = {a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3]};
+  TX t[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) t[j] = (o & 1) ? f[j + 1] : f[j];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) out[v] = (o & 2) ? t[v + 2] : t[v];
+}
+
+// a thread's four consecutive values of one plane, one vector load, widened
+// on use
+template <typename TD> struct Raw;
+
+template <> struct Raw<__nv_bfloat16> {
+  uint2 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldlu(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ float get(int v) const {
+    const unsigned w = v < 2 ? r.x : r.y;
+    return __uint_as_float(v & 1 ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <> struct Raw<float> {
+  float4 r;
+  __device__ __forceinline__ void load(const float* p) {
+    r = __ldlu(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ float get(int v) const {
+    return v == 0 ? r.x : v == 1 ? r.y : v == 2 ? r.z : r.w;
+  }
+};
+
+template <> struct Raw<double> {
+  double2 a, b;
+  __device__ __forceinline__ void load(const double* p) {
+    a = __ldlu(reinterpret_cast<const double2*>(p));
+    b = __ldlu(reinterpret_cast<const double2*>(p) + 1);
+  }
+  __device__ __forceinline__ double get(int v) const {
+    return v == 0 ? a.x : v == 1 ? a.y : v == 2 ? b.x : b.y;
+  }
+};
+
+// byte v of four int8 plane entries, sign-extended
+__device__ __forceinline__ int byte_at(unsigned w, int v) {
+  return static_cast<int>(static_cast<signed char>((w >> (8 * v)) & 0xffu));
+}
+
 template <typename T> __device__ __forceinline__ T quiet_nan();
 template <> __device__ __forceinline__ float quiet_nan<float>() {
   return __int_as_float(0x7fc00000);
@@ -82,27 +247,97 @@ template <> __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
+// -- gathers ---------------------------------------------------------------------
+//
+// ok(row) says that X's row is a full row at ptr(row) (K6: in x; K7: in x
+// and in the tile's window, in the ring); exact(row, c) gives X[row, c] for
+// any row, and runs only where ok(row) is false (x's first and last rows,
+// K7's window edges).
+
 // X[row, c] from x in device memory (K6)
 template <typename TX>
 struct GlobalX {
   const TX* x;
-  long long n;
+  int n;
   int lead;
-  __device__ __forceinline__ TX operator()(int row, int c) const {
+  unsigned rows;   // full x rows: padded rows [lead, lead + rows)
+  Policy pol;
+
+  __device__ __forceinline__ bool ok(int row) const {
+    return static_cast<unsigned>(row - lead) < rows;
+  }
+  __device__ __forceinline__ const TX* ptr(int row) const {
+    return x + static_cast<long long>(row - lead) * kLanes;
+  }
+  __device__ __forceinline__ TX load(const TX* p) const { return ld_x(p, pol); }
+  // lanes 4i + v of an affine slice at shift r: columns (4i + r + v) & 127,
+  // the aligned piece that holds the first and the next one
+  __device__ __forceinline__ void affine4(int row, int r, TX out[4]) const {
+    const TX* p = ptr(row);
+    const int q = ((threadIdx.x & 31) + (r >> 2)) & 31;
+    TX a[4], b[4];
+    ld_x4(p + 4 * q, pol, a);
+    ld_x4(p + 4 * ((q + 1) & 31), pol, b);
+    shift4(a, b, r & 3, out);
+  }
+  __device__ __forceinline__ TX exact(int row, int c) const {
     const long long j = static_cast<long long>(row - lead) * kLanes + c;
-    return (j >= 0 && j < n) ? __ldg(x + j) : TX(0);
+    return (j >= 0 && j < n) ? ld_x(x + j, pol) : TX(0);
   }
 };
 
-// X[row, c] from the window staged in shared memory (K7)
-template <typename TX>
-struct WindowX {
-  const TX* win;
-  int row0;
-  int rows;
-  __device__ __forceinline__ TX operator()(int row, int c) const {
-    const int r = row - row0;
-    return (r >= 0 && r < rows) ? win[r * kLanes + c] : quiet_nan<TX>();
+// X[row, c] through the tile's window [win0, win0 + 2W) held in the unit's
+// chunk ring (K7): the window's lower W rows are chunk wchunk[t], in the
+// slot at ``lower``, the upper ones the next chunk, at ``upper``; in a
+// cluster a block holds rows [q S, (q+1) S) of each, S = ``stripe``.
+template <typename TX, bool kCluster>
+struct RingX {
+  const TX* lower;
+  const TX* upper;
+  const TX* x;
+  int n;
+  int lead;
+  int full_end;    // padded rows [lead, full_end) are full x rows
+  int win0;        // wchunk[t] * W
+  int w;           // W
+  int stripe;
+  float inv_stripe;
+  int lo;          // ok rows: [lo, lo + len)
+  unsigned len;
+
+  __device__ __forceinline__ bool ok(int row) const {
+    return static_cast<unsigned>(row - lo) < len;
+  }
+  // a row of the window, here or in the cluster peer that holds it
+  __device__ __forceinline__ const TX* ptr(int row) const {
+    const bool up = row >= win0 + w;
+    const int within = row - win0 - (up ? w : 0);
+    const TX* base = up ? upper : lower;
+    if constexpr (kCluster) {
+      // within / stripe, exact: both are below 2^12
+      const int rank = __float2int_rz((within + 0.5f) * inv_stripe);
+      return cg::this_cluster().map_shared_rank(
+          const_cast<TX*>(base) + (within - rank * stripe) * kLanes, rank);
+    } else {
+      return base + within * kLanes;
+    }
+  }
+  __device__ __forceinline__ TX load(const TX* p) const { return *p; }
+  __device__ __forceinline__ void affine4(int row, int r, TX out[4]) const {
+    const TX* p = ptr(row);
+    const int i = threadIdx.x & 31;
+    const int q = (i + (r >> 2)) & 31;
+    TX a[4], b[4];
+    ld_win4(p + 4 * q, a);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b[k] = __shfl_sync(0xffffffffu, a[k], (i + 1) & 31);
+    shift4(a, b, r & 3, out);
+  }
+  __device__ __forceinline__ TX exact(int row, int c) const {
+    if (row < win0 || row >= win0 + 2 * w) return quiet_nan<TX>();
+    if (row >= lead && row < full_end) return ptr(row)[c];
+    const long long j = static_cast<long long>(row - lead) * kLanes + c;
+    return (j >= 0 && j < n) ? __ldg(x + j) : TX(0);
   }
 };
 
@@ -120,94 +355,394 @@ __device__ __forceinline__ void load_meta(int* meta, const Slices& sl, int t) {
   }
 }
 
-// Output (t, s, lane): the slices in stored order, one rounding per op.
-template <typename TD, typename TX, typename Gather>
-__device__ __forceinline__ TX accumulate(const Slices& sl, const int* meta,
-                                         int t, int s, int lane, int sub,
-                                         const Gather& gx) {
-  const long long plane = static_cast<long long>(sub) * kLanes;
-  const long long e = static_cast<long long>(s) * kLanes + lane;
-  const long long tile = t;
-  TX acc = TX(0);
-  {
-    const TD* v = static_cast<const TD*>(sl.vals_aff) + tile * sl.s_aff * plane + e;
-    for (int p = 0; p < sl.s_aff; ++p, v += plane) {
-      const TX g = gx(meta[2 * p] + s, (lane + meta[2 * p + 1]) & (kLanes - 1));
-      acc = add_rn(acc, mul_rn(static_cast<TX>(widen(*v)), g));
+// -- the slice loop ---------------------------------------------------------------
+
+enum Kind { kAffine, kGeneral, kWide };
+
+// One class of a tile's slices for one lane group: each plane's slice 0 at
+// the thread's first lane, and the elements from one slice to the next.
+template <typename TD>
+struct ClassPlanes {
+  const TD* vals;
+  const signed char* lidx;
+  const signed char* dblk;
+  int plane;
+  int count;  // slices
+};
+
+// N consecutive slices of one class for one thread: values, lane indices
+// and block deltas of its four lanes
+template <int N, typename TD>
+struct Batch {
+  Raw<TD> val[N];
+  unsigned li[N];
+  unsigned db[N];
+};
+
+// N slices from the planes at v (value), li and db (index and block), each
+// ``plane`` elements after the last, one vector load a plane a slice, with
+// the last-use hint (the planes are read once). ``count`` < N loads the
+// first count slices and repeats the last.
+template <int N, Kind kKind, typename TD>
+__device__ __forceinline__ void fetch(const TD* v, const signed char* li,
+                                      const signed char* db, int plane,
+                                      int count, Batch<N, TD>& bt) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int off = min(u, count - 1) * plane;
+    bt.val[u].load(v + off);
+    bt.li[u] = kKind != kAffine ? __ldlu(reinterpret_cast<const unsigned*>(li + off)) : 0u;
+    bt.db[u] = kKind == kWide ? __ldlu(reinterpret_cast<const unsigned*>(db + off)) : 0u;
+  }
+}
+
+// the x row slice q reads (before dblk)
+template <Kind kKind>
+__device__ __forceinline__ int slice_row(const int* meta, int q, int s) {
+  return meta[kKind == kAffine ? 2 * q : q] + s;
+}
+
+// the x column lane 4i + k reads in slice q (u of the batch)
+template <Kind kKind, int N, typename TD>
+__device__ __forceinline__ int slice_col(const int* meta, int q,
+                                         const Batch<N, TD>& bt, int u, int k) {
+  return kKind == kAffine ? (4 * (threadIdx.x & 31) + k + meta[2 * q + 1]) & (kLanes - 1)
+                          : byte_at(bt.li[u], k);
+}
+
+// acc[k] += widen(val) * g, each op rounded
+template <typename TD, typename TX>
+__device__ __forceinline__ void fma4(TX acc[4], const Raw<TD>& val, const TX g[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[k] = add_rn(acc[k], mul_rn(static_cast<TX>(val.get(k)), g[k]));
+  }
+}
+
+// Sum the N slices q0.. of a full batch whose every row is ok: all x loads
+// first, then the sums in slice order. No branch.
+template <int N, Kind kKind, typename TD, typename TX, typename Gather>
+__device__ __forceinline__ void consume_fast(const Batch<N, TD>& bt, int q0,
+                                             const int* meta, int s,
+                                             const Gather& gx, TX acc[4]) {
+  TX g[N][4];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int row = slice_row<kKind>(meta, q0 + u, s);
+    if constexpr (kKind == kAffine) {
+      gx.affine4(row, meta[2 * (q0 + u) + 1], g[u]);
+    } else if constexpr (kKind == kGeneral) {
+      const TX* p = gx.ptr(row);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[u][k] = gx.load(p + byte_at(bt.li[u], k));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        g[u][k] = gx.load(gx.ptr(row + byte_at(bt.db[u], k)) + byte_at(bt.li[u], k));
+      }
     }
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) fma4<TD, TX>(acc, bt.val[u], g[u]);
+}
+
+// The same for the first ``count`` slices of any batch, every x value from
+// exact().
+template <int N, Kind kKind, typename TD, typename TX, typename Gather>
+__device__ __forceinline__ void consume_slow(const Batch<N, TD>& bt, int q0,
+                                             int count, const int* meta,
+                                             int s, const Gather& gx,
+                                             TX acc[4]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    if (u < count) {
+      const int row = slice_row<kKind>(meta, q0 + u, s);
+      TX g[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        g[k] = gx.exact(row + byte_at(bt.db[u], k), slice_col<kKind>(meta, q0 + u, bt, u, k));
+      }
+      fma4<TD, TX>(acc, bt.val[u], g);
+    }
+  }
+}
+
+// whether every row of the batch's slices is ok (wide: lane by lane)
+template <int N, Kind kKind, typename TD, typename Gather>
+__device__ __forceinline__ bool batch_ok(const Batch<N, TD>& bt, int q0,
+                                         const int* meta, int s,
+                                         const Gather& gx) {
+  bool ok = true;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int row = slice_row<kKind>(meta, q0 + u, s);
+    if constexpr (kKind == kWide) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ok = ok && gx.ok(row + byte_at(bt.db[u], k));
+    } else {
+      ok = ok && gx.ok(row);
+    }
+  }
+  return ok;
+}
+
+// One class of slices of a lane group into acc: full batches of N through
+// the branch-free path where their rows are ok, then the rest.
+template <int N, Kind kKind, typename TD, typename TX, typename Gather>
+__device__ __forceinline__ void slice_class(const ClassPlanes<TD>& c,
+                                            const int* meta, int s,
+                                            const Gather& gx, TX acc[4]) {
+  const TD* v = c.vals;
+  const signed char* li = c.lidx;
+  const signed char* db = c.dblk;
+  const long long step = static_cast<long long>(N) * c.plane;
+  int q0 = 0;
+  for (; q0 + N <= c.count; q0 += N, v += step, li += step, db += step) {
+    Batch<N, TD> bt;
+    fetch<N, kKind, TD>(v, li, db, c.plane, N, bt);
+    if (batch_ok<N, kKind, TD>(bt, q0, meta, s, gx)) {
+      consume_fast<N, kKind, TD, TX>(bt, q0, meta, s, gx, acc);
+    } else {
+      consume_slow<N, kKind, TD, TX>(bt, q0, N, meta, s, gx, acc);
+    }
+  }
+  if (q0 < c.count) {
+    Batch<N, TD> bt;
+    fetch<N, kKind, TD>(v, li, db, c.plane, c.count - q0, bt);
+    consume_slow<N, kKind, TD, TX>(bt, q0, c.count - q0, meta, s, gx, acc);
+  }
+}
+
+// One lane group (t, s), computed by the calling warp: thread i sums lanes
+// 4i..4i+3 over the tile's slices in stored order, one rounding per op, and
+// stores them.
+template <int N, typename TD, typename TX, typename Gather>
+__device__ __forceinline__ void lane_group(const Slices& sl, const int* meta,
+                                           int t, int s, int sub,
+                                           const Gather& gx, TX* y) {
+  const int plane = sub * kLanes;
+  const int lane = s * kLanes + 4 * (threadIdx.x & 31);
+  TX acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = TX(0);
+  {
+    const long long off = static_cast<long long>(t) * sl.s_aff * plane + lane;
+    const ClassPlanes<TD> c{static_cast<const TD*>(sl.vals_aff) + off, nullptr,
+                            nullptr, plane, sl.s_aff};
+    slice_class<N, kAffine, TD, TX>(c, meta, s, gx, acc);
   }
   const int* mg = meta + 2 * sl.s_aff;
   {
-    const long long off = tile * sl.s_gen * plane + e;
-    const TD* v = static_cast<const TD*>(sl.vals_gen) + off;
-    const signed char* li = sl.lidx_gen + off;
-    for (int p = 0; p < sl.s_gen; ++p, v += plane, li += plane) {
-      const TX g = gx(mg[p] + s, *li);
-      acc = add_rn(acc, mul_rn(static_cast<TX>(widen(*v)), g));
-    }
+    const long long off = static_cast<long long>(t) * sl.s_gen * plane + lane;
+    const ClassPlanes<TD> c{static_cast<const TD*>(sl.vals_gen) + off,
+                            sl.lidx_gen + off, nullptr, plane, sl.s_gen};
+    slice_class<N, kGeneral, TD, TX>(c, mg, s, gx, acc);
   }
   const int* mw = mg + sl.s_gen;
   {
-    const long long off = tile * sl.s_wide * plane + e;
-    const TD* v = static_cast<const TD*>(sl.vals_wide) + off;
-    const signed char* li = sl.lidx_wide + off;
-    const signed char* db = sl.dblk_wide + off;
-    for (int p = 0; p < sl.s_wide; ++p, v += plane, li += plane, db += plane) {
-      const TX g = gx(mw[p] + s + *db, *li);
-      acc = add_rn(acc, mul_rn(static_cast<TX>(widen(*v)), g));
-    }
+    const long long off = static_cast<long long>(t) * sl.s_wide * plane + lane;
+    const ClassPlanes<TD> c{static_cast<const TD*>(sl.vals_wide) + off,
+                            sl.lidx_wide + off, sl.dblk_wide + off, plane,
+                            sl.s_wide};
+    slice_class<N, kWide, TD, TX>(c, mw, s, gx, acc);
   }
-  return acc;
+  TX* out = y + (static_cast<long long>(t) * sub + s) * kLanes + 4 * (threadIdx.x & 31);
+  if constexpr (sizeof(TX) == 4) {
+    *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    reinterpret_cast<double2*>(out)[0] = make_double2(acc[0], acc[1]);
+    reinterpret_cast<double2*>(out)[1] = make_double2(acc[2], acc[3]);
+  }
 }
 
-// K6: one thread per output; a block covers kRowsK6 lane groups of a tile.
+// lane groups [g0, g1) of unit u of ``units``: an even split of ``total``
+__device__ __forceinline__ void unit_range(long long u, long long units,
+                                           long long total, long long& g0,
+                                           long long& g1) {
+  g0 = u * total / units;
+  g1 = (u + 1) * total / units;
+}
+
+// K6: a persistent block walks its lane groups, a warp a lane group a step.
 template <typename TD, typename TX>
-__global__ void __launch_bounds__(kThreadsK6)
-bslab_spmv_kernel(Slices sl, const TX* __restrict__ x, long long n,
-                  TX* __restrict__ y, int sub, int lead) {
+__global__ void __launch_bounds__(kThreadsK6, 2)
+bslab_spmv_kernel(Slices sl, const TX* __restrict__ x, int n,
+                  TX* __restrict__ y, int n_tiles, int sub, int lead) {
   extern __shared__ int meta[];
-  const int parts = sub / kRowsK6;
-  const int t = blockIdx.x / parts;
-  const int s = (blockIdx.x % parts) * kRowsK6 + threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  load_meta(meta, sl, t);
-  __syncthreads();
-  const TX acc = accumulate<TD, TX>(sl, meta, t, s, lane, sub,
-                                    GlobalX<TX>{x, n, lead});
-  y[(static_cast<long long>(t) * sub + s) * kLanes + lane] = acc;
+  const GlobalX<TX> gx{x, n, lead, static_cast<unsigned>(n / kLanes),
+                       evict_last()};
+  const int warp = threadIdx.x >> 5;
+  long long g0, g1;
+  unit_range(blockIdx.x, gridDim.x, static_cast<long long>(n_tiles) * sub, g0, g1);
+  int cur_t = -1;
+  for (long long g = g0; g < g1;) {
+    const int t = static_cast<int>(g / sub);
+    const long long end = min(min(g1, static_cast<long long>(t + 1) * sub),
+                              g + kWarpsK6);
+    if (t != cur_t) {
+      __syncthreads();  // the previous tile's metadata is no longer read
+      load_meta(meta, sl, t);
+      __syncthreads();
+      cur_t = t;
+    }
+    const long long mine = g + warp;
+    if (mine < end) {
+      const int s = static_cast<int>(mine - static_cast<long long>(t) * sub);
+      lane_group<kBatchK6<TD>, TD, TX>(sl, meta, t, s, sub, gx, y);
+    }
+    g = end;
+  }
 }
 
-// K7: a block covers ``rows`` lane groups of a tile, stages the tile's
-// window of 2W x rows, then loops over its outputs, one per thread at a time.
-template <typename TD, typename TX>
-__global__ void __launch_bounds__(kThreadsK7)
-bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
-                      const TX* __restrict__ x, long long n,
-                      TX* __restrict__ y, int sub, int lead, int w_blocks,
-                      int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  TX* win = reinterpret_cast<TX*>(smem);
-  const int win_rows = 2 * w_blocks;
-  int* meta = reinterpret_cast<int*>(win + static_cast<long long>(win_rows) * kLanes);
-  const int parts = sub / rows;
-  const int t = blockIdx.x / parts;
-  const int s0 = (blockIdx.x % parts) * rows;
-  const int row0 = wchunk[t] * w_blocks;
-  const long long base = static_cast<long long>(row0 - lead) * kLanes;
-  for (int k = threadIdx.x; k < win_rows * kLanes; k += kThreadsK7) {
-    const long long j = base + k;
-    win[k] = (j >= 0 && j < n) ? __ldg(x + j) : TX(0);
-  }
-  load_meta(meta, sl, t);
-  __syncthreads();
-  const int lane = threadIdx.x % kLanes;
-  const WindowX<TX> gx{win, row0, win_rows};
-  for (int s = s0 + threadIdx.x / kLanes; s < s0 + rows;
-       s += kThreadsK7 / kLanes) {
-    const TX acc = accumulate<TD, TX>(sl, meta, t, s, lane, sub, gx);
-    y[(static_cast<long long>(t) * sub + s) * kLanes + lane] = acc;
+// -- K7's chunk ring -------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
 }
+
+// thread 0: expect ``bytes`` on ``bar`` and copy them from src to dst
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  if (bytes > 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+template <bool kCluster>
+__device__ __forceinline__ void sync_unit() {
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// K7: a persistent unit (a block, or a cluster of them) walks its lane groups
+// in order, a warp a lane group a step, with the tiles' windows in its ring.
+template <typename TD, typename TX, bool kCluster>
+__global__ void __launch_bounds__(kThreadsK7, 1)
+bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
+                      const TX* __restrict__ x, int n,
+                      TX* __restrict__ y, int n_tiles, int sub, int lead,
+                      int w, int stripe, int ring_n) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+  TX* ring = reinterpret_cast<TX*>(smem + kBarBytes);
+  int* meta = reinterpret_cast<int*>(ring + static_cast<long long>(ring_n) * stripe * kLanes);
+  int csize = 1, rank = 0;
+  if constexpr (kCluster) {
+    csize = static_cast<int>(cg::this_cluster().num_blocks());
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < ring_n; ++k) mbar_init(bars + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  sync_unit<kCluster>();
+
+  const int warp = threadIdx.x >> 5;
+  const int full_end = lead + static_cast<int>(n / kLanes);
+  // the stripe of chunk k this block holds: padded rows [lo, hi) of x's
+  // full rows, copied to its slot
+  auto fetch = [&](int k, int slot) {
+    const int s0 = k * w + rank * stripe;
+    const int lo = max(s0, lead);
+    const int hi = min(min(s0 + stripe, k * w + w), full_end);
+    const int rows = max(hi - lo, 0);
+    bulk_copy(ring + (static_cast<long long>(slot) * stripe + (lo - s0)) * kLanes,
+              x + static_cast<long long>(lo - lead) * kLanes,
+              static_cast<unsigned>(rows) * kLanes * sizeof(TX), bars + slot);
+  };
+  int resident[kMaxRing] = {-1, -1, -1};
+  unsigned phase = 0, pending = 0;  // a bit a slot
+  auto wait_slot = [&](int slot) {
+    if (pending >> slot & 1u) {
+      mbar_wait(bars + slot, phase >> slot & 1u);
+      phase ^= 1u << slot;
+      pending &= ~(1u << slot);
+    }
+  };
+
+  long long g0, g1;
+  const long long units = gridDim.x / csize;
+  unit_range(blockIdx.x / csize, units, static_cast<long long>(n_tiles) * sub, g0, g1);
+  int cur_t = -1, cur_c = -1;
+  for (long long g = g0; g < g1;) {
+    const int t = static_cast<int>(g / sub);
+    const long long end = min(min(g1, static_cast<long long>(t + 1) * sub),
+                              g + static_cast<long long>(kWarpsK7) * csize);
+    if (t != cur_t) {
+      const int c = wchunk[t];
+      if (c != cur_c) {
+        sync_unit<kCluster>();  // no block still reads the old chunks
+        // claim chunks c .. c + ring_n - 1, each in slot k % ring_n
+        for (int j = 0; j < ring_n; ++j) {
+          const int k = c + j;
+          const int slot = k % ring_n;
+          if (resident[slot] != k) {
+            wait_slot(slot);  // a copy still in flight into the slot
+            resident[slot] = k;
+            pending |= 1u << slot;
+            if (threadIdx.x == 0) fetch(k, slot);
+          }
+        }
+        load_meta(meta, sl, t);
+        wait_slot(c % ring_n);
+        wait_slot((c + 1) % ring_n);
+        sync_unit<kCluster>();  // every block's stripes have landed
+        cur_c = c;
+      } else {
+        __syncthreads();
+        load_meta(meta, sl, t);
+        __syncthreads();
+      }
+      cur_t = t;
+    }
+    const long long mine = g + static_cast<long long>(rank) * kWarpsK7 + warp;
+    if (mine < end) {
+      const int win0 = cur_c * w;
+      const int lo = max(win0, lead);
+      const RingX<TX, kCluster> gx{
+          ring + (cur_c % ring_n) * stripe * kLanes,
+          ring + ((cur_c + 1) % ring_n) * stripe * kLanes, x, n, lead,
+          full_end, win0, w, stripe, 1.0f / stripe, lo,
+          static_cast<unsigned>(max(min(win0 + 2 * w, full_end) - lo, 0))};
+      const int s = static_cast<int>(mine - static_cast<long long>(t) * sub);
+      lane_group<kBatchK7<TD>, TD, TX>(sl, meta, t, s, sub, gx, y);
+    }
+    g = end;
+  }
+  for (int slot = 0; slot < ring_n; ++slot) wait_slot(slot);
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();  // peers may still read this block's ring
+  }
+}
+
+// -- launch ------------------------------------------------------------------------
 
 Slices make_slices(const int* meta_aff, const void* vals_aff,
                    const int* meta_gen, const void* vals_gen,
@@ -230,57 +765,116 @@ size_t meta_bytes(const Slices& sl) {
   return sizeof(int) * static_cast<size_t>(2 * sl.s_aff + sl.s_gen + sl.s_wide);
 }
 
+// raise a kernel's dynamic shared memory limit to ``smem`` once per size
+// reached; ``configured`` is the kernel's own record
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& configured) {
+  if (smem <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) configured = smem;
+  return err;
+}
+
+// blocks of ``kernel`` that fit the card at once with ``smem`` bytes each
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  blocks = sms * per_sm;
+  return err;
+}
+
 template <typename TD, typename TX>
 int launch(const Slices& sl, const void* x, long long n, void* y, int n_tiles,
            int sub, int lead, void* stream) {
   const size_t smem = meta_bytes(sl);
-  if (bad_shape(n_tiles, sub, sl) || n < 0 || smem > kMetaSmemK6) {
+  if (bad_shape(n_tiles, sub, sl) || n <= 0 || n > kMaxX || smem > kMetaSmemK6) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned blocks = static_cast<unsigned>(n_tiles) * (sub / kRowsK6);
-  bslab_spmv_kernel<TD, TX><<<blocks, kThreadsK6, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      sl, static_cast<const TX*>(x), n, static_cast<TX*>(y), sub, lead);
+  auto kernel = bslab_spmv_kernel<TD, TX>;
+  // the occupancy of the last metadata size asked for
+  static size_t cached_smem = ~size_t(0);
+  static int cached_blocks = 0;
+  if (smem != cached_smem) {
+    const cudaError_t err = resident_blocks(kernel, kThreadsK6, smem, cached_blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached_smem = smem;
+  }
+  if (cached_blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long groups = static_cast<long long>(n_tiles) * sub;
+  const unsigned blocks = static_cast<unsigned>(
+      std::min(static_cast<long long>(cached_blocks), (groups + kWarpsK6 - 1) / kWarpsK6));
+  kernel<<<blocks, kThreadsK6, smem, static_cast<cudaStream_t>(stream)>>>(
+      sl, static_cast<const TX*>(x), static_cast<int>(n), static_cast<TX*>(y),
+      n_tiles, sub, lead);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of K7: the window, then the metadata.
+// Shared memory of a K7 block: mbarriers, the ring's stripes, the metadata.
 template <typename TX>
-size_t win_smem_bytes(int w_blocks, const Slices& sl) {
-  return sizeof(TX) * 2 * static_cast<size_t>(w_blocks) * kLanes + meta_bytes(sl);
+size_t win_smem_bytes(int stripe, int ring_n, const Slices& sl) {
+  return kBarBytes + sizeof(TX) * static_cast<size_t>(ring_n) * stripe * kLanes +
+         meta_bytes(sl);
+}
+
+template <typename TD, typename TX, bool kCluster>
+int launch_win_as(const Slices& sl, const int* wchunk, int w_blocks,
+                  const void* x, long long n, void* y, int n_tiles, int sub,
+                  int lead, int cluster, int ring_n, void* stream) {
+  const int stripe = (w_blocks + cluster - 1) / cluster;
+  const size_t smem = win_smem_bytes<TX>(stripe, ring_n, sl);
+  auto kernel = bslab_spmv_win_kernel<TD, TX, kCluster>;
+  static size_t configured = 0;
+  cudaError_t err = allow_smem(kernel, smem, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.blockDim = dim3(kThreadsK7);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  // units that fit the card at once (a unit: one block, or one cluster)
+  int units = 0;
+  if constexpr (kCluster) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+    err = cudaOccupancyMaxActiveClusters(&units, kernel, &cfg);
+  } else {
+    err = resident_blocks(kernel, kThreadsK7, smem, units);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (units <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cfg.gridDim = dim3(static_cast<unsigned>(units * cluster));
+  err = cudaLaunchKernelEx(&cfg, kernel, sl, wchunk, static_cast<const TX*>(x),
+                           static_cast<int>(n), static_cast<TX*>(y), n_tiles, sub, lead, w_blocks,
+                           stripe, ring_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TD, typename TX>
 int launch_win(const Slices& sl, const int* wchunk, int w_blocks,
                const void* x, long long n, void* y, int n_tiles, int sub,
-               int lead, void* stream) {
-  if (bad_shape(n_tiles, sub, sl) || n < 0 || w_blocks <= 0) {
+               int lead, int cluster, int ring_n, void* stream) {
+  if (bad_shape(n_tiles, sub, sl) || n <= 0 || n > kMaxX || w_blocks <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || ring_n < 2 || ring_n > kMaxRing) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = win_smem_bytes<TX>(w_blocks, sl);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (cluster == 1) {
+    return launch_win_as<TD, TX, false>(sl, wchunk, w_blocks, x, n, y, n_tiles,
+                                        sub, lead, 1, ring_n, stream);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the kernel's dynamic shared memory limit once per size reached
-  static size_t configured = 0;
-  if (smem > configured) {
-    err = cudaFuncSetAttribute(bslab_spmv_win_kernel<TD, TX>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
-  const int rows = sub % 16 == 0 ? 16 : 8;
-  const unsigned blocks = static_cast<unsigned>(n_tiles) * (sub / rows);
-  bslab_spmv_win_kernel<TD, TX><<<blocks, kThreadsK7, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      sl, wchunk, static_cast<const TX*>(x), n, static_cast<TX*>(y), sub,
-      lead, w_blocks, rows);
-  return static_cast<int>(cudaGetLastError());
+  return launch_win_as<TD, TX, true>(sl, wchunk, w_blocks, x, n, y, n_tiles,
+                                     sub, lead, cluster, ring_n, stream);
 }
 
 }  // namespace
@@ -301,9 +895,10 @@ int launch_win(const Slices& sl, const int* wchunk, int w_blocks,
                           stream);                                            \
   }                                                                           \
   int sb_bslab_spmv_win_##SUFFIX(SB_BSLAB_ARGS, const int* wchunk,            \
-                                 int w_blocks, void* stream) {                \
+                                 int w_blocks, int cluster, int ring,         \
+                                 void* stream) {                              \
     return launch_win<TD, TX>(SB_BSLAB_SLICES, wchunk, w_blocks, x, n, y,     \
-                              n_tiles, sub, lead, stream);                    \
+                              n_tiles, sub, lead, cluster, ring, stream);     \
   }
 
 extern "C" {

@@ -13,14 +13,17 @@ build (``_auto_sub``, ``_window_plan``, ``_build_arrays``) is a numpy copy
 of the JAX package's, so the arrays come out equal element for element;
 ops/bslab_spmv.py says what the SpMV computes from them.
 
-``impl`` picks the SpMV: ``kernel`` (K6), ``kernel_win`` (K7, x staged per
-tile window in shared memory) or ``torch`` (their plain version). ``auto``
-is ``kernel`` on CUDA and ``torch`` on the CPU. The JAX package sends the
-RGL matrix to its windowed kernel; on an H100 (80GB HBM3, 700 W) K7 ran at
-half K6's speed on it (0.665 against 0.329 ms at 2M rows, PERF.md §6), so
-here K7 runs only when asked for. ``kernel`` and ``kernel_win`` on the CPU
-raise; ``kernel_win`` on a matrix whose window does not fit raises at the
-first SpMV. ``impl`` is the one choice between kernel and plain version.
+``impl`` picks the SpMV: ``kernel`` (K6), ``kernel_win`` (K7, the tiles'
+windows of x held in a ring of chunks in shared memory) or ``torch``
+(their plain version). ``auto`` is ``kernel`` on CUDA and ``torch`` on the
+CPU. The JAX package sends the RGL matrix and the 200^3 stencil to its
+windowed kernel; here K7 runs only when asked for, and ``auto`` keeps K6
+(PERF.md §6 times both, §7 asks where K7 should be the default). K7 runs
+every window: where two chunks exceed a block's shared memory (200^3: 778
+KB in f32) it spreads them over a thread-block cluster, and it raises, at
+the first SpMV, only where a cluster of 8 blocks cannot hold them.
+``kernel`` and ``kernel_win`` on the CPU raise. ``impl`` is the one choice
+between kernel and plain version.
 """
 
 from __future__ import annotations

@@ -21,10 +21,13 @@ dblk)``; the padded x has ``lead`` zero rows before x (formats/bslab.py).
   the JAX package's ``_spmv_xla`` gathers on a zero-padded x, summed slice
   by slice in the kernels' order, so it is their bit-exact reference.
 * ``bslab_spmv(sl, x, sub=, lead=)`` — K6, x gathered through the caches.
-* ``bslab_spmv_win(wchunk, sl, x, sub=, lead=, w_blocks=)`` — K7, each
-  block stages its tile's window of x rows [wchunk W, wchunk W + 2W) in
-  shared memory; ``win_fits`` says whether the window fits, and K7 raises
-  where it does not.
+* ``bslab_spmv_win(wchunk, sl, x, sub=, lead=, w_blocks=, cluster=0)`` —
+  K7, each persistent unit (a block, or a cluster of blocks) keeping the
+  tiles' windows of x rows [wchunk W, wchunk W + 2W) in a ring of W-row
+  chunks in shared memory. ``win_plan`` sizes the unit: the smallest
+  cluster (1-8 blocks) whose shared memory holds two chunks, with a third
+  where it fits too; K7 raises, naming the size, only where a cluster of 8
+  cannot hold two.
 
 The wrappers launch their kernel on CUDA tensors and raise on any other
 device: the choice between kernel and plain version is the matrix's
@@ -51,11 +54,14 @@ _SUFFIX = {
     (torch.float64, torch.float64): "f64_f64",
 }
 
-# Shared memory a block may use on an H100 (227 KB, the opt-in maximum);
-# K7 needs its window and the tile's metadata inside it. K6 keeps only the
-# metadata there, within the 48 KB default.
+# Shared memory a block may use on an H100 (227 KB, the opt-in maximum).
+# K6 keeps only the tile's metadata there, within the 48 KB default; a K7
+# block holds its mbarriers, its stripe of each ring slot and the metadata.
 SMEM_BYTES = 232_448
 K6_META_BYTES = 48 * 1024
+BAR_BYTES = 128
+MAX_CLUSTER = 8            # the portable cluster sizes are 1-8
+ALIGN = 16                 # bytes: 16 B loads of x, bulk copies of its rows
 
 
 class Slices(NamedTuple):
@@ -85,14 +91,49 @@ def meta_bytes(sl: Slices) -> int:
     return 4 * (2 * s_aff + s_gen + s_wide)
 
 
-def win_smem_bytes(sl: Slices, w_blocks: int, x_dtype: torch.dtype) -> int:
-    """Shared memory of a K7 block: the 2W-row window of x, then the
-    tile's metadata."""
-    return 2 * w_blocks * LANES * x_dtype.itemsize + meta_bytes(sl)
+class WinPlan(NamedTuple):
+    """K7's unit: ``cluster`` blocks, each holding ``stripe`` rows of each
+    of the ring's ``ring`` W-row chunks, in ``smem`` bytes."""
+    cluster: int
+    ring: int
+    stripe: int
+    smem: int
 
 
-def win_fits(sl: Slices, w_blocks: int, x_dtype: torch.dtype) -> bool:
-    return win_smem_bytes(sl, w_blocks, x_dtype) <= SMEM_BYTES
+def ring_smem_bytes(sl: Slices, w_blocks: int, x_dtype: torch.dtype,
+                    cluster: int, ring: int) -> int:
+    """Shared memory of a K7 block: mbarriers, its stripe of ``ring`` W-row
+    chunks (W / cluster rows, rounded up), the tile's metadata."""
+    stripe = -(-w_blocks // cluster)
+    return (BAR_BYTES + ring * stripe * LANES * x_dtype.itemsize
+            + meta_bytes(sl))
+
+
+def win_plan(sl: Slices, w_blocks: int, x_dtype: torch.dtype,
+             cluster: int = 0) -> WinPlan:
+    """K7's unit for windows of 2 ``w_blocks`` rows: the smallest cluster
+    whose blocks hold a two-chunk ring (or ``cluster`` when given), with a
+    third chunk where that cluster holds three. Raises a ValueError, naming
+    the size, where the cluster cannot hold two."""
+    if cluster and not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"bslab_spmv_win: cluster={cluster} is not a "
+                         f"cluster size of 1 to {MAX_CLUSTER}")
+    if w_blocks <= 0:
+        raise ValueError(f"bslab_spmv_win: w_blocks={w_blocks} must be "
+                         "positive")
+    for c in ([cluster] if cluster else range(1, MAX_CLUSTER + 1)):
+        if ring_smem_bytes(sl, w_blocks, x_dtype, c, 2) <= SMEM_BYTES:
+            ring = 3 if ring_smem_bytes(sl, w_blocks, x_dtype, c,
+                                        3) <= SMEM_BYTES else 2
+            return WinPlan(c, ring, -(-w_blocks // c),
+                           ring_smem_bytes(sl, w_blocks, x_dtype, c, ring))
+    c = cluster or MAX_CLUSTER
+    need = ring_smem_bytes(sl, w_blocks, x_dtype, c, 2)
+    raise ValueError(
+        f"bslab_spmv_win: two chunks of {w_blocks} x rows ({x_dtype}) need "
+        f"{need} B of shared memory a block in a cluster of {c}, over the "
+        f"{SMEM_BYTES} B a block may use; use the kernel impl (K6) for this "
+        "matrix")
 
 
 def bslab_spmv_torch(sl: Slices, x: torch.Tensor, *, sub: int, lead: int,
@@ -136,13 +177,15 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = args + [p]
         fn.restype = i32
         fn = getattr(lib, f"sb_bslab_spmv_win_{sfx}")
-        fn.argtypes = args + [p, i32, p]
+        fn.argtypes = args + [p, i32, i32, i32, p]
         fn.restype = i32
     return lib
 
 
-def _check(name: str, sl: Slices, x: torch.Tensor, sub: int) -> str:
-    """Validate what the kernels take; return the entry-point suffix."""
+def _check(name: str, sl: Slices, x: torch.Tensor, sub: int):
+    """Validate what the kernels take; return the entry-point suffix and x,
+    copied where its storage is not 16 B aligned (the kernels read x 16 B
+    at a time; a fresh tensor always is)."""
     tensors = [*sl, x]
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -181,7 +224,14 @@ def _check(name: str, sl: Slices, x: torch.Tensor, sub: int) -> str:
                          f"8 and n_tiles={n_tiles} positive")
     if x.dim() != 1 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous 1-D tensor")
-    return sfx
+    for key in ("vals_aff", "vals_gen", "lidx_gen", "vals_wide", "lidx_wide",
+                "dblk_wide"):
+        if getattr(sl, key).data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {key} must start {ALIGN} B aligned")
+    if x.shape[0] >= 2**31:
+        raise ValueError(f"{name}: x has {x.shape[0]} entries; the kernels "
+                         "index it with 32-bit integers")
+    return sfx, (x.clone() if x.data_ptr() % ALIGN else x)
 
 
 def _args(sl: Slices, x: torch.Tensor, y: torch.Tensor, sub: int,
@@ -194,7 +244,7 @@ def bslab_spmv(sl: Slices, x: torch.Tensor, *, sub: int,
                lead: int) -> torch.Tensor:
     """K6: y (n_tiles, sub, 128) for CUDA tensors, x gathered through the
     caches."""
-    sfx = _check("bslab_spmv", sl, x, sub)
+    sfx, x = _check("bslab_spmv", sl, x, sub)
     if meta_bytes(sl) > K6_META_BYTES:
         raise ValueError(
             f"bslab_spmv: {meta_bytes(sl)} B of slice metadata a tile exceed "
@@ -211,18 +261,15 @@ def bslab_spmv(sl: Slices, x: torch.Tensor, *, sub: int,
 
 
 def bslab_spmv_win(wchunk: torch.Tensor, sl: Slices, x: torch.Tensor, *,
-                   sub: int, lead: int, w_blocks: int) -> torch.Tensor:
-    """K7: y (n_tiles, sub, 128) for CUDA tensors, each block gathering
-    from its tile's window of x staged in shared memory. Raises a
-    ValueError where the window does not fit a block's shared memory."""
-    sfx = _check("bslab_spmv_win", sl, x, sub)
-    need = win_smem_bytes(sl, w_blocks, x.dtype)
-    if need > SMEM_BYTES:
-        raise ValueError(
-            f"bslab_spmv_win: the window of 2*{w_blocks} x rows "
-            f"({x.dtype}) and the tile's metadata need {need} B of shared "
-            f"memory, over the {SMEM_BYTES} B a block may use; use the "
-            "kernel impl (K6) for this matrix")
+                   sub: int, lead: int, w_blocks: int,
+                   cluster: int = 0) -> torch.Tensor:
+    """K7: y (n_tiles, sub, 128) for CUDA tensors, gathered from the tiles'
+    windows of x held in each unit's chunk ring in shared memory. The unit
+    is ``win_plan``'s (``cluster`` blocks when given, else the smallest
+    cluster that holds the ring); raises a ValueError where it cannot hold
+    two chunks."""
+    sfx, x = _check("bslab_spmv_win", sl, x, sub)
+    plan = win_plan(sl, w_blocks, x.dtype, cluster)
     if (tuple(wchunk.shape) != (sl.n_tiles,) or wchunk.dtype != torch.int32
             or wchunk.device != x.device or not wchunk.is_contiguous()):
         raise ValueError(
@@ -233,6 +280,7 @@ def bslab_spmv_win(wchunk: torch.Tensor, sl: Slices, x: torch.Tensor, *,
     with torch.cuda.device(x.device):
         err = getattr(lib, f"sb_bslab_spmv_win_{sfx}")(
             *_args(sl, x, y, sub, lead), wchunk.data_ptr(), w_blocks,
+            plan.cluster, plan.ring,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "bslab_spmv_win")
     bslab_spmv_win.launches += 1

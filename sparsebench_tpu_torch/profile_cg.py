@@ -114,7 +114,7 @@ def _capture(fn, calls: int = 1):
     return graph, out
 
 
-def _replay_ms(fn, calls: int = 20) -> float:
+def replay_ms(fn, calls: int = 20) -> float:
     """Milliseconds per call of ``fn()``: the better of two replays of one
     CUDA graph of ``calls`` calls, timed with CUDA events."""
     graph, _ = _capture(fn, calls)
@@ -246,8 +246,8 @@ def profile_patterns(n: int, gpu: str) -> None:
         for k in PATTERN_KS:
             X = torch.randn((k, rows), generator=gen, device=dev)
             cols = [X[c] for c in range(k)]
-            k8 = _replay_ms(lambda: dia_spmm(data, X, offs, rows))
-            k1 = _replay_ms(lambda: [dia_spmv(data, x, offs, rows)
+            k8 = replay_ms(lambda: dia_spmm(data, X, offs, rows))
+            k1 = replay_ms(lambda: [dia_spmv(data, x, offs, rows)
                                      for x in cols])
             nbytes = len(offs) * rows * 2 + 2 * k * rows * 4
             print(f"{n}^3 {name} ({len(offs)} diagonals) k={k}: K8 "

@@ -49,7 +49,7 @@ from sparsebench_tpu_torch.ops.bslab_spmv import (
     bslab_spmv,
     bslab_spmv_torch,
     bslab_spmv_win,
-    win_fits,
+    win_plan,
 )
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
 from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
@@ -604,14 +604,18 @@ def test_bslab_plain_version_matches_the_host_csr():
 
 
 def test_bslab_window_fit():
-    """K7 needs its 2W-row window in a block's 227 KB: f32 fits where f64
-    may not, and the wrapper's refusal names the size."""
+    """K7's unit holds two W-row chunks of x: one block where 2W rows fit
+    its 227 KB, else the smallest cluster whose blocks hold a stripe each;
+    the refusal, above a cluster of 8, names the size."""
     A = bslab_case("rgl", CPU)
     sl = A.slices
-    assert win_fits(sl, A.w_blocks, torch.float32)
-    assert win_fits(sl, 224, torch.float32)       # 100^3 at sub 64
-    assert not win_fits(sl, 224, torch.float64)
-    assert not win_fits(sl, 760, torch.float32)   # 200^3 at sub 128
+    assert win_plan(sl, A.w_blocks, torch.float32).cluster == 1
+    assert win_plan(sl, 224, torch.float32).cluster == 1   # 100^3 at sub 64
+    assert win_plan(sl, 224, torch.float64).cluster == 2
+    assert win_plan(sl, 760, torch.float32).cluster == 4   # 200^3 at sub 128
+    assert win_plan(sl, 760, torch.float64).cluster == 7
+    with pytest.raises(ValueError, match="cluster of 8"):
+        win_plan(sl, 4000, torch.float32)
 
 
 @pytest.mark.cuda
@@ -629,12 +633,48 @@ def test_bslab_kernels_equal_plain(case, pair, cuda_device):
     assert bslab_spmv.launches == before + 1
     assert bool(torch.isfinite(y).all())
     assert_bits_equal(y, y_ref)
-    if win_fits(sl, A.w_blocks, x.dtype):
-        before = bslab_spmv_win.launches
-        y = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
-                           w_blocks=A.w_blocks)
-        assert bslab_spmv_win.launches == before + 1
-        assert_bits_equal(y, y_ref)
+    before = bslab_spmv_win.launches
+    y = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
+                       w_blocks=A.w_blocks)
+    assert bslab_spmv_win.launches == before + 1
+    assert_bits_equal(y, y_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("case", ["stencil", "klein", "rgl_span2"])
+def test_bslab_win_forced_cluster_equals_plain(case, pair, cuda_device):
+    """K7 with a forced cluster of 2 where one block would do: half of
+    every chunk in the peer's shared memory, read through distributed
+    shared memory, with a third ring slot; bit for bit."""
+    A = bslab_case(case, cuda_device)
+    sl = slices_as(A, DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(A.nr).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    assert win_plan(sl, A.w_blocks, x.dtype).cluster == 1
+    assert win_plan(sl, A.w_blocks, x.dtype, cluster=2).ring == 3
+    y_ref = bslab_spmv_torch(sl, x, sub=A.sub, lead=A.lead, x_rows=A.x_rows)
+    y = bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
+                       w_blocks=A.w_blocks, cluster=2)
+    assert_bits_equal(y, y_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+def test_bslab_kernels_at_200_cubed(pair, cuda_device):
+    """The 200^3 stencil (W 760): K7's window spans a cluster of 4 blocks
+    (f64: 7); K6 and K7 bit for bit against the plain version."""
+    A = BslabMatrix.from_stencil(200, 200, 200, device=cuda_device,
+                                 policy=DTypePolicy.from_names("f32"))[0]
+    sl = slices_as(A, DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    plan = win_plan(sl, A.w_blocks, x.dtype)
+    assert (A.w_blocks, plan.cluster) == (760, 4 if pair[1] == "f32" else 7)
+    y_ref = bslab_spmv_torch(sl, x, sub=A.sub, lead=A.lead, x_rows=A.x_rows)
+    assert_bits_equal(bslab_spmv(sl, x, sub=A.sub, lead=A.lead), y_ref)
+    assert_bits_equal(bslab_spmv_win(A.wchunk, sl, x, sub=A.sub, lead=A.lead,
+                                     w_blocks=A.w_blocks), y_ref)
 
 
 @pytest.mark.cuda
@@ -647,9 +687,13 @@ def test_bslab_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         bslab_spmv(A.slices, x.cpu(), sub=A.sub, lead=A.lead)
     with pytest.raises(ValueError, match="contiguous"):
         bslab_spmv(A.slices, x, sub=A.sub * 2, lead=A.lead)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory a block in a "
+                       "cluster of 8"):
         bslab_spmv_win(A.wchunk, A.slices, x, sub=A.sub, lead=A.lead,
-                       w_blocks=1000)
+                       w_blocks=4000)
+    with pytest.raises(ValueError, match="cluster size"):
+        bslab_spmv_win(A.wchunk, A.slices, x, sub=A.sub, lead=A.lead,
+                       w_blocks=A.w_blocks, cluster=9)
 
 
 @pytest.mark.cuda
@@ -990,3 +1034,28 @@ def test_cli_bsell_default_device_runs_the_kernels(impl, kernel, cuda_device,
     for name, fn in fns.items():
         assert (fn.launches > before[name]) == (name == kernel), name
     assert "Difference between" in out
+
+
+@pytest.mark.parametrize("case", ["stencil", "rgl_span2"])
+def test_profile_bslab_csr_equals_the_plain_version(case):
+    """profile_bslab's cuSPARSE yardstick is the same matrix: its CSR form,
+    built from the slices, times x equals the plain version on the CPU, to
+    1e-5 (f32: the CSR product sums each row in another order)."""
+    from sparsebench_tpu_torch.profile_bslab import csr_of
+
+    A = bslab_case(case, CPU)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        A.nc).astype(np.float32))
+    y = bslab_spmv_torch(A.slices, x, sub=A.sub, lead=A.lead,
+                         x_rows=A.x_rows).reshape(-1)[:A.nr]
+    torch.testing.assert_close(csr_of(A) @ x, y, rtol=1e-5, atol=1e-5)
+
+
+def test_profile_bslab_refuses_unknown_cases_and_the_cpu(monkeypatch):
+    from sparsebench_tpu_torch import profile_bslab
+
+    with pytest.raises(SystemExit):
+        profile_bslab.main(["--cases", "100,300"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_bslab.main(["--cases", "100"])
