@@ -3,9 +3,11 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 
-Phases, each printing its own lines; any failure raises and exits non-zero:
+(``--against``: phase 5f also times another tree's K10 beside this one's;
+without it the script needs no other tree.) Phases, each printing its own
+lines; any failure raises and exits non-zero:
 
 1. fingerprint: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
 2. build: compile csrc/*.cu with nvcc for sm_90a, one nvcc per source, all
@@ -83,16 +85,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bsell_spmv_torch, bit for bit, for (bf16, f32), (f32, f32) and (f64,
    f64) on the stencil through the host CSR (7x6x5, 20^3, 100^3) and on the
    device (10x9x7, 20x20x12, 100^3, 200^3), klein, the small test matrices
-   and a random banded matrix of 50k rows; K10 and K11 where the window fits
-   a block, their refusal checked where it does not;
+   and a random banded matrix of 50k rows; K10 and K11 in win_plan's unit
+   on every case (100^3 f64 in a unit of 2 blocks, 200^3 of 4, f64 7) and
+   in a forced unit of 2 wherever one block would do, and their refusal of
+   a window beyond a unit of 8 blocks, which names the size;
 4f. the bsell path: ``--fmt bsell -t cg`` at 100^3 with ``--impl`` auto
    (K9), kernel_win2 (K10), kernel_win (K11) and torch, then ``-t spmv``,
    with the K9-K11 counts set to 0 before and read after; the f64 residual
    lines of ``--impl kernel`` and ``--impl torch`` equal;
 5f. times of K9-K11 at 100^3 (the CLI's host CSR build and the device
-   build) and 200^3 (device build) beside their bounds, the plain version,
-   cuSPARSE CSR f32 on the same matrix and K6 and K1 on the same problem,
-   and bsell CG x150 seconds;
+   build) and 200^3 (device build; K10/K11 in a unit of 4 blocks) beside their
+   bounds and each share of it, K9, the plain version, cuSPARSE CSR f32 on
+   the same matrix and K6 and K1 on the same problem, and bsell CG x150
+   seconds; with ``--against DIR`` (the parent tree unpacked with ``git
+   archive``) that tree's K10 timed in turns with this tree's;
 3g. the prototype kernels P1-P5 against their plain versions, bit for bit:
    P1's four schedules (dia_window: direct, grouped, qfloor, floor) and P2's
    two variants (dia_shear: roll, shear_chunk; tpc 2 and 3, so the last
@@ -1562,8 +1568,10 @@ def bsell_matrices(dev):
 
 def phase3f_bsell(dev):
     """K9, K10 and K11 against bsell_spmv_torch, bit for bit, in all three
-    (values, x) pairs; K10 and K11 wherever the window fits, and a refusal
-    checked where it does not. Returns {kernel: max |kernel - plain|}."""
+    (values, x) pairs; K10 and K11 in win_plan's unit on every case and in
+    a forced cluster of 2 wherever one block would do; a window beyond a
+    cluster of 8 refused, naming the size. Returns {kernel: max |kernel -
+    plain|}."""
     import torch
 
     from sparsebench_tpu_torch.ops.bsell_spmv import (
@@ -1572,14 +1580,14 @@ def phase3f_bsell(dev):
         bsell_spmv_torch,
         bsell_spmv_win2,
         bsell_spmv_windowed,
-        win_fits,
-        win_smem_bytes,
+        win_plan,
     )
 
     dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
     rng = np.random.default_rng(41)
     err = {"K9": 0.0, "K10": 0.0, "K11": 0.0}
-    win_cases = refused = 0
+    clusters = set()
+    refused = False
     windowed = (("K10", bsell_spmv_win2), ("K11", bsell_spmv_windowed))
     for name, A in bsell_matrices(dev):
         x0 = rng.standard_normal(A.nc)
@@ -1597,31 +1605,38 @@ def phase3f_bsell(dev):
             err["K9"] = max(err["K9"], float((y_k - y_p).abs().max()))
             line, ok = f"K9 bit-identical {same}", same
             xw = A.padded_x(x, A.xw_rows)
-            if win_fits(A.w_blocks, x.dtype):
+            plan = win_plan(A.w_blocks, x.dtype)
+            units = [0] + ([2] if plan.cluster == 1 else [])
+            for cluster in units:
+                c = cluster or plan.cluster
                 for key, fn in windowed:
                     before = fn.launches
                     y_w = fn(A.wchunk, A.blocks, xw, vals, A.lidx,
-                             w_blocks=A.w_blocks)
+                             w_blocks=A.w_blocks, cluster=cluster)
                     check(fn.launches == before + 1,
                           f"the {key} counter did not count the launch")
                     torch.cuda.synchronize()
                     same_w = bits_equal(y_w, y_p)
                     err[key] = max(err[key], float((y_w - y_p).abs().max()))
-                    line += f"; {key} bit-identical {same_w}"
+                    line += (f"; {key} (cluster {c}"
+                             f"{', forced' if cluster else ''}) bit-identical "
+                             f"{same_w}")
                     ok &= same_w
-                win_cases += 1
-            else:
-                need = win_smem_bytes(A.w_blocks, x.dtype)
+                clusters.add(c)
+            if not refused:
+                # two chunks of 4000 rows: more than 8 blocks hold
                 for key, fn in windowed:
+                    before = fn.launches
                     try:
                         fn(A.wchunk, A.blocks, xw, vals, A.lidx,
-                           w_blocks=A.w_blocks)
-                        check(False, f"{key} ran a {need} B window")
+                           w_blocks=4000)
+                        check(False, f"{key} ran a window of 2*4000 rows")
                     except ValueError as e:
-                        check(str(need) in str(e), f"{key} refused with "
-                              f"another message: {e}")
-                refused += 1
-                line += f"; K10/K11 window {need} B does not fit: refused"
+                        check("B of shared memory a block in a cluster of 8"
+                              in str(e) and fn.launches == before,
+                              f"{key} refused with another message: {e}")
+                refused = True
+                line += "; K10/K11 refuse 2*4000 rows (beyond a cluster of 8)"
             print(f"[3f bsell] {name} ({A.n_tiles} tiles, s_max {A.s_max}, W "
                   f"{A.w_blocks}, auto {A.impl}) values {td} x {tx}: {line} "
                   f"{'ok' if ok else 'FAIL'}")
@@ -1630,8 +1645,11 @@ def phase3f_bsell(dev):
             del vals, x, x2d, xw, y_p, y_k
         del A
         torch.cuda.empty_cache()
-    check(win_cases > 0 and refused > 0,
-          f"K10/K11 compared on {win_cases} cases, refused on {refused}")
+    ran = {1, 2} <= clusters and max(clusters) >= 3
+    print(f"[3f bsell] K10/K11 ran in clusters {sorted(clusters)}; a window "
+          f"beyond a cluster of 8 refused: {refused}")
+    check(ran and refused, f"K10/K11 ran in clusters {sorted(clusters)}, "
+          f"refused the oversized window: {refused}")
     return err
 
 
@@ -1700,12 +1718,16 @@ def phase4f_bsell(cli, gpu):
     return launches
 
 
-def phase5f_times(dev, gpu):
+def phase5f_times(dev, gpu, against=None):
     """Per-call ms of K9-K11 and the plain version (graph replay, eager
-    beside it), bounds, cuSPARSE CSR f32 on the same matrix and K6 and K1 on
-    the same problem, at 100^3 (host CSR and device builds) and 200^3
-    (device build), and bsell CG x150 seconds; returns {kernel: {case:
-    {...}}} with the cases "100" (the CLI's build), "100s" and "200"."""
+    beside it), bounds and their shares, cuSPARSE CSR f32 on the same
+    matrix and K6 and K1 on the same problem, at 100^3 (host CSR and device
+    builds) and 200^3 (device build, K10/K11 in a cluster), and bsell CG
+    x150 seconds. With ``against`` (another tree of this repository, the
+    parent unpacked with git archive) its K10 is timed in turns with this
+    tree's (other, this, this, other; null where it refuses the window).
+    Returns {kernel: {case: {...}}} with the cases "100" (the CLI's build),
+    "100s" and "200"."""
     import torch
 
     from sparsebench_tpu_torch.config import DTypePolicy
@@ -1719,14 +1741,16 @@ def phase5f_times(dev, gpu):
         bsell_spmv_torch,
         bsell_spmv_win2,
         bsell_spmv_windowed,
-        win_fits,
+        win_plan,
     )
+    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k10
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
 
     f32 = DTypePolicy.from_names("f32")
     out = {k: {} for k in BSELL_KERNELS}
     rng = np.random.default_rng(17)
     others = {}  # n -> (K6 ms, K1 ms, cuSPARSE ms, csr)
+    parent = build_other(against, "bsell_spmv") if against else None
     for case in ("100", "100s", "200"):
         n = int(case[:3])
         if case == "100":
@@ -1757,47 +1781,64 @@ def phase5f_times(dev, gpu):
         planes = sum(t.numel() * t.element_size()
                      for t in (A.vals, A.lidx, A.blocks))
         y_bytes = A.n_tiles * 1024 * 4
+        plan = win_plan(A.w_blocks, x.dtype)
         plain = lambda: bsell_spmv_torch(A.blocks, A.win_base,  # noqa: E731
                                          x2d, A.vals, A.lidx)
         kernels = {"K9": (lambda: bsell_spmv(A.blocks, A.win_base, x2d,
                                              A.vals, A.lidx),
                           planes + 4 * A.win_base.numel() + 4 * x2d.numel())}
-        if win_fits(A.w_blocks, x.dtype):
-            for key, fn in (("K10", bsell_spmv_win2),
-                            ("K11", bsell_spmv_windowed)):
-                kernels[key] = (
-                    lambda fn=fn: fn(A.wchunk, A.blocks, xw, A.vals, A.lidx,
-                                     w_blocks=A.w_blocks),
-                    planes + 4 * A.wchunk.numel() + 4 * xw.numel())
+        for key, fn in (("K10", bsell_spmv_win2),
+                        ("K11", bsell_spmv_windowed)):
+            kernels[key] = (
+                lambda fn=fn: fn(A.wchunk, A.blocks, xw, A.vals, A.lidx,
+                                 w_blocks=A.w_blocks),
+                planes + 4 * A.wchunk.numel() + 4 * xw.numel())
+        # the parent's K10, in turns with this tree's
+        parent_ms = None
+        if parent is not None:
+            y_o = lib_k10(parent, A, xw, A.vals)
+            torch.cuda.synchronize()
+            if y_o is not None:
+                check(bits_equal(y_o, kernels["K10"][0]()),
+                      f"the parent's K10 differs from this tree's on {case}")
+                this = kernels["K10"][0]
+                runs = [time_graph(f) for f in (
+                    lambda: lib_k10(parent, A, xw, A.vals), this, this,
+                    lambda: lib_k10(parent, A, xw, A.vals))]
+                parent_ms = min(runs[0], runs[3])
+                turns = f"parent {runs[0]:.6f}/{runs[3]:.6f}, this " \
+                        f"{runs[1]:.6f}/{runs[2]:.6f} ms"
+            else:
+                turns = "the parent refuses this window"
         label = {"100": "100^3 host CSR build", "100s": "100^3 device build",
                  "200": "200^3 device build"}[case]
+        k9_ms = None
         for key, (fn, inputs) in kernels.items():
             nbytes = inputs + y_bytes
             b_ms, b_by = bound(nbytes, 2 * A.nnz)
             k_ms, p_ms, ms, eager = time_pair(fn, plain)
+            k9_ms = k_ms if key == "K9" else k9_ms
             out[key][case] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms,
                                   eager_ms=eager, k6_ms=k6_ms, k1_ms=k1_ms)
+            unit = ""
+            if key != "K9":
+                out[key][case].update(cluster=plan.cluster)
+                unit = (f", unit of {plan.cluster} blocks; K9 "
+                        f"{k9_ms:.6f} ms")
+            if key == "K10" and parent is not None:
+                out[key][case]["parent_ms"] = parent_ms
+                unit += f"; in turns: {turns}"
             print(f"[5f times] {key} {label} f32 (bf16 values, {A.n_tiles} "
                   f"tiles x {A.s_max} slices, W {A.w_blocks}, padding "
-                  f"{A.padding_ratio:.2f}): kernel {ms['kernel']} ms, plain "
-                  f"{ms['plain']} ms (graph replay); kernel eager "
+                  f"{A.padding_ratio:.2f}{unit}): kernel {ms['kernel']} ms, "
+                  f"plain {ms['plain']} ms (graph replay); kernel eager "
                   f"{eager:.6f} ms; {nbytes} B -> kernel "
                   f"{nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s; bound "
-                  f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
-                  f"(max|csr - K9| {lib_err:.3e}); same problem: K6 "
-                  f"{k6_ms:.6f} ms, K1 {k1_ms:.6f} ms | {gpu}")
-        if not win_fits(A.w_blocks, x.dtype):
-            # the bound of the work all the same: the planes, wchunk, the
-            # windowed layout's padded x and y, each once
-            nbytes = (planes + 4 * A.wchunk.numel() + 4 * xw.numel()
-                      + y_bytes)
-            b_ms, b_by = bound(nbytes, 2 * A.nnz)
-            for key in ("K10", "K11"):
-                out[key][case] = dict(bound_ms=b_ms, bound_by=b_by)
-            print(f"[5f times] K10/K11 {label}: the window of 2*{A.w_blocks} "
-                  f"rows does not fit a block; not timed; bound {b_ms:.6f} "
-                  f"ms ({b_by}, {nbytes} B) | {gpu}")
+                  f"{b_ms:.6f} ms ({b_by}), {b_ms / k_ms:.3f} of it; cuSPARSE "
+                  f"CSR f32 {lib_ms:.6f} ms (max|csr - K9| {lib_err:.3e}); "
+                  f"same problem: K6 {k6_ms:.6f} ms, K1 {k1_ms:.6f} ms | "
+                  f"{gpu}")
         _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
         res = solve_cg(A, b, itermax=150, verbose=False)
         diff = float(np.max(np.abs(res.x - xexact)))
@@ -2237,7 +2278,15 @@ def phase6_bench(gpu, tmpdir: Path):
     return wall
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another tree of this repository (the parent "
+                    "unpacked with git archive) whose K10 phase 5f times in "
+                    "turns with this tree's")
+    args = ap.parse_args(argv)
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -2418,7 +2467,7 @@ def main() -> int:
     launches_k12, times_e = phase5e_memroof_times(dev, gpu)
 
     # -- phase 5f: times of K9-K11 and the bsell CG ---------------------------
-    times_f = phase5f_times(dev, gpu)
+    times_f = phase5f_times(dev, gpu, args.against)
 
     # -- phase 5g: the prototype modules (P1-P5) and their kernels' times ---
     launches_g, times_g = phase5g_protos(dev, gpu, tmpdir, timing[200])
@@ -2476,8 +2525,8 @@ def main() -> int:
                             ("bsell_spmv_win2", "K10", 200),
                             ("bsell_spmv_windowed", "K11", 240)):
         # the main numbers at 100^3 through the CLI's host CSR build, the
-        # slice's own path; the device builds' beside them (K10/K11's
-        # window does not fit 200^3)
+        # slice's own path; the device builds' beside them (K10/K11 at
+        # 200^3 in a cluster)
         r = {"name": name, "route": "cuda", "source": src + "bsell_spmv.cu",
              "replaces": f"sparsebench_tpu/ops/bsell_pallas.py:{line}",
              "launches": launches_f[key], "max_abs_err": err_f[key],

@@ -17,28 +17,84 @@
 // with X the x vector viewed as rows of 128 and base_t the tile's window base
 // (K9: base[t,0,0]; K10/K11: wchunk[t] * W, on the windowed layout's x).
 //
-// What it computes and none of how: the lane-gather lookup table, the SMEM
-// block table, the static unroll and the DMA semaphores are ways around
-// Mosaic. Here one thread computes one output and walks its tile's slices at
-// run time. Its sublane's block id is one int a slice, the same for the 128
+// K9 (what it computes and none of how: the lane-gather lookup table, the
+// SMEM block table, the static unroll and the DMA semaphores are ways around
+// Mosaic). One thread computes one output and walks its tile's slices at run
+// time. Its sublane's block id is one int a slice, the same for the 128
 // threads of the sublane (one broadcast load a warp); the value and int8 lane
 // index planes are read coalesced along the lanes (256 B of bf16 values and
-// 128 B of indices a slice row).
+// 128 B of indices a slice row). It gathers x through L1/L2, as K6 does (all
+// of x is 32 MB at 200^3 in f32, inside the 50 MB L2).
 //
-// K9 gathers x through L1/L2, as K6 does (all of x is 32 MB at 200^3 in f32,
-// inside the 50 MB L2). K10 and K11 give a block the whole tile (1024
-// threads), stage its window, x rows [base_t, base_t + 2W), in shared memory
-// and gather from there; the window must fit the block's 227 KB (the wrapper
-// refuses otherwise and never falls back to K9). They differ where a block id
-// leaves the window, which a valid layout never does: K10 reads NaN there, so
-// a broken layout shows in the output; K11 clamps the id into the window, as
-// the TPU kernel's clipped reads of its two chunks do. A row of x outside the
-// given x reads NaN in all three.
+// K10 and K11: one body, persistent and chunk-resident, after K7
+// (csrc/bslab_spmv.cu; the ring, its copies and the launch helpers are
+// csrc/ring.cuh's, which both include).
+// * Schedule. The grid is as many units as fit the card at once; a unit is
+//   C blocks of 32 warps (the wrappers' ``cluster``: 1 where one block holds
+//   the window). Unit u of U walks the lane groups [u N / U, (u+1) N / U) of
+//   the N = 8 n_tiles in order, so consecutive tiles, which share their
+//   window on a banded matrix, stay in one unit. A step gives each warp of
+//   the unit one lane group: up to 32 C consecutive lane groups (4 C tiles),
+//   all of tiles with one wchunk; a step ends early where wchunk changes,
+//   which on the stencil idles warps for one step every 21 tiles (100^3) or
+//   80 (200^3). So a step never spans a chunk change, and the ring holds two
+//   chunks. The tests walk this schedule in Python
+//   (tests/test_torch_bsell_plan.py k10_schedule).
+// * The window. Tile t reads x rows [wchunk[t] W, wchunk[t] W + 2W). Each
+//   block keeps a ring of two W-row chunks in shared memory, chunk k in slot
+//   k % 2, and copies a chunk only when the step's chunk differs from the
+//   last one and the chunk is not resident: the TPU kernel's "copy when c !=
+//   prev" rule, and when wchunk advances by one only the one new chunk is
+//   copied. A backward or far jump (general layouts) claims and copies what
+//   is missing the same way. Thread 0 copies with one 1-D bulk copy
+//   (cp.async.bulk) a chunk, completed on the slot's mbarrier; each warp
+//   issues its lane group's block ids and first batch of planes before it
+//   waits for the copy. Only full rows inside the given x are copied.
+// * A unit of several blocks where two chunks exceed a block. Block q of the
+//   unit holds rows [q S, (q+1) S) of every chunk (S = ceil(W / C)) and
+//   copies that stripe itself. Every (slice, sublane) reads one 128-lane row
+//   of x, so a warp brings each slice's row into its own row buffer, one 16 B
+//   read a thread (f64: two), and gathers from there: a row of its block's
+//   stripe from shared memory, any other from x through L2. No block reads
+//   another's shared memory, so the C blocks launch as independent blocks,
+//   not as a thread-block cluster: they share only the unit's tile range and
+//   step boundaries, which each computes from wchunk alone. Reading a peer's
+//   rows through distributed shared memory in a thread-block cluster instead
+//   took 1.3x as long at 200^3 a row at a time and 4.8x lane by lane (the
+//   bound of K7 there), and the same design launched as a cluster took
+//   1.08-1.11x as long at 200^3 as independent blocks (PERF.md §6).
+//   ops/bsell_spmv.py win_plan picks the smallest unit whose blocks hold
+//   two chunks and the row buffers: 1 block at 100^3 f32 (W 168), 2 at
+//   100^3 f64, 4 at 200^3 f32 (W 640; two chunks are 655,360 B), 7 at 200^3
+//   f64. Above 8 blocks a unit the wrapper raises, naming the size.
+// * The slice loop. A warp computes one lane group: thread i owns the four
+//   consecutive lanes 4i..4i+3, so a slice's values arrive in one vector load
+//   a thread (8 B of bf16, 16 B of f32, 32 B of f64) and its four index bytes
+//   in one 4 B load, both with the last-use hint (ld.global.lu: the planes
+//   are read once). Its block ids come from registers: lane j of the warp
+//   holds slice p0 + j's, loaded 32 slices ahead, and a shuffle hands each
+//   slice's to the warp. Slices go in batches (one block a unit: four with
+//   bf16 values, else two; several: the row buffer's two, f64 one), each
+//   batch's plane loads issued before the last batch's gathers and sums. A
+//   batch checks that every row it reads lies in the window and in x and
+//   that every lane index is in [0, 128); if so its gathers go out at once
+//   and the sums follow with no branch, else every value comes through an
+//   exact, guarded read (NaN outside).
+// * Bank conflicts. On a shifted (stencil) slice the k-th gather of a warp
+//   reads words 4i + k + r of one row, four threads a bank. Gathering in a
+//   rotated lane order that puts the 32 threads on 32 banks cost more in
+//   byte permutes and selects than the conflicts did (PERF.md §6), so the
+//   gathers go in lane order.
+// * Edges. K10: a block id outside [0, 2W) reads NaN, so a broken layout
+//   shows in the output; K11 clamps the id into the window, as the TPU
+//   kernel's clipped reads of its two chunks do. In both, a window row beyond
+//   the given x and a negative lane index read NaN.
 //
 // What bounds them: memory. Per SpMV the value, index and block planes are
-// read once, x once and y written once; 2 flops per stored element. A faster
-// schedule (several outputs a thread with vector loads, TMA staging of the
-// planes) is later work.
+// read once, x once and y written once; 2 flops per stored element. K10/K11
+// add the chunk copies (two chunks a block, then one a chunk change), each
+// block's wait for its first window, and at 200^3 three rows in four from L2
+// through the row buffers (PERF.md §7).
 //
 // Products and sums are rounded one by one (__fmul_rn / __fadd_rn, no FMA
 // contraction) in slice order, so the kernels give the bits of the plain
@@ -46,29 +102,40 @@
 // type before the multiply. Instances (values, x): (bf16, f32) the default f32
 // path with losslessly compressed values, (f32, f32), (f64, f64). Entry points
 // launch on the stream they are given, do not synchronise, allocate nothing,
-// and return the launch's error code.
+// and return the launch's error code. K10/K11 need x 16 B aligned (the
+// wrapper copies an x that is not) and the planes 16 B aligned.
 
-#include "common.cuh"
+
+#include <algorithm>
+
+#include "ring.cuh"
 
 namespace {
 
 using sb::add_rn;
+using sb::byte_at;
 using sb::mul_rn;
+using sb::quiet_nan;
+using sb::Raw;
 using sb::widen;
 
 constexpr int kLanes = 128;
 constexpr int kSub = 8;
 constexpr int kRowsK9 = 2;                   // lane groups a K9 block covers
 constexpr int kThreadsK9 = kRowsK9 * kLanes;
-constexpr int kThreadsWin = kSub * kLanes;   // a K10/K11 block: the tile
+constexpr int kThreadsWin = 1024;            // 32 warps: one block an SM (its ring)
+constexpr int kWarpsWin = kThreadsWin / 32;
+constexpr int kRing = 2;                     // chunks in a block's ring
+constexpr int kMaxUnit = 8;                  // blocks a K10/K11 unit
+constexpr int kBarBytes = 128;               // the ring's mbarriers, ahead of it
 
-template <typename T> __device__ __forceinline__ T quiet_nan();
-template <> __device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <> __device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
+// slices a batch of the slice loop of a unit of one block
+template <typename TD>
+constexpr int kBatch = sizeof(TD) == 2 ? 4 : 2;
+// rows a warp's row buffer holds (the batch of a unit of several blocks):
+// 32 KB a block either way
+template <typename TX>
+constexpr int kBufRows = sizeof(TX) == 8 ? 1 : 2;
 
 // X[base + b, c] from x in device memory (K9)
 template <typename TX>
@@ -80,22 +147,6 @@ struct GlobalX {
     const int row = base + b;
     if (row < 0 || row >= x_rows || c < 0 || c >= kLanes) return quiet_nan<TX>();
     return __ldg(x + static_cast<long long>(row) * kLanes + c);
-  }
-};
-
-// X[base + b, c] from the window staged in shared memory (K10, K11)
-template <typename TX, bool kClamp>
-struct WindowX {
-  const TX* win;
-  int rows;  // 2W
-  __device__ __forceinline__ TX operator()(int b, int c) const {
-    if constexpr (kClamp) {
-      b = min(max(b, 0), rows - 1);
-    } else if (b < 0 || b >= rows) {
-      return quiet_nan<TX>();
-    }
-    if (c < 0 || c >= kLanes) return quiet_nan<TX>();
-    return win[b * kLanes + c];
   }
 };
 
@@ -135,32 +186,321 @@ bsell_spmv_kernel(const int* __restrict__ blocks, const int* __restrict__ base,
   y[(static_cast<long long>(t) * kSub + s) * kLanes + lane] = acc;
 }
 
-// K10 (kClamp false) and K11 (kClamp true): a block per tile stages the
-// tile's window of 2W x rows, then each thread computes one output.
-template <typename TD, typename TX, bool kClamp>
-__global__ void __launch_bounds__(kThreadsWin)
+// -- K10 and K11: the window -----------------------------------------------------
+
+// The step's window, x rows [c W, c W + 2W), in the block's ring: window rows
+// [0, W) are chunk c, in the slot at ``lower``, rows [W, 2W) chunk c + 1, at
+// ``upper``; in a unit of several blocks (kStriped) block ``rank`` holds rows
+// [rank S, (rank+1) S) of each chunk, S = ``stripe``. Window rows
+// [lo, lo + len) lie in x.
+template <typename TX, bool kClamp, bool kStriped>
+struct Window {
+  const TX* lower;
+  const TX* upper;
+  const TX* xw;    // x row c W
+  int w;
+  int stripe;
+  float inv_stripe;
+  int rank;
+  int lo;
+  unsigned len;
+
+  // the block id a gather uses: K11 clamps it into the window
+  __device__ __forceinline__ int id(int b) const {
+    return kClamp ? min(max(b, 0), 2 * w - 1) : b;
+  }
+  __device__ __forceinline__ bool ok(int b) const {
+    return static_cast<unsigned>(b - lo) < len;
+  }
+  // window row b (b ok): in this block's ring, or in x (``from_x``) where
+  // another block of the unit holds it
+  __device__ __forceinline__ const TX* row(int b, bool& from_x) const {
+    const bool up = b >= w;
+    const int within = b - (up ? w : 0);
+    const TX* base = up ? upper : lower;
+    from_x = false;
+    if constexpr (kStriped) {
+      // within / stripe, exact: both are below 2^12
+      const int owner = __float2int_rz((within + 0.5f) * inv_stripe);
+      from_x = owner != rank;
+      return from_x ? xw + b * kLanes : base + (within - owner * stripe) * kLanes;
+    } else {
+      return base + within * kLanes;
+    }
+  }
+  // X[c W + b, col] for any b and col, NaN outside the window, x or the row
+  __device__ __forceinline__ TX exact(int b, int col) const {
+    bool from_x;
+    return ok(b) && col >= 0 ? row(b, from_x)[col] : quiet_nan<TX>();
+  }
+};
+
+// one thread's 16 B pieces of a 128-lane row (f32: one, f64: two), read
+// from x through the read-only path (``global``) or from shared memory
+template <typename TX> struct Piece;
+template <> struct Piece<float> {
+  float4 a;
+  __device__ __forceinline__ void load(const float* row, int i, bool global) {
+    const float4* p = reinterpret_cast<const float4*>(row) + i;
+    if (global) {
+      a = __ldg(p);
+    } else {
+      a = *p;
+    }
+  }
+  __device__ __forceinline__ void store(float* row, int i) const {
+    reinterpret_cast<float4*>(row)[i] = a;
+  }
+};
+template <> struct Piece<double> {
+  double2 a, b;
+  __device__ __forceinline__ void load(const double* row, int i, bool global) {
+    const double2* p = reinterpret_cast<const double2*>(row) + i;
+    if (global) {
+      a = __ldg(p);
+      b = __ldg(p + 32);
+    } else {
+      a = p[0];
+      b = p[32];
+    }
+  }
+  __device__ __forceinline__ void store(double* row, int i) const {
+    reinterpret_cast<double2*>(row)[i] = a;
+    reinterpret_cast<double2*>(row)[i + 32] = b;
+  }
+};
+
+// N consecutive slices' planes for one thread: the values and lane indices
+// of its four lanes, as loaded
+template <int N, typename TD>
+struct Planes {
+  Raw<TD> val[N];
+  unsigned li[N];
+};
+
+// acc[k] += widen(val[k]) * g[k], each op rounded
+template <typename TD, typename TX>
+__device__ __forceinline__ void fma4(TX acc[4], const Raw<TD>& val, const TX g[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[k] = add_rn(acc[k], mul_rn(static_cast<TX>(val.get(k)), g[k]));
+  }
+}
+
+// One lane group (t, s), computed by the calling warp: thread i sums lanes
+// 4i..4i+3 over the tile's slices in stored order, one rounding per op, and
+// stores them. ``start`` issues the block ids' and the first batch's loads,
+// which go out before the warp waits for its chunks; ``finish`` walks the
+// batches, each one's plane loads issued before the last one's gathers and
+// sums. Lane j of the warp holds the block id of slice j of the current 32
+// (``bid``) and of the next 32 (``bid_next``).
+template <int N, bool kClamp, bool kStriped, typename TD, typename TX>
+struct LaneGroup {
+  static constexpr long long kPlane = kSub * kLanes;
+  const TD* v;
+  const signed char* li;
+  const int* blk;
+  int t, s, s_max;
+  int bid, bid_next;
+  Planes<N, TD> cur;
+
+  __device__ __forceinline__ int block_id(int p) const {
+    return p < s_max ? __ldg(blk + p * kSub) : 0;
+  }
+  // the planes of slices q .. q + N - 1; past s_max the last slice again
+  __device__ __forceinline__ void load(Planes<N, TD>& pl, int q) const {
+    const int count = min(N, s_max - q);
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const long long off = (q + min(u, count - 1)) * kPlane;
+      pl.val[u].load(v + off);
+      pl.li[u] = __ldlu(reinterpret_cast<const unsigned*>(li + off));
+    }
+  }
+
+  __device__ __forceinline__ void start(const int* __restrict__ blocks,
+                                        const TD* __restrict__ vals,
+                                        const signed char* __restrict__ lidx, int t_,
+                                        int s_, int s_max_) {
+    t = t_;
+    s = s_;
+    s_max = s_max_;
+    const int i = threadIdx.x & 31;
+    const long long e = static_cast<long long>(t) * s_max * kPlane + s * kLanes + 4 * i;
+    v = vals + e;
+    li = lidx + e;
+    blk = blocks + static_cast<long long>(t) * s_max * kSub + s;
+    bid = block_id(i);
+    bid_next = block_id(32 + i);
+    load(cur, 0);
+  }
+
+  __device__ __forceinline__ void finish(const Window<TX, kClamp, kStriped>& win, TX* buf,
+                                         TX* __restrict__ y) {
+    const int i = threadIdx.x & 31;
+    TX acc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = TX(0);
+    for (int q = 0; q < s_max; q += N) {
+      if (q > 0 && (q & 31) == 0) {
+        bid = bid_next;
+        bid_next = block_id(q + 32 + i);
+      }
+      Planes<N, TD> nxt;
+      if (q + N < s_max) load(nxt, q + N);
+      const int count = min(N, s_max - q);
+      int b[N];
+      bool ok = count == N;
+      unsigned any = 0;
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        b[u] = win.id(__shfl_sync(0xffffffffu, bid, (q & 31) + u));
+        ok = ok && win.ok(b[u]);
+        any |= cur.li[u];
+      }
+      if (__all_sync(0xffffffffu, ok && !(any & 0x80808080u))) {
+        TX g[N][4];
+        if constexpr (kStriped) {
+          // each slice's row into the warp's buffer, one 16 B piece a
+          // thread, then the gathers from there
+          Piece<TX> pc[N];
+#pragma unroll
+          for (int u = 0; u < N; ++u) {
+            bool from_x;
+            const TX* r = win.row(b[u], from_x);
+            pc[u].load(r, i, from_x);
+          }
+          __syncwarp();  // the warp's last gathers from the buffer are done
+#pragma unroll
+          for (int u = 0; u < N; ++u) pc[u].store(buf + u * kLanes, i);
+          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < N; ++u) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) g[u][k] = buf[u * kLanes + byte_at(cur.li[u], k)];
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < N; ++u) {
+            bool from_x;
+            const TX* r = win.row(b[u], from_x);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) g[u][k] = r[byte_at(cur.li[u], k)];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < N; ++u) fma4<TD, TX>(acc, cur.val[u], g[u]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
+          if (u < count) {
+            TX g[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) g[k] = win.exact(b[u], byte_at(cur.li[u], k));
+            fma4<TD, TX>(acc, cur.val[u], g);
+          }
+        }
+      }
+      cur = nxt;
+    }
+    TX* out = y + (static_cast<long long>(t) * kSub + s) * kLanes + 4 * i;
+    if constexpr (sizeof(TX) == 4) {
+      *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      reinterpret_cast<double2*>(out)[0] = make_double2(acc[0], acc[1]);
+      reinterpret_cast<double2*>(out)[1] = make_double2(acc[2], acc[3]);
+    }
+  }
+};
+
+// -- K10 and K11: the kernel -------------------------------------------------------
+
+// K10 (kClamp false) and K11 (kClamp true): a persistent unit of
+// ``unit_blocks`` blocks walks its lane groups in order, a warp a lane group
+// a step, each block with the steps' windows (its stripe of them) in its
+// chunk ring.
+template <typename TD, typename TX, bool kClamp, bool kStriped>
+__global__ void __launch_bounds__(kThreadsWin, 1)
 bsell_spmv_win_kernel(const int* __restrict__ blocks,
                       const int* __restrict__ wchunk, const TX* __restrict__ x,
                       const TD* __restrict__ vals,
                       const signed char* __restrict__ lidx, TX* __restrict__ y,
-                      int s_max, int x_rows, int w_blocks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  TX* win = reinterpret_cast<TX*>(smem);
-  const int t = blockIdx.x;
-  const int win_rows = 2 * w_blocks;
-  const long long row0 = static_cast<long long>(__ldg(wchunk + t)) * w_blocks;
-  for (int k = threadIdx.x; k < win_rows * kLanes; k += kThreadsWin) {
-    const long long row = row0 + k / kLanes;
-    win[k] = (row >= 0 && row < x_rows) ? __ldg(x + row0 * kLanes + k)
-                                        : quiet_nan<TX>();
-  }
+                      int n_tiles, int s_max, int x_rows, int w, int unit_blocks,
+                      int stripe) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  TX* ring = reinterpret_cast<TX*>(smem + kBarBytes);
+  // the warps' row buffers, kBufRows rows a warp, after the ring
+  TX* bufs = ring + static_cast<long long>(kRing) * stripe * kLanes;
+  const int ub = kStriped ? unit_blocks : 1;
+  const int rank = blockIdx.x % ub;
+  sb::ChunkRing<kRing> rg(reinterpret_cast<unsigned long long*>(smem), kRing);
   __syncthreads();
-  const int s = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const WindowX<TX, kClamp> gx{win, win_rows};
-  const TX acc = accumulate<TD, TX>(blocks, vals, lidx, t, s, lane, s_max, gx);
-  y[(static_cast<long long>(t) * kSub + s) * kLanes + lane] = acc;
+
+  // slices a batch: a striped unit's batch fills its warps' row buffers
+  constexpr int N = kStriped ? kBufRows<TX> : kBatch<TD>;
+  const int warp = threadIdx.x >> 5;
+  TX* buf = bufs + static_cast<long long>(warp) * kBufRows<TX> * kLanes;
+  // the stripe of chunk k this block holds: x rows [lo, hi) of it, copied
+  // to its place in the slot
+  auto fetch = [&](int k, int slot) {
+    const long long s0 = static_cast<long long>(k) * w + static_cast<long long>(rank) * stripe;
+    const long long lo = max(s0, 0LL);
+    const long long hi = min(min(s0 + stripe, static_cast<long long>(k) * w + w),
+                             static_cast<long long>(x_rows));
+    const long long rows = max(hi - lo, 0LL);
+    sb::bulk_copy(ring + (static_cast<long long>(slot) * stripe + (rows > 0 ? lo - s0 : 0)) * kLanes,
+                  x + (rows > 0 ? lo : 0) * kLanes,
+                  static_cast<unsigned>(rows * kLanes * sizeof(TX)), rg.bars + slot);
+  };
+
+  long long g0, g1;
+  sb::unit_range(blockIdx.x / ub, gridDim.x / ub,
+                 static_cast<long long>(n_tiles) * kSub, g0, g1);
+  bool have = false;
+  int cur_c = 0;
+  for (long long g = g0; g < g1;) {
+    const int t = static_cast<int>(g / kSub);
+    const int c = __ldg(wchunk + t);
+    // up to a lane group a warp of the unit, of tiles with chunk c
+    long long end = min(g1, g + static_cast<long long>(kWarpsWin) * ub);
+    for (long long tt = t + 1; tt * kSub < end; ++tt) {
+      if (__ldg(wchunk + tt) != c) {
+        end = tt * kSub;
+        break;
+      }
+    }
+    const long long mine = g + static_cast<long long>(rank) * kWarpsWin + warp;
+    const bool has = mine < end;
+    // the lane group's block ids and first planes, in flight while the
+    // chunks land
+    LaneGroup<N, kClamp, kStriped, TD, TX> lg;
+    if (has) {
+      lg.start(blocks, vals, lidx, static_cast<int>(mine / kSub), static_cast<int>(mine % kSub),
+               s_max);
+    }
+    if (!have || c != cur_c) {
+      __syncthreads();  // no warp still reads the old chunks
+      rg.claim(c, fetch);
+      rg.wait_window(c);
+      cur_c = c;
+      have = true;
+    }
+    if (has) {
+      const long long cw = static_cast<long long>(c) * w;
+      const long long lo = max(0LL, -cw);
+      const long long hi = min(2LL * w, static_cast<long long>(x_rows) - cw);
+      const Window<TX, kClamp, kStriped> win{
+          ring + static_cast<long long>(rg.slot(c)) * stripe * kLanes,
+          ring + static_cast<long long>(rg.slot(c + 1)) * stripe * kLanes,
+          x + cw * kLanes, w, stripe, 1.0f / stripe, rank,
+          static_cast<int>(min(lo, 2LL * w)), static_cast<unsigned>(max(hi - lo, 0LL))};
+      lg.finish(win, buf, y);
+    }
+    g = end;
+  }
 }
+
+// -- launch ------------------------------------------------------------------------
 
 template <typename TD, typename TX>
 int launch(const int* blocks, const int* base, const void* x, const void* vals,
@@ -178,37 +518,60 @@ int launch(const int* blocks, const int* base, const void* x, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of a K10/K11 block: mbarriers, its stripe of the ring's two
+// chunks and, in a unit of several blocks, its warps' row buffers
+// (ops/bsell_spmv.py win_plan counts the same).
+template <typename TX>
+size_t win_smem_bytes(int stripe, int unit_blocks) {
+  const size_t buffers = unit_blocks > 1 ? sizeof(TX) * kWarpsWin * kBufRows<TX> * kLanes : 0;
+  return kBarBytes + sizeof(TX) * static_cast<size_t>(kRing) * stripe * kLanes + buffers;
+}
+
+template <typename TD, typename TX, bool kClamp, bool kStriped>
+int launch_win_as(const int* blocks, const int* wchunk, const void* x,
+                  const void* vals, const void* lidx, void* y, int n_tiles,
+                  int s_max, int x_rows, int w_blocks, int unit_blocks, void* stream) {
+  const int stripe = (w_blocks + unit_blocks - 1) / unit_blocks;
+  const size_t smem = win_smem_bytes<TX>(stripe, unit_blocks);
+  auto kernel = bsell_spmv_win_kernel<TD, TX, kClamp, kStriped>;
+  static size_t configured = 0;
+  cudaError_t err = sb::allow_smem(kernel, smem, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // blocks that fit the card at once, for the last shared-memory size
+  static size_t cached_smem = 0;
+  static int cached_blocks = 0;
+  if (smem != cached_smem) {
+    err = sb::resident_blocks(kernel, kThreadsWin, smem, cached_blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached_smem = smem;
+  }
+  // whole units, no more than lane groups
+  const long long units = std::min(static_cast<long long>(cached_blocks / unit_blocks),
+                                   static_cast<long long>(n_tiles) * kSub);
+  if (units <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(units * unit_blocks), kThreadsWin, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(blocks), wchunk, static_cast<const TX*>(x),
+      static_cast<const TD*>(vals), static_cast<const signed char*>(lidx),
+      static_cast<TX*>(y), n_tiles, s_max, x_rows, w_blocks, unit_blocks, stripe);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TD, typename TX, bool kClamp>
 int launch_win(const int* blocks, const int* wchunk, const void* x,
                const void* vals, const void* lidx, void* y, int n_tiles,
-               int s_max, int x_rows, int w_blocks, void* stream) {
-  if (n_tiles <= 0 || s_max <= 0 || x_rows < 0 || w_blocks <= 0) {
+               int s_max, int x_rows, int w_blocks, int unit_blocks, void* stream) {
+  if (n_tiles <= 0 || s_max <= 0 || x_rows < 0 || w_blocks <= 0 || unit_blocks < 1 ||
+      unit_blocks > kMaxUnit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(TX) * 2 * static_cast<size_t>(w_blocks) * kLanes;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (unit_blocks == 1) {
+    return launch_win_as<TD, TX, kClamp, false>(blocks, wchunk, x, vals, lidx, y,
+                                                n_tiles, s_max, x_rows, w_blocks, 1,
+                                                stream);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the kernel's dynamic shared memory limit once per size reached
-  static size_t configured = 0;
-  if (smem > configured) {
-    err = cudaFuncSetAttribute(bsell_spmv_win_kernel<TD, TX, kClamp>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
-  bsell_spmv_win_kernel<TD, TX, kClamp><<<static_cast<unsigned>(n_tiles),
-                                          kThreadsWin, smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
-      blocks, wchunk, static_cast<const TX*>(x), static_cast<const TD*>(vals),
-      static_cast<const signed char*>(lidx), static_cast<TX*>(y), s_max,
-      x_rows, w_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_win_as<TD, TX, kClamp, true>(blocks, wchunk, x, vals, lidx, y, n_tiles,
+                                             s_max, x_rows, w_blocks, unit_blocks, stream);
 }
 
 }  // namespace
@@ -223,16 +586,16 @@ int launch_win(const int* blocks, const int* wchunk, const void* x,
                           x_rows, stream);                                    \
   }                                                                           \
   int sb_bsell_spmv_win2_##SUFFIX(SB_BSELL_ARGS, int w_blocks,                \
-                                  void* stream) {                             \
+                                  int unit_blocks, void* stream) {            \
     return launch_win<TD, TX, false>(blocks, table, x, vals, lidx, y,         \
                                      n_tiles, s_max, x_rows, w_blocks,        \
-                                     stream);                                 \
+                                     unit_blocks, stream);                    \
   }                                                                           \
   int sb_bsell_spmv_windowed_##SUFFIX(SB_BSELL_ARGS, int w_blocks,            \
-                                      void* stream) {                         \
+                                      int unit_blocks, void* stream) {        \
     return launch_win<TD, TX, true>(blocks, table, x, vals, lidx, y,          \
                                     n_tiles, s_max, x_rows, w_blocks,         \
-                                    stream);                                  \
+                                    unit_blocks, stream);                     \
   }
 
 extern "C" {

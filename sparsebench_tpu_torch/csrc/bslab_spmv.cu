@@ -69,7 +69,9 @@
 // through distributed shared memory (map_shared_rank); the cluster's blocks
 // share the unit's lane groups and pass its barriers together. At 200^3 f32
 // (2W = 1520 rows, 778 KB) the smallest cluster that holds two chunks is 4
-// (ops/bslab_spmv.py win_plan picks it; a third chunk would take 6).
+// (ops/bslab_spmv.py win_plan picks it; a third chunk would take 6). The
+// ring, its bulk copies and the launch helpers are csrc/ring.cuh's, shared
+// with the bsell kernels K10/K11.
 //
 // What bounds them: memory, and the instructions of the gathers. Per SpMV
 // every slice plane is read once (values, plus an int8 index plane per
@@ -92,14 +94,18 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
 using sb::add_rn;
+using sb::bulk_copy;
+using sb::byte_at;
 using sb::mul_rn;
+using sb::quiet_nan;
+using sb::Raw;
 using sb::widen;
 
 constexpr int kLanes = 128;
@@ -196,55 +202,6 @@ __device__ __forceinline__ void shift4(const TX a[4], const TX b[4], int o,
   for (int j = 0; j < 6; ++j) t[j] = (o & 1) ? f[j + 1] : f[j];
 #pragma unroll
   for (int v = 0; v < 4; ++v) out[v] = (o & 2) ? t[v + 2] : t[v];
-}
-
-// a thread's four consecutive values of one plane, one vector load, widened
-// on use
-template <typename TD> struct Raw;
-
-template <> struct Raw<__nv_bfloat16> {
-  uint2 r;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = __ldlu(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ float get(int v) const {
-    const unsigned w = v < 2 ? r.x : r.y;
-    return __uint_as_float(v & 1 ? (w & 0xffff0000u) : (w << 16));
-  }
-};
-
-template <> struct Raw<float> {
-  float4 r;
-  __device__ __forceinline__ void load(const float* p) {
-    r = __ldlu(reinterpret_cast<const float4*>(p));
-  }
-  __device__ __forceinline__ float get(int v) const {
-    return v == 0 ? r.x : v == 1 ? r.y : v == 2 ? r.z : r.w;
-  }
-};
-
-template <> struct Raw<double> {
-  double2 a, b;
-  __device__ __forceinline__ void load(const double* p) {
-    a = __ldlu(reinterpret_cast<const double2*>(p));
-    b = __ldlu(reinterpret_cast<const double2*>(p) + 1);
-  }
-  __device__ __forceinline__ double get(int v) const {
-    return v == 0 ? a.x : v == 1 ? a.y : v == 2 ? b.x : b.y;
-  }
-};
-
-// byte v of four int8 plane entries, sign-extended
-__device__ __forceinline__ int byte_at(unsigned w, int v) {
-  return static_cast<int>(static_cast<signed char>((w >> (8 * v)) & 0xffu));
-}
-
-template <typename T> __device__ __forceinline__ T quiet_nan();
-template <> __device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <> __device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
 }
 
 // -- gathers ---------------------------------------------------------------------
@@ -556,13 +513,6 @@ __device__ __forceinline__ void lane_group(const Slices& sl, const int* meta,
 }
 
 // lane groups [g0, g1) of unit u of ``units``: an even split of ``total``
-__device__ __forceinline__ void unit_range(long long u, long long units,
-                                           long long total, long long& g0,
-                                           long long& g1) {
-  g0 = u * total / units;
-  g1 = (u + 1) * total / units;
-}
-
 // K6: a persistent block walks its lane groups, a warp a lane group a step.
 template <typename TD, typename TX>
 __global__ void __launch_bounds__(kThreadsK6, 2)
@@ -573,7 +523,7 @@ bslab_spmv_kernel(Slices sl, const TX* __restrict__ x, int n,
                        evict_last()};
   const int warp = threadIdx.x >> 5;
   long long g0, g1;
-  unit_range(blockIdx.x, gridDim.x, static_cast<long long>(n_tiles) * sub, g0, g1);
+  sb::unit_range(blockIdx.x, gridDim.x, static_cast<long long>(n_tiles) * sub, g0, g1);
   int cur_t = -1;
   for (long long g = g0; g < g1;) {
     const int t = static_cast<int>(g / sub);
@@ -594,52 +544,7 @@ bslab_spmv_kernel(Slices sl, const TX* __restrict__ x, int n,
   }
 }
 
-// -- K7's chunk ring -------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-// thread 0: expect ``bytes`` on ``bar`` and copy them from src to dst
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  if (bytes > 0) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-  }
-}
-
-template <bool kCluster>
-__device__ __forceinline__ void sync_unit() {
-  if constexpr (kCluster) {
-    cg::this_cluster().sync();
-  } else {
-    __syncthreads();
-  }
-}
+// -- K7 ---------------------------------------------------------------------------
 
 // K7: a persistent unit (a block, or a cluster of them) walks its lane groups
 // in order, a warp a lane group a step, with the tiles' windows in its ring.
@@ -658,11 +563,8 @@ bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
     csize = static_cast<int>(cg::this_cluster().num_blocks());
     rank = static_cast<int>(cg::this_cluster().block_rank());
   }
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < ring_n; ++k) mbar_init(bars + k, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  sync_unit<kCluster>();
+  sb::ChunkRing<kMaxRing> rg(bars, ring_n);
+  sb::sync_unit<kCluster>();
 
   const int warp = threadIdx.x >> 5;
   const int full_end = lead + static_cast<int>(n / kLanes);
@@ -677,19 +579,10 @@ bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
               x + static_cast<long long>(lo - lead) * kLanes,
               static_cast<unsigned>(rows) * kLanes * sizeof(TX), bars + slot);
   };
-  int resident[kMaxRing] = {-1, -1, -1};
-  unsigned phase = 0, pending = 0;  // a bit a slot
-  auto wait_slot = [&](int slot) {
-    if (pending >> slot & 1u) {
-      mbar_wait(bars + slot, phase >> slot & 1u);
-      phase ^= 1u << slot;
-      pending &= ~(1u << slot);
-    }
-  };
 
   long long g0, g1;
   const long long units = gridDim.x / csize;
-  unit_range(blockIdx.x / csize, units, static_cast<long long>(n_tiles) * sub, g0, g1);
+  sb::unit_range(blockIdx.x / csize, units, static_cast<long long>(n_tiles) * sub, g0, g1);
   int cur_t = -1, cur_c = -1;
   for (long long g = g0; g < g1;) {
     const int t = static_cast<int>(g / sub);
@@ -698,22 +591,11 @@ bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
     if (t != cur_t) {
       const int c = wchunk[t];
       if (c != cur_c) {
-        sync_unit<kCluster>();  // no block still reads the old chunks
-        // claim chunks c .. c + ring_n - 1, each in slot k % ring_n
-        for (int j = 0; j < ring_n; ++j) {
-          const int k = c + j;
-          const int slot = k % ring_n;
-          if (resident[slot] != k) {
-            wait_slot(slot);  // a copy still in flight into the slot
-            resident[slot] = k;
-            pending |= 1u << slot;
-            if (threadIdx.x == 0) fetch(k, slot);
-          }
-        }
+        sb::sync_unit<kCluster>();  // no block still reads the old chunks
+        rg.claim(c, fetch);
         load_meta(meta, sl, t);
-        wait_slot(c % ring_n);
-        wait_slot((c + 1) % ring_n);
-        sync_unit<kCluster>();  // every block's stripes have landed
+        rg.wait_window(c);
+        sb::sync_unit<kCluster>();  // every block's stripes have landed
         cur_c = c;
       } else {
         __syncthreads();
@@ -727,8 +609,8 @@ bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
       const int win0 = cur_c * w;
       const int lo = max(win0, lead);
       const RingX<TX, kCluster> gx{
-          ring + (cur_c % ring_n) * stripe * kLanes,
-          ring + ((cur_c + 1) % ring_n) * stripe * kLanes, x, n, lead,
+          ring + rg.slot(cur_c) * stripe * kLanes,
+          ring + rg.slot(cur_c + 1) * stripe * kLanes, x, n, lead,
           full_end, win0, w, stripe, 1.0f / stripe, lo,
           static_cast<unsigned>(max(min(win0 + 2 * w, full_end) - lo, 0))};
       const int s = static_cast<int>(mine - static_cast<long long>(t) * sub);
@@ -736,7 +618,7 @@ bslab_spmv_win_kernel(Slices sl, const int* __restrict__ wchunk,
     }
     g = end;
   }
-  for (int slot = 0; slot < ring_n; ++slot) wait_slot(slot);
+  rg.drain();
   if constexpr (kCluster) {
     cg::this_cluster().sync();  // peers may still read this block's ring
   }
@@ -765,30 +647,6 @@ size_t meta_bytes(const Slices& sl) {
   return sizeof(int) * static_cast<size_t>(2 * sl.s_aff + sl.s_gen + sl.s_wide);
 }
 
-// raise a kernel's dynamic shared memory limit to ``smem`` once per size
-// reached; ``configured`` is the kernel's own record
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& configured) {
-  if (smem <= configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) configured = smem;
-  return err;
-}
-
-// blocks of ``kernel`` that fit the card at once with ``smem`` bytes each
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  }
-  blocks = sms * per_sm;
-  return err;
-}
-
 template <typename TD, typename TX>
 int launch(const Slices& sl, const void* x, long long n, void* y, int n_tiles,
            int sub, int lead, void* stream) {
@@ -801,7 +659,7 @@ int launch(const Slices& sl, const void* x, long long n, void* y, int n_tiles,
   static size_t cached_smem = ~size_t(0);
   static int cached_blocks = 0;
   if (smem != cached_smem) {
-    const cudaError_t err = resident_blocks(kernel, kThreadsK6, smem, cached_blocks);
+    const cudaError_t err = sb::resident_blocks(kernel, kThreadsK6, smem, cached_blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     cached_smem = smem;
   }
@@ -830,7 +688,7 @@ int launch_win_as(const Slices& sl, const int* wchunk, int w_blocks,
   const size_t smem = win_smem_bytes<TX>(stripe, ring_n, sl);
   auto kernel = bslab_spmv_win_kernel<TD, TX, kCluster>;
   static size_t configured = 0;
-  cudaError_t err = allow_smem(kernel, smem, configured);
+  cudaError_t err = sb::allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -849,7 +707,7 @@ int launch_win_as(const Slices& sl, const int* wchunk, int w_blocks,
     cfg.gridDim = dim3(static_cast<unsigned>(cluster));
     err = cudaOccupancyMaxActiveClusters(&units, kernel, &cfg);
   } else {
-    err = resident_blocks(kernel, kThreadsK7, smem, units);
+    err = sb::resident_blocks(kernel, kThreadsK7, smem, units);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (units <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);

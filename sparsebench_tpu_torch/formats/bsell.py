@@ -18,14 +18,16 @@ native C++ build (host/native.py) gives the same arrays as its numpy one and
 is not ported.
 
 ``impl`` picks the SpMV: ``kernel`` (K9, x through the caches),
-``kernel_win2`` (K10) or ``kernel_win`` (K11), both with each tile's
-window of x staged in shared memory, or ``torch`` (their plain version).
-``auto`` is ``kernel`` on CUDA and ``torch`` on the CPU: K9 takes any
-matrix, and the windowed kernels take only windows that fit a block's
-shared memory (PERF.md §6 has their times). A kernel on the CPU raises, a
-windowed kernel whose window does not fit raises at the first SpMV, and
-the build's check of K9 against the host row sums raises on a mismatch:
-no path falls back to another.
+``kernel_win2`` (K10) or ``kernel_win`` (K11), both persistent units that
+keep the tiles' windows of x in a ring of chunks in shared memory, or
+``torch`` (their plain version). ``auto`` is ``kernel`` on CUDA and
+``torch`` on the CPU. K10 and K11 run every window up to a unit of 8
+blocks that each hold a stripe of it (200^3 in units of 4, f64 7;
+``ops/bsell_spmv.py win_plan`` says how many, PERF.md §6 has their times).
+A kernel on the CPU raises, a windowed kernel whose window exceeds 8 blocks
+raises at the first SpMV, naming the size, and the build's check of K9
+against the host row sums raises on a mismatch: no path falls back to
+another.
 """
 
 from __future__ import annotations

@@ -25,26 +25,35 @@ each product and each sum rounded on its own.
   sums over the slice axis in an order XLA picks.)
 * ``bsell_spmv(blocks, base, x2d, vals, lidx)`` — K9, x2d the whole x
   (nc_pad / 128, 128), gathered through the caches.
-* ``bsell_spmv_win2(wchunk, blocks, x2d, vals, lidx, w_blocks=)`` — K10:
-  base_t = wchunk[t] W and x2d the windowed layout's x (xw_rows, 128); each
-  block stages its tile's window, x2d rows [base_t, base_t + 2W), in shared
-  memory and gathers from there. A block id outside the window reads NaN.
-* ``bsell_spmv_windowed(wchunk, blocks, x2d, vals, lidx, w_blocks=)`` —
-  K11, the same product from the same staged window; as the TPU kernel's
-  two W-row chunks do, a block id below the window reads its first row and
-  one above it its last.
+* ``bsell_spmv_win2(wchunk, blocks, x2d, vals, lidx, w_blocks=,
+  cluster=0)`` — K10: base_t = wchunk[t] W and x2d the windowed layout's x
+  (xw_rows, 128). Persistent units of ``cluster`` blocks walk consecutive
+  tiles and keep their windows, x2d rows [base_t, base_t + 2W), in a ring of
+  two W-row chunks in shared memory (in a unit of several blocks each holds
+  a stripe of the rows), copying a chunk only when the tiles' chunk moves
+  past what is resident. A block id outside the window reads NaN.
+* ``bsell_spmv_windowed(wchunk, blocks, x2d, vals, lidx, w_blocks=,
+  cluster=0)`` — K11, the same product from the same ring; as the TPU
+  kernel's two W-row chunks do, a block id below the window reads its first
+  row and one above it its last.
 
-``win_fits`` says whether a window fits a block's shared memory; K10 and
-K11 raise where it does not. The wrappers launch their kernel on CUDA
-tensors and raise on any other device: the choice between kernel and
-plain version is the matrix's ``impl`` alone. ``launches`` on each wrapper
-counts its kernel launches.
+``win_plan`` sizes K10/K11's unit: the smallest ``cluster`` of 1-8 blocks
+whose blocks hold two chunks (a stripe of each) and, where there are
+several, the warps' row buffers; ``cluster=`` forces one. The name is
+bslab's; the blocks launch independently, not as a thread-block cluster,
+as none reads another's shared memory. So K10 and K11 run every window up
+to a cluster of 8 (200^3: 4 blocks, f64 7) and raise, naming the size,
+only beyond it. The wrappers launch their
+kernel on CUDA tensors and raise on any other device: the choice between
+kernel and plain version is the matrix's ``impl`` alone. ``launches`` on
+each wrapper counts its kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -61,18 +70,58 @@ _SUFFIX = {
     (torch.float64, torch.float64): "f64_f64",
 }
 
-# Shared memory a block may use on an H100 (227 KB, the opt-in maximum);
-# K10 and K11 hold their tile's window of x there.
+# Shared memory a block may use on an H100 (227 KB, the opt-in maximum). A
+# K10/K11 block holds its mbarriers, its stripe of the ring's two chunks
+# and, in a unit of several blocks, its 32 warps' row buffers
+# (csrc/bsell_spmv.cu kBufRows: two rows of f32, one of f64, 32 KB either
+# way).
 SMEM_BYTES = 232_448
+BAR_BYTES = 128
+WARPS = 32
+ROW_BUF_BYTES = WARPS * 2 * LANES * 4
+MAX_CLUSTER = 8            # blocks a unit
+ALIGN = 16                 # bytes: bulk copies of x rows, vector plane loads
 
 
-def win_smem_bytes(w_blocks: int, x_dtype: torch.dtype) -> int:
-    """Shared memory of a K10/K11 block: the 2W-row window of x."""
-    return 2 * w_blocks * LANES * x_dtype.itemsize
+class WinPlan(NamedTuple):
+    """K10/K11's unit: ``cluster`` blocks, each holding ``stripe`` rows of
+    each of the ring's two W-row chunks, in ``smem`` bytes."""
+    cluster: int
+    stripe: int
+    smem: int
 
 
-def win_fits(w_blocks: int, x_dtype: torch.dtype) -> bool:
-    return win_smem_bytes(w_blocks, x_dtype) <= SMEM_BYTES
+def ring_smem_bytes(w_blocks: int, x_dtype: torch.dtype,
+                    cluster: int) -> int:
+    """Shared memory of a K10/K11 block: mbarriers, its stripe of two W-row
+    chunks (W / cluster rows, rounded up) and, in a unit of several blocks,
+    the row buffers."""
+    stripe = -(-w_blocks // cluster)
+    return (BAR_BYTES + 2 * stripe * LANES * x_dtype.itemsize
+            + (ROW_BUF_BYTES if cluster > 1 else 0))
+
+
+def win_plan(w_blocks: int, x_dtype: torch.dtype,
+             cluster: int = 0) -> WinPlan:
+    """K10/K11's unit for windows of 2 ``w_blocks`` rows: the smallest
+    cluster of blocks that holds the two-chunk ring (or ``cluster`` when
+    given). Raises a ValueError, naming the size, where it cannot."""
+    if cluster and not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"bsell window: cluster={cluster} is not a cluster "
+                         f"size of 1 to {MAX_CLUSTER}")
+    if w_blocks <= 0:
+        raise ValueError(f"bsell window: w_blocks={w_blocks} must be "
+                         "positive")
+    for c in ([cluster] if cluster else range(1, MAX_CLUSTER + 1)):
+        need = ring_smem_bytes(w_blocks, x_dtype, c)
+        if need <= SMEM_BYTES:
+            return WinPlan(c, -(-w_blocks // c), need)
+    c = cluster or MAX_CLUSTER
+    raise ValueError(
+        f"bsell window: two chunks of {w_blocks} x rows ({x_dtype}) need "
+        f"{need} B of shared memory a block in a cluster of {c}, over the "
+        f"{SMEM_BYTES} B a block may use; use the kernel impl (K9) for this "
+        "matrix")
 
 
 def bsell_spmv_torch(blocks: torch.Tensor, base: torch.Tensor,
@@ -96,14 +145,14 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("bsell_spmv")
     p, i32 = ctypes.c_void_p, ctypes.c_int
     # blocks, base or wchunk, x, vals, lidx, y, n_tiles, s_max, x_rows,
-    # [w_blocks,] stream
+    # [w_blocks, cluster,] stream
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"sb_bsell_spmv_{sfx}")
         fn.argtypes = [p] * 6 + [i32] * 3 + [p]
         fn.restype = i32
         for name in ("win2", "windowed"):
             fn = getattr(lib, f"sb_bsell_spmv_{name}_{sfx}")
-            fn.argtypes = [p] * 6 + [i32] * 4 + [p]
+            fn.argtypes = [p] * 6 + [i32] * 5 + [p]
             fn.restype = i32
     return lib
 
@@ -168,17 +217,17 @@ def bsell_spmv(blocks: torch.Tensor, base: torch.Tensor, x2d: torch.Tensor,
 
 def _launch_window(name: str, wchunk: torch.Tensor, blocks: torch.Tensor,
                    x2d: torch.Tensor, vals: torch.Tensor, lidx: torch.Tensor,
-                   w_blocks: int) -> torch.Tensor:
+                   w_blocks: int, cluster: int) -> torch.Tensor:
     n_tiles = vals.shape[0]
     sfx = _check(f"bsell_spmv_{name}", blocks, wchunk, (n_tiles,), x2d, vals,
                  lidx)
-    need = win_smem_bytes(w_blocks, x2d.dtype)
-    if w_blocks <= 0 or need > SMEM_BYTES:
-        raise ValueError(
-            f"bsell_spmv_{name}: the window of 2*{w_blocks} x rows "
-            f"({x2d.dtype}) needs {need} B of shared memory, over the "
-            f"{SMEM_BYTES} B a block may use; use the kernel impl (K9) for "
-            "this matrix")
+    plan = win_plan(w_blocks, x2d.dtype, cluster)
+    for key, t in (("vals", vals), ("lidx", lidx)):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"bsell_spmv_{name}: {key} must start {ALIGN} B "
+                             "aligned")
+    if x2d.data_ptr() % ALIGN:
+        x2d = x2d.clone()  # the bulk copies read x 16 B aligned
     lib = _library()
     y = torch.empty((n_tiles, SUBLANES, LANES), dtype=x2d.dtype,
                     device=x2d.device)
@@ -186,7 +235,7 @@ def _launch_window(name: str, wchunk: torch.Tensor, blocks: torch.Tensor,
         err = getattr(lib, f"sb_bsell_spmv_{name}_{sfx}")(
             blocks.data_ptr(), wchunk.data_ptr(), x2d.data_ptr(),
             vals.data_ptr(), lidx.data_ptr(), y.data_ptr(), n_tiles,
-            vals.shape[1], x2d.shape[0], w_blocks,
+            vals.shape[1], x2d.shape[0], w_blocks, plan.cluster,
             torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(lib, err, f"bsell_spmv_{name}")
     return y
@@ -194,20 +243,24 @@ def _launch_window(name: str, wchunk: torch.Tensor, blocks: torch.Tensor,
 
 def bsell_spmv_win2(wchunk: torch.Tensor, blocks: torch.Tensor,
                     x2d: torch.Tensor, vals: torch.Tensor, lidx: torch.Tensor,
-                    *, w_blocks: int) -> torch.Tensor:
-    """K10: y (n_tiles, 8, 128) for CUDA tensors from each tile's window
-    staged in shared memory. Raises a ValueError where the window does not
-    fit a block's shared memory."""
-    y = _launch_window("win2", wchunk, blocks, x2d, vals, lidx, w_blocks)
+                    *, w_blocks: int, cluster: int = 0) -> torch.Tensor:
+    """K10: y (n_tiles, 8, 128) for CUDA tensors, gathered from the tiles'
+    windows held in each unit's chunk ring in shared memory. The unit is
+    ``win_plan``'s (``cluster`` blocks when given, else the fewest that hold
+    the ring); raises a ValueError where it cannot hold two chunks."""
+    y = _launch_window("win2", wchunk, blocks, x2d, vals, lidx, w_blocks,
+                       cluster)
     bsell_spmv_win2.launches += 1
     return y
 
 
 def bsell_spmv_windowed(wchunk: torch.Tensor, blocks: torch.Tensor,
                         x2d: torch.Tensor, vals: torch.Tensor,
-                        lidx: torch.Tensor, *, w_blocks: int) -> torch.Tensor:
+                        lidx: torch.Tensor, *, w_blocks: int,
+                        cluster: int = 0) -> torch.Tensor:
     """K11: as K10, block ids clamped into the window (module docstring)."""
-    y = _launch_window("windowed", wchunk, blocks, x2d, vals, lidx, w_blocks)
+    y = _launch_window("windowed", wchunk, blocks, x2d, vals, lidx, w_blocks,
+                       cluster)
     bsell_spmv_windowed.launches += 1
     return y
 

@@ -1,25 +1,35 @@
-"""K6 and K7, the bslab SpMV kernels, timed on a CUDA card, optionally
-beside K6 built from another tree of this repository.
+"""The bslab SpMV kernels K6 and K7 and the bsell SpMV kernels K9-K11 timed
+on a CUDA card, optionally beside another tree's K6 and K10.
 
-    python -m sparsebench_tpu_torch.profile_bslab [--cases 100,200,rgl]
-        [--against DIR] [--reps 2]
+    python -m sparsebench_tpu_torch.profile_bslab [--cases 100,200,rgl,
+        bsell100,bsell100s,bsell200] [--against DIR] [--reps 2]
 
 Each case is built as the bench builds it, f32 x and bf16 values: the n^3
-generated stencil (``100``, ``200``; ``BslabMatrix.from_stencil``) and the
-RGL matrix of 2M rows (``rgl``: band 512, deg 16, seed 1; ``rgl_bslab``).
-Every kernel is first checked bit for bit against ``bslab_spmv_torch``,
-then timed: the better of ``reps`` CUDA-graph replays of 20 calls, CUDA
-events. Beside each time: the bound (every stored array, x and y once,
-``physical_spmv_bytes``, at 3.35 TB/s), the share of it, and cuSPARSE CSR
-f32 on the same matrix (``torch.sparse_csr_tensor @ x``: a yardstick that
-the port never calls). K7 runs with ``win_plan``'s unit.
+generated stencil as bslab (``100``, ``200``; ``BslabMatrix.from_stencil``)
+and the RGL matrix of 2M rows (``rgl``: band 512, deg 16, seed 1;
+``rgl_bslab``); the stencil as bsell through the host CSR at 100^3
+(``bsell100``, the CLI's build) and on the device at 100^3 and 200^3
+(``bsell100s``, ``bsell200``; ``BsellMatrix.from_stencil``). Every kernel
+is first checked bit for bit against its plain version (``bslab_spmv_torch``,
+``bsell_spmv_torch``), then timed: the better of ``reps`` CUDA-graph
+replays of 20 calls, CUDA events. Beside each time: the bound (bslab: every
+stored array, x and y once, ``physical_spmv_bytes``; bsell, K9-K11
+alike: the planes, wchunk, the windowed layout's x and y once; at 3.35
+TB/s), the share of it, and cuSPARSE CSR f32 on the same matrix
+(``torch.sparse_csr_tensor @ x``, built from the bslab layout of the same
+stencil for the bsell cases: a yardstick that the port never calls).
+K7, K10 and K11 run with ``win_plan``'s unit.
 
-``--against DIR`` builds DIR/sparsebench_tpu_torch/csrc/bslab_spmv.cu
-(another tree of this repository, for instance the parent commit unpacked
-with ``git archive`` into a directory that .gitignore lists) with this
-tree's nvcc flags, and times its K6 in turns with this tree's: other,
-this, this, other. Both trees' K6 share one C interface. The last line is
-one JSON object of every time, with the card's name and power limit.
+``--against DIR`` builds DIR/sparsebench_tpu_torch/csrc/bslab_spmv.cu and
+bsell_spmv.cu (another tree of this repository, for instance the parent
+commit unpacked with ``git archive`` into a directory that .gitignore
+lists) with this tree's nvcc flags, and times its K6 and its K10 in turns
+with this tree's: other, this, this, other. The other tree's K6 shares this
+tree's C interface; its K10 is called with the arguments its source
+declares after ``w_blocks`` (none, or this tree's unit of blocks, or that
+and a ring depth of two), and where it refuses the window it is left out.
+The last line is one JSON object of every time, with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,8 +49,11 @@ import torch
 from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.base import physical_spmv_bytes
 from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+from sparsebench_tpu_torch.formats.bsell import BsellMatrix
 from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
+from sparsebench_tpu_torch.host import generate_stencil
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.ops import bsell_spmv as bsell_ops
 from sparsebench_tpu_torch.ops import bslab_spmv as ops
 from sparsebench_tpu_torch.ops.bslab_spmv import (
     LANES,
@@ -52,18 +66,31 @@ from sparsebench_tpu_torch.profile_cg import replay_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
 RGL_N = 2_000_000
-CASES = ("100", "200", "rgl")
+BSLAB_CASES = ("100", "200", "rgl")
+BSELL_CASES = ("bsell100", "bsell100s", "bsell200")
+CASES = BSLAB_CASES + BSELL_CASES
 
 
-def build_other(tree: Path) -> ctypes.CDLL:
-    """The kernel library of ``tree``'s csrc/bslab_spmv.cu, built with
-    this tree's flags beside this tree's libraries."""
+def k10_unit_args(src: str) -> int:
+    """The int arguments that a bsell_spmv.cu source's K10 entry point takes
+    after ``w_blocks``: 0 before K10 took a unit of blocks, 1 (the unit's
+    blocks), or 2 (those and the ring's depth)."""
+    m = re.search(r"sb_bsell_spmv_win2_##SUFFIX\(SB_BSELL_ARGS,(.*?)\)",
+                  src, re.S)
+    if m is None:
+        raise ValueError("no K10 entry point in the other tree's source")
+    return len(re.findall(r"\bint\b", m.group(1))) - 1
+
+
+def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
+    """The kernel library of ``tree``'s csrc/<name>.cu, built with this
+    tree's flags beside this tree's libraries."""
     csrc = tree / "sparsebench_tpu_torch" / "csrc"
-    src = csrc / "bslab_spmv.cu"
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for f in [*sorted(csrc.glob("*.cuh")), src]:
         h.update(f.read_bytes())
-    out = _build.BUILD_DIR / "other" / f"libbslab_spmv_{h.hexdigest()[:16]}.so"
+    out = _build.BUILD_DIR / "other" / f"lib{name}_{h.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
@@ -74,10 +101,35 @@ def build_other(tree: Path) -> ctypes.CDLL:
     lib.sb_cuda_error_string.restype = ctypes.c_char_p
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for sfx in ops._SUFFIX.values():
-        fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
-        fn.argtypes = [p] * 9 + [i32] * 3 + [p, i64, p, i32, i32, i32, p]
+        if name == "bslab_spmv":
+            fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
+            fn.argtypes = [p] * 9 + [i32] * 3 + [p, i64, p, i32, i32, i32, p]
+        else:
+            # K10: blocks, wchunk, x, vals, lidx, y, n_tiles, s_max, x_rows,
+            # w_blocks, [unit blocks, [ring,]] stream
+            lib.k10_unit_args = k10_unit_args(src.read_text())
+            fn = getattr(lib, f"sb_bsell_spmv_win2_{sfx}")
+            fn.argtypes = [p] * 6 + [i32] * (4 + lib.k10_unit_args) + [p]
         fn.restype = i32
     return lib
+
+
+def lib_k10(lib: ctypes.CDLL, A, xw, vals):
+    """K10 of another tree's library on this tree's inputs, in this tree's
+    unit (``win_plan``) where it takes one: y, or None where it refuses the
+    launch."""
+    n_tiles = A.n_tiles
+    sfx = bsell_ops._check("bsell_spmv_win2", A.blocks, A.wchunk,
+                           (n_tiles,), xw, vals, A.lidx)
+    y = torch.empty((n_tiles, 8, LANES), dtype=xw.dtype, device=xw.device)
+    unit = (bsell_ops.win_plan(A.w_blocks, xw.dtype).cluster,
+            2)[:lib.k10_unit_args]
+    err = getattr(lib, f"sb_bsell_spmv_win2_{sfx}")(
+        A.blocks.data_ptr(), A.wchunk.data_ptr(), xw.data_ptr(),
+        vals.data_ptr(), A.lidx.data_ptr(), y.data_ptr(), n_tiles,
+        A.s_max, xw.shape[0], A.w_blocks, *unit,
+        torch.cuda.current_stream(xw.device).cuda_stream)
+    return y if err == 0 else None
 
 
 def other_k6(lib: ctypes.CDLL, sl, x, sub: int, lead: int):
@@ -180,13 +232,91 @@ def profile_case(case: str, other, reps: int, dev, gpu: str) -> dict:
     return dict(ms, bound_ms=bound, cluster=plan.cluster, ring=plan.ring)
 
 
+def bsell_matrix(case: str, dev: torch.device):
+    f32 = DTypePolicy.from_names("f32")
+    if case == "bsell100":
+        return BsellMatrix.from_csr(generate_stencil(100, 100, 100), f32,
+                                    device=dev)
+    n = 100 if case == "bsell100s" else 200
+    return BsellMatrix.from_stencil(n, n, n, device=dev, policy=f32)[0]
+
+
+def windowed_bytes(A) -> int:
+    """What a windowed bsell call must move: the value, index and block
+    planes, wchunk, the windowed layout's x and y, each once (f32 x)."""
+    planes = sum(t.numel() * t.element_size()
+                 for t in (A.vals, A.lidx, A.blocks))
+    return (planes + 4 * A.wchunk.numel() + 4 * A.xw_rows * LANES
+            + 4 * A.n_tiles * 8 * LANES)
+
+
+def in_turns(a, b, reps: int):
+    """(best ms of a, best ms of b), timed b, a, a, b."""
+    o1, t1, t2, o2 = (best_ms(f, reps) for f in (b, a, a, b))
+    return min(t1, t2), min(o1, o2)
+
+
+def profile_bsell(case: str, other, reps: int, dev, gpu: str) -> dict:
+    A = bsell_matrix(case, dev)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.nc).astype(np.float32)).to(dev)
+    x2d = A.padded_x(x, A.nc_pad // LANES)
+    xw = A.padded_x(x, A.xw_rows)
+    vals = A.vals
+    y_ref = bsell_ops.bsell_spmv_torch(A.blocks, A.win_base, x2d, vals,
+                                       A.lidx)
+    plan = bsell_ops.win_plan(A.w_blocks, x.dtype)
+    kernels = {
+        "K9": lambda: bsell_ops.bsell_spmv(A.blocks, A.win_base, x2d, vals,
+                                           A.lidx),
+        "K10": lambda: bsell_ops.bsell_spmv_win2(
+            A.wchunk, A.blocks, xw, vals, A.lidx, w_blocks=A.w_blocks),
+        "K11": lambda: bsell_ops.bsell_spmv_windowed(
+            A.wchunk, A.blocks, xw, vals, A.lidx, w_blocks=A.w_blocks),
+    }
+    if other is not None:
+        if lib_k10(other, A, xw, vals) is None:
+            print(f"[profile_bslab] {case}: the other tree's K10 refused the "
+                  f"window of 2*{A.w_blocks} rows", flush=True)
+        else:
+            kernels["K10 other"] = lambda: lib_k10(other, A, xw, vals)
+    for key, fn in kernels.items():
+        y = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int32), y_ref.view(torch.int32)):
+            raise SystemExit(f"{key} differs from bsell_spmv_torch on {case}")
+    ms = {"K9": best_ms(kernels["K9"], reps)}
+    if "K10 other" in kernels:
+        ms["K10"], ms["K10 other"] = in_turns(kernels["K10"],
+                                              kernels["K10 other"], reps)
+    else:
+        ms["K10"] = best_ms(kernels["K10"], reps)
+    ms["K11"] = best_ms(kernels["K11"], reps)
+    # cuSPARSE on the same stencil, from its bslab build
+    csr = csr_of(matrix("100" if case != "bsell200" else "200", dev))
+    ms["cuSPARSE"] = best_ms(lambda: csr @ x, reps)
+    del csr
+    nbytes = windowed_bytes(A)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    shares = ", ".join(f"{k} {v:.6f} ms ({bound / v:.3f} of the bound)"
+                       for k, v in ms.items())
+    print(f"[profile_bslab] {case} ({A.n_tiles} tiles x {A.s_max} slices, W "
+          f"{A.w_blocks}, K10 unit of {plan.cluster} blocks): "
+          f"{shares}; bound {bound:.6f} ms ({nbytes} B) | {gpu}", flush=True)
+    out = dict(ms, bound_ms=bound, cluster=plan.cluster)
+    del A, x, x2d, xw, vals, y_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_bslab")
     ap.add_argument("--cases", default=",".join(CASES),
-                    help="comma-separated of 100, 200, rgl; default all")
+                    help=f"comma-separated of {', '.join(CASES)}; default "
+                    "all")
     ap.add_argument("--against", type=Path, default=None,
-                    help="another tree of this repository whose K6 to time "
-                    "in turns with this tree's")
+                    help="another tree of this repository whose K6 and K10 "
+                    "to time in turns with this tree's")
     ap.add_argument("--reps", type=int, default=2,
                     help="CUDA-graph replays a time; default 2")
     args = ap.parse_args(argv)
@@ -201,8 +331,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     other = build_other(args.against) if args.against else None
+    other_k10 = (build_other(args.against, "bsell_spmv") if args.against
+                 else None)
     dev = torch.device("cuda")
-    out = {case: profile_case(case, other, args.reps, dev, gpu)
+    out = {case: (profile_bsell(case, other_k10, args.reps, dev, gpu)
+                  if case in BSELL_CASES
+                  else profile_case(case, other, args.reps, dev, gpu))
            for case in cases}
     print(json.dumps({"gpu": gpu, "cases": out}))
     return 0

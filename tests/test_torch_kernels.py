@@ -945,13 +945,20 @@ BSELL_CASES = ["stencil_device", "stencil_csr", "klein", "test9", "random"]
 
 
 def test_bsell_window_fit():
-    """K10 and K11 need the 2W-row window in a block's 227 KB: the CLI's
-    100^3 build (W 168) fits in f32 and not in f64; 200^3 on the device
-    (W 640) does not fit."""
-    assert bsell_ops.win_smem_bytes(168, torch.float32) == 172_032
-    assert bsell_ops.win_fits(168, torch.float32)
-    assert not bsell_ops.win_fits(168, torch.float64)
-    assert not bsell_ops.win_fits(640, torch.float32)
+    """K10 and K11 hold two W-row chunks of x: one block at the CLI's 100^3
+    build in f32 (W 168), else the smallest cluster whose blocks hold a
+    stripe each and the row buffers (100^3 f64: 2; 200^3 on the device, W
+    640: 4, f64 7); the refusal, above a cluster of 8, names the size."""
+    plan = bsell_ops.win_plan(168, torch.float32)
+    assert (plan.cluster, plan.smem) == (1, 128 + 172_032)
+    assert bsell_ops.win_plan(168, torch.float64).cluster == 2
+    assert bsell_ops.win_plan(640, torch.float32).cluster == 4
+    assert bsell_ops.win_plan(640, torch.float64).cluster == 7
+    with pytest.raises(ValueError, match=r"\d+ B of shared memory a block in "
+                       "a cluster of 8"):
+        bsell_ops.win_plan(4000, torch.float32)
+    with pytest.raises(ValueError, match="cluster size"):
+        bsell_ops.win_plan(168, torch.float32, cluster=9)
 
 
 @pytest.mark.cuda
@@ -993,9 +1000,57 @@ def test_bsell_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                              A.lidx.to(torch.int32))
     for fn in (bsell_ops.bsell_spmv_win2, bsell_ops.bsell_spmv_windowed):
         before = fn.launches
-        with pytest.raises(ValueError, match="655360 B of shared memory"):
-            fn(A.wchunk, A.blocks, x2d, A.vals, A.lidx, w_blocks=640)
+        # two chunks of 4000 rows: 4,096,000 B, over what 8 blocks hold
+        with pytest.raises(ValueError, match="shared memory a block in a "
+                           "cluster of 8"):
+            fn(A.wchunk, A.blocks, x2d, A.vals, A.lidx, w_blocks=4000)
+        with pytest.raises(ValueError, match="cluster size"):
+            fn(A.wchunk, A.blocks, x2d, A.vals, A.lidx, w_blocks=A.w_blocks,
+               cluster=9)
         assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("case", ["stencil_device", "klein", "random"])
+def test_bsell_win_forced_cluster_equals_plain(case, pair, cuda_device):
+    """K10 and K11 in a forced cluster of 2 where one block would do: each
+    block holds half of every chunk and reads the other half's rows from x
+    through L2, both through the warps' row buffers; bit for bit."""
+    A = bsell_case(case, cuda_device)
+    vals = A.vals.to(DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(A.nr).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    assert bsell_ops.win_plan(A.w_blocks, x.dtype).cluster == 1
+    y_ref = bsell_ops.bsell_spmv_torch(A.blocks, A.win_base,
+                                       A.padded_x(x, A.nc_pad // 128), vals,
+                                       A.lidx)
+    xw = A.padded_x(x, A.xw_rows)
+    for fn in (bsell_ops.bsell_spmv_win2, bsell_ops.bsell_spmv_windowed):
+        assert_bits_equal(fn(A.wchunk, A.blocks, xw, vals, A.lidx,
+                             w_blocks=A.w_blocks, cluster=2), y_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+def test_bsell_windowed_kernels_at_200_cubed(pair, cuda_device):
+    """The 200^3 stencil on the device (W 640): K10 and K11 spread the
+    window over a cluster of 4 blocks (f64: 7), bit for bit against the
+    plain version."""
+    A = BsellMatrix.from_stencil(200, 200, 200, device=cuda_device,
+                                 policy=DTypePolicy.from_names("f32"))[0]
+    vals = A.vals.to(DT[pair[0]])
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        A.nc)).to(cuda_device, DT[pair[1]])
+    plan = bsell_ops.win_plan(A.w_blocks, x.dtype)
+    assert (A.w_blocks, plan.cluster) == (640, 4 if pair[1] == "f32" else 7)
+    y_ref = bsell_ops.bsell_spmv_torch(A.blocks, A.win_base,
+                                       A.padded_x(x, A.nc_pad // 128), vals,
+                                       A.lidx)
+    xw = A.padded_x(x, A.xw_rows)
+    for fn in (bsell_ops.bsell_spmv_win2, bsell_ops.bsell_spmv_windowed):
+        assert_bits_equal(fn(A.wchunk, A.blocks, xw, vals, A.lidx,
+                             w_blocks=A.w_blocks), y_ref)
 
 
 @pytest.mark.cuda
