@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
     python3 chip_smoke.py [--against DIR]
 
-(``--against``: phase 5f also times another tree's K10 beside this one's;
-without it the script needs no other tree.) Phases, each printing its own
+(``--against``: phases 5d and 5f also time another tree's K8, K9 and K10
+in turns with this one's; without it the script needs no other tree.) Phases, each printing its own
 lines; any failure raises and exits non-zero:
 
 1. fingerprint: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
@@ -57,7 +57,10 @@ lines; any failure raises and exits non-zero:
 3d. the multi-RHS DIA kernel K8 against dia_spmm_torch, bit for bit, and
    row c of its result against K1 on row c of the block, bit for bit, for
    k in {1, 2, 8, 9, 16}, (bf16, f32), (f32, f32) and (f64, f64), at
-   10x9x7, 100^3, 200^3 and klein;
+   10x9x7 and 7x6x5 (n not a multiple of 4: one row a thread), 10x10x8
+   (four rows a thread, some runs read as scalars), 12x10x9, 100^3, 200^3
+   and klein, the small ones also with a row stride not a multiple of 4
+   and with X 4 B past a 16 B boundary; both forms of the gate must run;
 4d. the solver family through the CLI: ``-t cg --nrhs 8`` at 100^3 and
    ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 count set to 0
    before and read after (at least 150 launches a solve); ``-t gmres``,
@@ -68,7 +71,8 @@ lines; any failure raises and exits non-zero:
    GMRES(10) at 40^3, and that f32 matrix products run without TF32;
 5d. times: K8 at k = 8 (100^3 and 200^3) beside its bound, eight K1 calls,
    the plain version and cuSPARSE SpMM (torch.sparse.mm of the CSR matrix
-   and an (n, 8) block made outside the timed region); blocked CG x150
+   and an (n, 8) block made outside the timed region), with ``--against
+   DIR`` that tree's K8 in turns with this tree's; blocked CG x150
    seconds for 8 right-hand sides, total and per right-hand side, beside
    one single-RHS solve; each new solver's seconds at 100^3;
 3e. the read-ceiling kernel K12 against read_passes_torch, bit for bit, on
@@ -90,7 +94,8 @@ lines; any failure raises and exits non-zero:
    in a forced unit of 2 wherever one block would do, and their refusal of
    a window beyond a unit of 8 blocks, which names the size;
 4f. the bsell path: ``--fmt bsell -t cg`` at 100^3 with ``--impl`` auto
-   (K9), kernel_win2 (K10), kernel_win (K11) and torch, then ``-t spmv``,
+   (K9 at every shape, the rule of formats/bsell.py resolve_impl: only K9
+   may launch), kernel_win2 (K10), kernel_win (K11) and torch, then ``-t spmv``,
    with the K9-K11 counts set to 0 before and read after; the f64 residual
    lines of ``--impl kernel`` and ``--impl torch`` equal;
 5f. times of K9-K11 at 100^3 (the CLI's host CSR build and the device
@@ -98,7 +103,7 @@ lines; any failure raises and exits non-zero:
    bounds and each share of it, K9, the plain version, cuSPARSE CSR f32 on
    the same matrix and K6 and K1 on the same problem, and bsell CG x150
    seconds; with ``--against DIR`` (the parent tree unpacked with ``git
-   archive``) that tree's K10 timed in turns with this tree's;
+   archive``) that tree's K9 and K10 timed in turns with this tree's;
 3g. the prototype kernels P1-P5 against their plain versions, bit for bit:
    P1's four schedules (dia_window: direct, grouped, qfloor, floor) and P2's
    two variants (dia_shear: roll, shear_chunk; tpc 2 and 3, so the last
@@ -1070,14 +1075,18 @@ K_TIMED = 8
 
 
 def spmm_matrices(dev):
-    """(name, DiaMatrix) of phase 3d: the generated stencil at 10x9x7,
-    100^3 and 200^3 (bf16 diagonals) and klein (f64, uncompressed)."""
+    """(name, DiaMatrix) of phase 3d: the generated stencil (bf16
+    diagonals) at 10x9x7 and 7x6x5 (n not a multiple of 4: K8's general
+    form), 10x10x8 (its four-row form, runs centred on sy nx = 10 read as
+    scalars, the others as vectors), 12x10x9, 100^3 and 200^3 (every run
+    aligned), and klein (f64, uncompressed)."""
     from sparsebench_tpu_torch.config import DTypePolicy
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.host import read_mm
 
     f32 = DTypePolicy.from_names("f32")
-    for dims in [(10, 9, 7), (100, 100, 100), (200, 200, 200)]:
+    for dims in [(10, 9, 7), (7, 6, 5), (10, 10, 8), (12, 10, 9),
+                 (100, 100, 100), (200, 200, 200)]:
         yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]}",
                DiaMatrix.from_stencil(*dims, device=dev, policy=f32,
                                       impl="kernel")[0])
@@ -1087,43 +1096,84 @@ def spmm_matrices(dev):
         compress=False)
 
 
-def phase3d_spmm(dev):
-    """K8 against dia_spmm_torch and, row by row, against K1, bit for bit;
-    returns the largest |K8 - plain|."""
+def spmm_blocks(k: int, nr: int, dtype, dev, gen, small: bool):
+    """(layout, X) for phase 3d: a contiguous (k, nr) block and, on the
+    small matrices, one with a row stride of nr + 1 (not a multiple of 4
+    where nr is) and one starting 4 B past a 16 B boundary: both take
+    K8's general form."""
     import torch
 
-    from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
+    def rand(rows, cols):
+        return torch.randn((rows, cols), generator=gen, device=dev,
+                           dtype=torch.float64).to(dtype)
+
+    yield "contiguous", rand(k, nr)
+    if small:
+        yield "ldx nr+1", rand(k, nr + 1)
+        flat = rand(1, k * nr + 1)[0]
+        yield "offset 1", flat[1:].view(k, nr)
+
+
+def phase3d_spmm(dev):
+    """K8 against dia_spmm_torch and, row by row, against K1, bit for bit,
+    in both forms of its gate (spmm_plan); returns the largest |K8 -
+    plain|."""
+    import torch
+
+    from sparsebench_tpu_torch.ops.dia_spmm import (
+        ALIGN,
+        dia_spmm,
+        dia_spmm_torch,
+        spmm_plan,
+    )
     from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
 
     dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
     gen = torch.Generator(device=dev).manual_seed(88)
     max_err = 0.0
+    forms = set()  # (four-row form, a chunk read as vectors, one as scalars)
     for name, A in spmm_matrices(dev):
         for td, tx in BSLAB_PAIRS:
             data = A.data.to(dts[td])
             for k in K_SET:
-                X = torch.randn((k, A.nr), generator=gen, device=dev,
-                                dtype=torch.float64).to(dts[tx])
-                before = dia_spmm.launches
-                Y = dia_spmm(data, X, A.offsets, A.nr)
-                check(dia_spmm.launches == before + 1,
-                      "the K8 counter did not count the launch")
-                Yp = dia_spmm_torch(data, X, A.offsets, A.nr)
-                same = bits_equal(Y, Yp)
-                same_k1 = all(bits_equal(Y[c], dia_spmv(data, X[c],
-                                                        A.offsets, A.nr))
-                              for c in range(k))
-                torch.cuda.synchronize()
-                ok = same and same_k1 and bool(torch.isfinite(Y).all())
-                max_err = max(max_err,
-                              float((Y.double() - Yp.double()).abs().max()))
-                print(f"[3d K8] {name} data {td} X {tx} k={k}: bit-identical "
-                      f"to the plain version {same}, to K1 row by row "
-                      f"{same_k1} {'ok' if ok else 'FAIL'}")
-                check(ok, f"K8 disagrees on {name} {td}/{tx} k={k}")
-                del X, Y, Yp
+                for layout, X in spmm_blocks(k, A.nr, dts[tx], dev, gen,
+                                             A.nr < 5000):
+                    plan = spmm_plan(A.offsets, A.nr, data.shape[1],
+                                     X.shape[1], A.nr, all(
+                                         t.data_ptr() % ALIGN == 0
+                                         for t in (data, X)))
+                    vec = sum(c.shift >= 0 for c in plan.chunks)
+                    form = (plan.quad, vec > 0, vec < len(plan.chunks))
+                    forms.add(form)
+                    before = dia_spmm.launches
+                    Y = dia_spmm(data, X, A.offsets, A.nr)
+                    check(dia_spmm.launches == before + 1,
+                          "the K8 counter did not count the launch")
+                    Yp = dia_spmm_torch(data, X, A.offsets, A.nr)
+                    same = bits_equal(Y, Yp)
+                    same_k1 = all(bits_equal(Y[c], dia_spmv(
+                        data, X[c].contiguous(), A.offsets, A.nr))
+                        for c in range(k))
+                    torch.cuda.synchronize()
+                    ok = same and same_k1 and bool(torch.isfinite(Y).all())
+                    max_err = max(max_err, float(
+                        (Y.double() - Yp.double()).abs().max()))
+                    shape = (f"four rows a thread, {vec} of "
+                             f"{len(plan.chunks)} chunks as vectors"
+                             if plan.quad else "one row a thread")
+                    print(f"[3d K8] {name} data {td} X {tx} k={k} {layout} "
+                          f"({shape}): bit-identical to the plain version "
+                          f"{same}, to K1 row by row {same_k1} "
+                          f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"K8 disagrees on {name} {td}/{tx} k={k} "
+                          f"{layout}")
+                    del X, Y, Yp
         del A, data
         torch.cuda.empty_cache()
+    print(f"[3d K8] forms run (four rows, vector chunks, scalar chunks): "
+          f"{sorted(forms)}")
+    check({(False, False, True), (True, True, False), (True, True, True)}
+          <= forms, f"phase 3d did not run both forms of K8's gate: {forms}")
     return max_err
 
 
@@ -1236,16 +1286,20 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
     return launches
 
 
-def phase5d_times(dev, gpu):
+def phase5d_times(dev, gpu, against=None):
     """K8 at k = 8 beside its bound, eight K1 calls, the plain version and
-    cuSPARSE SpMM; blocked and single-RHS CG seconds; each new solver's
-    seconds at 100^3. Returns {n: {...}} of K8's numbers."""
+    cuSPARSE SpMM; with ``against`` (another tree of this repository, the
+    parent unpacked with git archive) that tree's K8 timed in turns with
+    this tree's (other, this, this, other); blocked and single-RHS CG
+    seconds; each new solver's seconds at 100^3. Returns {n: {...}} of
+    K8's numbers."""
     import torch
 
     from sparsebench_tpu_torch.config import DTypePolicy
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
     from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k8
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
     from sparsebench_tpu_torch.solvers.cg_multi import solve_cg_multi
 
@@ -1253,6 +1307,7 @@ def phase5d_times(dev, gpu):
     gen = torch.Generator(device=dev).manual_seed(21)
     k = K_TIMED
     out = {}
+    parent = build_other(against, "dia_spmm") if against else None
     for n in (100, 200):
         A, counts = DiaMatrix.from_stencil(n, n, n, device=dev, policy=f32,
                                            impl="kernel")
@@ -1271,16 +1326,31 @@ def phase5d_times(dev, gpu):
         lib_ms = min(time_graph(lambda: torch.sparse.mm(csr, X_nk))
                      for _ in range(2))
         del csr, X_nk
+        turns = ""
+        if parent is not None:
+            other = lambda: lib_k8(parent, d, X, offs, nr)  # noqa: E731
+            this = lambda: dia_spmm(d, X, offs, nr)  # noqa: E731
+            nan = torch.full((k, nr), float("nan"), device=dev)
+            check(bits_equal(lib_k8(parent, d, X, offs, nr, out=nan), this()),
+                  f"the parent's K8 differs from this tree's at {n}^3")
+            del nan
+            runs = [time_graph(f) for f in (other, this, this, other)]
+            parent_ms = min(runs[0], runs[3])
+            turns = (f"; in turns: parent {runs[0]:.6f}/{runs[3]:.6f}, this "
+                     f"{runs[1]:.6f}/{runs[2]:.6f} ms")
         nbytes = len(offs) * nr * d.element_size() + 2 * k * nr * 4
         b_ms, b_by = bound(nbytes, 2 * A.nnz * k)
         out[n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                       library_ms=lib_ms, eager_ms=eager, k1x8_ms=k1x8)
+        if parent is not None:
+            out[n]["parent_ms"] = parent_ms
         print(f"[5d times] K8 {n}^3 k={k} f32 (bf16 diagonals): kernel "
               f"{ms['kernel']} ms, plain {ms['plain']} ms (graph replay); "
               f"kernel eager {eager:.6f} ms; {k} x K1 {k1x8:.6f} ms; "
               f"{nbytes} B -> kernel {nbytes / (k_ms * 1e-3) / 1e9:.1f} "
               f"GB/s; bound {b_ms:.6f} ms ({b_by}); cuSPARSE SpMM CSR f32 "
-              f"{lib_ms:.6f} ms (max|spmm - K8| {lib_err:.3e}) | {gpu}")
+              f"{lib_ms:.6f} ms (max|spmm - K8| {lib_err:.3e}){turns} | "
+              f"{gpu}")
         _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
         B = np.repeat(b[:, None], k, axis=1)
         multi = solve_cg_multi(A, B, itermax=150, verbose=False)
@@ -1674,7 +1744,9 @@ def phase4f_bsell(cli, gpu):
     wrappers = bsell_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    # warm-up and timed solve, 150 SpMVs each; auto adds the build's check
+    # warm-up and timed solve, 150 SpMVs each; auto adds the build's check.
+    # auto is K9 at every shape (formats/bsell.py resolve_impl: K9 ran
+    # faster than K10 at 100^3, 200^3 and 300^3)
     for impl, key in (("auto", "K9"), ("kernel_win2", "K10"),
                       ("kernel_win", "K11"), ("torch", None)):
         argv = ["-t", "cg", "--fmt", "bsell", "--impl", impl]
@@ -1724,8 +1796,9 @@ def phase5f_times(dev, gpu, against=None):
     matrix and K6 and K1 on the same problem, at 100^3 (host CSR and device
     builds) and 200^3 (device build, K10/K11 in a cluster), and bsell CG
     x150 seconds. With ``against`` (another tree of this repository, the
-    parent unpacked with git archive) its K10 is timed in turns with this
-    tree's (other, this, this, other; null where it refuses the window).
+    parent unpacked with git archive) its K9 and K10 are timed in turns with
+    this tree's (other, this, this, other; K10 null where it refuses the
+    window).
     Returns {kernel: {case: {...}}} with the cases "100" (the CLI's build),
     "100s" and "200"."""
     import torch
@@ -1743,7 +1816,11 @@ def phase5f_times(dev, gpu, against=None):
         bsell_spmv_windowed,
         win_plan,
     )
-    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k10
+    from sparsebench_tpu_torch.profile_bslab import (
+        build_other,
+        lib_k9,
+        lib_k10,
+    )
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
 
     f32 = DTypePolicy.from_names("f32")
@@ -1793,10 +1870,19 @@ def phase5f_times(dev, gpu, against=None):
                 lambda fn=fn: fn(A.wchunk, A.blocks, xw, A.vals, A.lidx,
                                  w_blocks=A.w_blocks),
                 planes + 4 * A.wchunk.numel() + 4 * xw.numel())
-        # the parent's K10, in turns with this tree's
-        parent_ms = None
+        # the parent's K9 and K10, in turns with this tree's
+        parent_ms, turns = {}, {}
         if parent is not None:
-            y_o = lib_k10(parent, A, xw, A.vals)
+            other = lambda: lib_k9(parent, A, x2d, A.vals)  # noqa: E731
+            this = kernels["K9"][0]
+            nan = torch.full((A.n_tiles, 8, LANES), float("nan"), device=dev)
+            check(bits_equal(lib_k9(parent, A, x2d, A.vals, out=nan), this()),
+                  f"the parent's K9 differs from this tree's on {case}")
+            runs = [time_graph(f) for f in (other, this, this, other)]
+            parent_ms["K9"] = min(runs[0], runs[3])
+            turns["K9"] = (f"parent {runs[0]:.6f}/{runs[3]:.6f}, this "
+                           f"{runs[1]:.6f}/{runs[2]:.6f} ms")
+            y_o = lib_k10(parent, A, xw, A.vals, out=nan.fill_(float("nan")))
             torch.cuda.synchronize()
             if y_o is not None:
                 check(bits_equal(y_o, kernels["K10"][0]()),
@@ -1805,11 +1891,12 @@ def phase5f_times(dev, gpu, against=None):
                 runs = [time_graph(f) for f in (
                     lambda: lib_k10(parent, A, xw, A.vals), this, this,
                     lambda: lib_k10(parent, A, xw, A.vals))]
-                parent_ms = min(runs[0], runs[3])
-                turns = f"parent {runs[0]:.6f}/{runs[3]:.6f}, this " \
-                        f"{runs[1]:.6f}/{runs[2]:.6f} ms"
+                parent_ms["K10"] = min(runs[0], runs[3])
+                turns["K10"] = (f"parent {runs[0]:.6f}/{runs[3]:.6f}, this "
+                                f"{runs[1]:.6f}/{runs[2]:.6f} ms")
             else:
-                turns = "the parent refuses this window"
+                parent_ms["K10"] = None
+                turns["K10"] = "the parent refuses this window"
         label = {"100": "100^3 host CSR build", "100s": "100^3 device build",
                  "200": "200^3 device build"}[case]
         k9_ms = None
@@ -1826,9 +1913,9 @@ def phase5f_times(dev, gpu, against=None):
                 out[key][case].update(cluster=plan.cluster)
                 unit = (f", unit of {plan.cluster} blocks; K9 "
                         f"{k9_ms:.6f} ms")
-            if key == "K10" and parent is not None:
-                out[key][case]["parent_ms"] = parent_ms
-                unit += f"; in turns: {turns}"
+            if key in parent_ms:
+                out[key][case]["parent_ms"] = parent_ms[key]
+                unit += f"; in turns: {turns[key]}"
             print(f"[5f times] {key} {label} f32 (bf16 values, {A.n_tiles} "
                   f"tiles x {A.s_max} slices, W {A.w_blocks}, padding "
                   f"{A.padding_ratio:.2f}{unit}): kernel {ms['kernel']} ms, "
@@ -2284,8 +2371,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--against", type=Path, default=None,
                     help="another tree of this repository (the parent "
-                    "unpacked with git archive) whose K10 phase 5f times in "
-                    "turns with this tree's")
+                    "unpacked with git archive) whose K8 (phase 5d), K9 and "
+                    "K10 (phase 5f) to time in turns with this tree's")
     args = ap.parse_args(argv)
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -2461,7 +2548,7 @@ def main(argv=None) -> int:
     times_c = phase5c_times(dev, gpu)
 
     # -- phase 5d: times of K8, blocked CG and the solver family -------------
-    times_d = phase5d_times(dev, gpu)
+    times_d = phase5d_times(dev, gpu, args.against)
 
     # -- phase 5e: the read ceiling K12 ---------------------------------------
     launches_k12, times_e = phase5e_memroof_times(dev, gpu)

@@ -17,14 +17,25 @@
 // with X the x vector viewed as rows of 128 and base_t the tile's window base
 // (K9: base[t,0,0]; K10/K11: wchunk[t] * W, on the windowed layout's x).
 //
+// K9, K10 and K11 share one slice loop (``LaneGroup`` below) and differ in
+// where a gather finds its row of X, which the loop takes as a template
+// parameter, its gather policy: K9's ``GlobalRows`` reads x in device memory
+// through L1/L2 (all of x is 32 MB at 200^3 in f32, inside the 50 MB L2);
+// K10/K11's ``Window`` reads the tile's window from a ring of chunks in
+// shared memory.
+//
 // K9 (what it computes and none of how: the lane-gather lookup table, the
 // SMEM block table, the static unroll and the DMA semaphores are ways around
-// Mosaic). One thread computes one output and walks its tile's slices at run
-// time. Its sublane's block id is one int a slice, the same for the 128
-// threads of the sublane (one broadcast load a warp); the value and int8 lane
-// index planes are read coalesced along the lanes (256 B of bf16 values and
-// 128 B of indices a slice row). It gathers x through L1/L2, as K6 does (all
-// of x is 32 MB at 200^3 in f32, inside the 50 MB L2).
+// Mosaic). A grid of persistent blocks of 8 warps, as many as fit the card at
+// once; block u of U walks the lane groups [u N / U, (u+1) N / U) of the N =
+// 8 n_tiles, a warp a lane group at a time (warp w takes g0 + w, g0 + w + 8,
+// ...), so consecutive lane groups, which share their rows of x on a banded
+// matrix, stay on one SM (tests/test_torch_bsell_plan.py k9_schedule). No
+// shared memory and no barrier: each warp runs the slice loop on its own.
+// What bounded the first K9 (one thread an output: a 2 B value, a 1 B index
+// and a broadcast block id a slice, three loads for one gather) was its load
+// instructions, not its bytes; the shared loop issues two vector loads and
+// four gathers for four outputs a slice.
 //
 // K10 and K11: one body, persistent and chunk-resident, after K7
 // (csrc/bslab_spmv.cu; the ring, its copies and the launch helpers are
@@ -67,17 +78,17 @@
 //   two chunks and the row buffers: 1 block at 100^3 f32 (W 168), 2 at
 //   100^3 f64, 4 at 200^3 f32 (W 640; two chunks are 655,360 B), 7 at 200^3
 //   f64. Above 8 blocks a unit the wrapper raises, naming the size.
-// * The slice loop. A warp computes one lane group: thread i owns the four
+// * The slice loop, K9's too. A warp computes one lane group: thread i owns the four
 //   consecutive lanes 4i..4i+3, so a slice's values arrive in one vector load
 //   a thread (8 B of bf16, 16 B of f32, 32 B of f64) and its four index bytes
 //   in one 4 B load, both with the last-use hint (ld.global.lu: the planes
 //   are read once). Its block ids come from registers: lane j of the warp
 //   holds slice p0 + j's, loaded 32 slices ahead, and a shuffle hands each
-//   slice's to the warp. Slices go in batches (one block a unit: four with
-//   bf16 values, else two; several: the row buffer's two, f64 one), each
+//   slice's to the warp. Slices go in batches (K9 and one block a unit: four
+//   with bf16 values, else two; several: the row buffer's two, f64 one), each
 //   batch's plane loads issued before the last batch's gathers and sums. A
-//   batch checks that every row it reads lies in the window and in x and
-//   that every lane index is in [0, 128); if so its gathers go out at once
+//   batch checks that every row it reads lies in x (K10/K11: and in the
+//   window) and that every lane index is in [0, 128); if so its gathers go out at once
 //   and the sums follow with no branch, else every value comes through an
 //   exact, guarded read (NaN outside).
 // * Bank conflicts. On a shifted (stencil) slice the k-th gather of a warp
@@ -102,8 +113,8 @@
 // type before the multiply. Instances (values, x): (bf16, f32) the default f32
 // path with losslessly compressed values, (f32, f32), (f64, f64). Entry points
 // launch on the stream they are given, do not synchronise, allocate nothing,
-// and return the launch's error code. K10/K11 need x 16 B aligned (the
-// wrapper copies an x that is not) and the planes 16 B aligned.
+// and return the launch's error code. All three need the planes 16 B
+// aligned, K10/K11 x too (the wrapper copies an x that is not).
 
 
 #include <algorithm>
@@ -121,8 +132,8 @@ using sb::widen;
 
 constexpr int kLanes = 128;
 constexpr int kSub = 8;
-constexpr int kRowsK9 = 2;                   // lane groups a K9 block covers
-constexpr int kThreadsK9 = kRowsK9 * kLanes;
+constexpr int kThreadsK9 = 256;              // 8 warps: a tile's lane groups
+constexpr int kWarpsK9 = kThreadsK9 / 32;
 constexpr int kThreadsWin = 1024;            // 32 warps: one block an SM (its ring)
 constexpr int kWarpsWin = kThreadsWin / 32;
 constexpr int kRing = 2;                     // chunks in a block's ring
@@ -137,64 +148,42 @@ constexpr int kBatch = sizeof(TD) == 2 ? 4 : 2;
 template <typename TX>
 constexpr int kBufRows = sizeof(TX) == 8 ? 1 : 2;
 
-// X[base + b, c] from x in device memory (K9)
+// -- the gather policies -----------------------------------------------------------
+
+// K9: window row b is x row base + b, read through L1/L2; NaN outside x
 template <typename TX>
-struct GlobalX {
+struct GlobalRows {
+  static constexpr bool kStriped = false;
   const TX* x;
-  int x_rows;
   int base;
-  __device__ __forceinline__ TX operator()(int b, int c) const {
-    const int row = base + b;
-    if (row < 0 || row >= x_rows || c < 0 || c >= kLanes) return quiet_nan<TX>();
-    return __ldg(x + static_cast<long long>(row) * kLanes + c);
+  unsigned x_rows;
+
+  __device__ __forceinline__ int id(int b) const { return b; }
+  __device__ __forceinline__ bool ok(int b) const {
+    return static_cast<unsigned>(base + b) < x_rows;
+  }
+  __device__ __forceinline__ const TX* row(int b, bool& from_x) const {
+    from_x = true;
+    return x + static_cast<long long>(base + b) * kLanes;
+  }
+  __device__ __forceinline__ TX at(const TX* r, int col) const { return __ldg(r + col); }
+  // X[base + b, col] for any b and col, NaN outside x or the row
+  __device__ __forceinline__ TX exact(int b, int col) const {
+    bool from_x;
+    return ok(b) && col >= 0 ? __ldg(row(b, from_x) + col) : quiet_nan<TX>();
   }
 };
 
-// Output (t, s, lane): the slices in stored order, one rounding per op.
-template <typename TD, typename TX, typename Gather>
-__device__ __forceinline__ TX accumulate(const int* __restrict__ blocks,
-                                         const TD* __restrict__ vals,
-                                         const signed char* __restrict__ lidx,
-                                         int t, int s, int lane, int s_max,
-                                         const Gather& gx) {
-  constexpr long long plane = kSub * kLanes;
-  const long long e = static_cast<long long>(t) * s_max * plane + s * kLanes + lane;
-  const int* blk = blocks + static_cast<long long>(t) * s_max * kSub + s;
-  TX acc = TX(0);
-#pragma unroll 4
-  for (int p = 0; p < s_max; ++p) {
-    const long long off = e + p * plane;
-    const TX g = gx(__ldg(blk + p * kSub), static_cast<int>(lidx[off]));
-    acc = add_rn(acc, mul_rn(static_cast<TX>(widen(vals[off])), g));
-  }
-  return acc;
-}
-
-// K9: one thread per output; a block covers kRowsK9 lane groups of a tile.
-template <typename TD, typename TX>
-__global__ void __launch_bounds__(kThreadsK9)
-bsell_spmv_kernel(const int* __restrict__ blocks, const int* __restrict__ base,
-                  const TX* __restrict__ x, const TD* __restrict__ vals,
-                  const signed char* __restrict__ lidx, TX* __restrict__ y,
-                  int s_max, int x_rows) {
-  constexpr int parts = kSub / kRowsK9;
-  const int t = blockIdx.x / parts;
-  const int s = (blockIdx.x % parts) * kRowsK9 + threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const GlobalX<TX> gx{x, x_rows, __ldg(base + static_cast<long long>(t) * kSub)};
-  const TX acc = accumulate<TD, TX>(blocks, vals, lidx, t, s, lane, s_max, gx);
-  y[(static_cast<long long>(t) * kSub + s) * kLanes + lane] = acc;
-}
-
 // -- K10 and K11: the window -----------------------------------------------------
 
-// The step's window, x rows [c W, c W + 2W), in the block's ring: window rows
+// K10/K11: the step's window, x rows [c W, c W + 2W), in the block's ring: window rows
 // [0, W) are chunk c, in the slot at ``lower``, rows [W, 2W) chunk c + 1, at
 // ``upper``; in a unit of several blocks (kStriped) block ``rank`` holds rows
 // [rank S, (rank+1) S) of each chunk, S = ``stripe``. Window rows
 // [lo, lo + len) lie in x.
-template <typename TX, bool kClamp, bool kStriped>
+template <typename TX, bool kClamp, bool kStriped_>
 struct Window {
+  static constexpr bool kStriped = kStriped_;
   const TX* lower;
   const TX* upper;
   const TX* xw;    // x row c W
@@ -228,6 +217,7 @@ struct Window {
       return base + within * kLanes;
     }
   }
+  __device__ __forceinline__ TX at(const TX* r, int col) const { return r[col]; }
   // X[c W + b, col] for any b and col, NaN outside the window, x or the row
   __device__ __forceinline__ TX exact(int b, int col) const {
     bool from_x;
@@ -289,12 +279,13 @@ __device__ __forceinline__ void fma4(TX acc[4], const Raw<TD>& val, const TX g[4
 
 // One lane group (t, s), computed by the calling warp: thread i sums lanes
 // 4i..4i+3 over the tile's slices in stored order, one rounding per op, and
-// stores them. ``start`` issues the block ids' and the first batch's loads,
-// which go out before the warp waits for its chunks; ``finish`` walks the
+// stores them, gathering through the policy ``Win``. ``start`` issues the
+// block ids' and the first batch's loads (K10/K11: before the warp waits for
+// its chunks); ``finish`` walks the
 // batches, each one's plane loads issued before the last one's gathers and
 // sums. Lane j of the warp holds the block id of slice j of the current 32
 // (``bid``) and of the next 32 (``bid_next``).
-template <int N, bool kClamp, bool kStriped, typename TD, typename TX>
+template <int N, typename Win, typename TD, typename TX>
 struct LaneGroup {
   static constexpr long long kPlane = kSub * kLanes;
   const TD* v;
@@ -335,8 +326,7 @@ struct LaneGroup {
     load(cur, 0);
   }
 
-  __device__ __forceinline__ void finish(const Window<TX, kClamp, kStriped>& win, TX* buf,
-                                         TX* __restrict__ y) {
+  __device__ __forceinline__ void finish(const Win& win, TX* buf, TX* __restrict__ y) {
     const int i = threadIdx.x & 31;
     TX acc[4];
 #pragma unroll
@@ -360,7 +350,7 @@ struct LaneGroup {
       }
       if (__all_sync(0xffffffffu, ok && !(any & 0x80808080u))) {
         TX g[N][4];
-        if constexpr (kStriped) {
+        if constexpr (Win::kStriped) {
           // each slice's row into the warp's buffer, one 16 B piece a
           // thread, then the gathers from there
           Piece<TX> pc[N];
@@ -385,7 +375,7 @@ struct LaneGroup {
             bool from_x;
             const TX* r = win.row(b[u], from_x);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) g[u][k] = r[byte_at(cur.li[u], k)];
+            for (int k = 0; k < 4; ++k) g[u][k] = win.at(r, byte_at(cur.li[u], k));
           }
         }
 #pragma unroll
@@ -412,6 +402,28 @@ struct LaneGroup {
     }
   }
 };
+
+// -- K9: the kernel ------------------------------------------------------------------
+
+// K9: persistent blocks of kWarpsK9 warps; block u walks its lane groups in
+// order, a warp a lane group at a time, gathering from x through L1/L2.
+template <typename TD, typename TX>
+__global__ void __launch_bounds__(kThreadsK9, 4)
+bsell_spmv_kernel(const int* __restrict__ blocks, const int* __restrict__ base,
+                  const TX* __restrict__ x, const TD* __restrict__ vals,
+                  const signed char* __restrict__ lidx, TX* __restrict__ y,
+                  int n_tiles, int s_max, int x_rows) {
+  long long g0, g1;
+  sb::unit_range(blockIdx.x, gridDim.x, static_cast<long long>(n_tiles) * kSub, g0, g1);
+  for (long long g = g0 + (threadIdx.x >> 5); g < g1; g += kWarpsK9) {
+    const int t = static_cast<int>(g / kSub);
+    LaneGroup<kBatch<TD>, GlobalRows<TX>, TD, TX> lg;
+    lg.start(blocks, vals, lidx, t, static_cast<int>(g % kSub), s_max);
+    const GlobalRows<TX> rows{x, __ldg(base + static_cast<long long>(t) * kSub),
+                              static_cast<unsigned>(x_rows)};
+    lg.finish(rows, nullptr, y);
+  }
+}
 
 // -- K10 and K11: the kernel -------------------------------------------------------
 
@@ -473,7 +485,7 @@ bsell_spmv_win_kernel(const int* __restrict__ blocks,
     const bool has = mine < end;
     // the lane group's block ids and first planes, in flight while the
     // chunks land
-    LaneGroup<N, kClamp, kStriped, TD, TX> lg;
+    LaneGroup<N, Window<TX, kClamp, kStriped>, TD, TX> lg;
     if (has) {
       lg.start(blocks, vals, lidx, static_cast<int>(mine / kSub), static_cast<int>(mine % kSub),
                s_max);
@@ -509,12 +521,20 @@ int launch(const int* blocks, const int* base, const void* x, const void* vals,
   if (n_tiles <= 0 || s_max <= 0 || x_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned grid = static_cast<unsigned>(n_tiles) * (kSub / kRowsK9);
-  bsell_spmv_kernel<TD, TX><<<grid, kThreadsK9, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = bsell_spmv_kernel<TD, TX>;
+  static int resident = 0;  // blocks that fit the card at once
+  if (resident == 0) {
+    const cudaError_t err = sb::resident_blocks(kernel, kThreadsK9, 0, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // no more blocks than it takes to give every warp a lane group
+  const long long groups = static_cast<long long>(n_tiles) * kSub;
+  const long long grid = std::min(static_cast<long long>(resident),
+                                  (groups + kWarpsK9 - 1) / kWarpsK9);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(grid), kThreadsK9, 0, static_cast<cudaStream_t>(stream)>>>(
       blocks, base, static_cast<const TX*>(x), static_cast<const TD*>(vals),
-      static_cast<const signed char*>(lidx), static_cast<TX*>(y), s_max,
-      x_rows);
+      static_cast<const signed char*>(lidx), static_cast<TX*>(y), n_tiles, s_max, x_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,8 +20,9 @@ is not ported.
 ``impl`` picks the SpMV: ``kernel`` (K9, x through the caches),
 ``kernel_win2`` (K10) or ``kernel_win`` (K11), both persistent units that
 keep the tiles' windows of x in a ring of chunks in shared memory, or
-``torch`` (their plain version). ``auto`` is ``kernel`` on CUDA and
-``torch`` on the CPU. K10 and K11 run every window up to a unit of 8
+``torch`` (their plain version). ``auto`` is ``kernel`` on CUDA at every
+shape and ``torch`` on the CPU (``resolve_impl`` says why). K10 and K11 run
+every window up to a unit of 8
 blocks that each hold a stripe of it (200^3 in units of 4, f64 7;
 ``ops/bsell_spmv.py win_plan`` says how many, PERF.md §6 has their times).
 A kernel on the CPU raises, a windowed kernel whose window exceeds 8 blocks
@@ -60,7 +61,14 @@ Device = Union[str, torch.device]
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     """``auto`` -> ``kernel`` (K9) on CUDA, ``torch`` on the CPU; the
-    kernels exist only on CUDA."""
+    kernels exist only on CUDA.
+
+    The JAX package's ``auto`` takes its windowed kernel where x exceeds
+    its VMEM budget. Here K9, which gathers x through L1/L2, ran faster
+    than K10 at every size measured in one call, on an H100 at 700 W:
+    1.19x at 100^3 (x 4 MB, W 168), 1.10x at 200^3 (32 MB, W 640) and 1.24x
+    at 300^3, whose 108 MB x exceeds the 50 MB L2 (PERF.md §6). So ``auto``
+    picks K9 at every shape and dtype, and K10/K11 run when asked for."""
     if impl not in VALID_IMPLS:
         raise ValueError(
             f"unknown bsell impl {impl!r}; valid: {', '.join(VALID_IMPLS)}")

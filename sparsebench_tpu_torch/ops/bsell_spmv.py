@@ -24,7 +24,8 @@ each product and each sum rounded on its own.
   so it is the kernels' bit-exact reference. (The JAX package's XLA form
   sums over the slice axis in an order XLA picks.)
 * ``bsell_spmv(blocks, base, x2d, vals, lidx)`` — K9, x2d the whole x
-  (nc_pad / 128, 128), gathered through the caches.
+  (nc_pad / 128, 128), gathered through the caches by persistent blocks
+  that walk consecutive lane groups with K10's slice loop.
 * ``bsell_spmv_win2(wchunk, blocks, x2d, vals, lidx, w_blocks=,
   cluster=0)`` — K10: base_t = wchunk[t] W and x2d the windowed layout's x
   (xw_rows, 128). Persistent units of ``cluster`` blocks walk consecutive
@@ -191,6 +192,9 @@ def _check(name: str, blocks: torch.Tensor, table: torch.Tensor,
     if x2d.dim() != 2 or x2d.shape[1] != LANES or not x2d.is_contiguous():
         raise ValueError(f"{name}: x2d must be a contiguous (rows, {LANES}) "
                          f"tensor, got {tuple(x2d.shape)}")
+    for key, t in (("vals", vals), ("lidx", lidx)):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {key} must start {ALIGN} B aligned")
     return sfx
 
 
@@ -222,10 +226,6 @@ def _launch_window(name: str, wchunk: torch.Tensor, blocks: torch.Tensor,
     sfx = _check(f"bsell_spmv_{name}", blocks, wchunk, (n_tiles,), x2d, vals,
                  lidx)
     plan = win_plan(w_blocks, x2d.dtype, cluster)
-    for key, t in (("vals", vals), ("lidx", lidx)):
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"bsell_spmv_{name}: {key} must start {ALIGN} B "
-                             "aligned")
     if x2d.data_ptr() % ALIGN:
         x2d = x2d.clone()  # the bulk copies read x 16 B aligned
     lib = _library()

@@ -24,13 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from sparsebench_tpu_torch.ops import _build
-from sparsebench_tpu_torch.ops.dia_spmv import MAX_DIAGS, _offsets_arg
+from sparsebench_tpu_torch.ops.dia_spmv import MAX_DIAGS
 
 # (data dtype, X dtype) -> C entry point in csrc/dia_spmm.cu
 _ENTRY = {
@@ -38,6 +38,61 @@ _ENTRY = {
     (torch.float32, torch.float32): "sb_dia_spmm_f32_f32",
     (torch.float64, torch.float64): "sb_dia_spmm_f64_f64",
 }
+
+
+RUN = 4   # diagonals a chunk, at most (csrc/dia_spmm.cu kRun)
+QUAD = 4  # rows a thread in the four-row form (kQuad)
+ALIGN = 16  # bytes: the four-row form's vector loads and stores
+
+
+class Chunk(NamedTuple):
+    """Diagonals d0 .. d0 + length - 1, with the consecutive offsets start ..
+    start + length - 1. ``shift`` >= 0: in the four-row form the chunk reads
+    x as one aligned vector a column, at offset o = start + 1 - shift (o = 0
+    mod 4), beside the value before it and the one after it; -1: as
+    scalars."""
+    d0: int
+    length: int
+    start: int
+    shift: int = -1
+
+
+class SpmmPlan(NamedTuple):
+    """K8's gate: ``quad`` runs the four-row form; ``chunks`` in order."""
+    quad: bool
+    chunks: tuple
+
+
+def aligned_shift(start: int, length: int) -> int:
+    """start + 1 - o for the o = 0 (mod 4) whose six x values o - 1 .. o + 4
+    cover what four rows read through offsets start .. start + length - 1
+    (o in [start + length - 2, start + 1]); -1 where there is none. A run
+    of three is aligned where its centre is 0 mod 4."""
+    for o in range(start + length - 2, start + 2):
+        if o % QUAD == 0:
+            return start + 1 - o
+    return -1
+
+
+def spmm_plan(offsets: Sequence[int], n: int, nr_pad: int, ldx: int,
+              ldy: int, aligned: bool) -> SpmmPlan:
+    """The chunks (runs of consecutive offsets, at most RUN each, in the
+    order given) and the form: four rows a thread where n, nr_pad, ldx and
+    ldy are multiples of 4 and ``aligned`` (data, X and Y start 16 B
+    aligned), each chunk with its ``aligned_shift``; else one row a thread,
+    every chunk read as scalars."""
+    chunks = []
+    for d, off in enumerate(int(o) for o in offsets):
+        last = chunks[-1] if chunks else None
+        if last and last.length < RUN and off == last.start + last.length:
+            chunks[-1] = last._replace(length=last.length + 1)
+        else:
+            chunks.append(Chunk(d, 1, off))
+    quad = aligned and all(v % QUAD == 0 for v in (n, nr_pad, ldx, ldy))
+    if quad:
+        chunks = [c._replace(shift=aligned_shift(c.start, c.length))
+                  for c in chunks]
+    return SpmmPlan(quad, tuple(chunks))
 
 
 def dia_spmm_torch(data: torch.Tensor, X: torch.Tensor,
@@ -60,10 +115,24 @@ def _library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i64, i64, i32, ctypes.POINTER(i64), i32, i64,
-                       i64, p]
+        # data, X, Y, n, nr_pad, k, ldx, ldy, quad, chunks, start, d0,
+        # length, shift, stream
+        fn.argtypes = [p, p, p, i64, i64, i32, i64, i64, i32, i32,
+                       ctypes.POINTER(i64)] + [ctypes.POINTER(i32)] * 3 + [p]
         fn.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(offsets: tuple, n: int, nr_pad: int, ldx: int, ldy: int,
+               aligned: bool) -> tuple:
+    """``spmm_plan`` as the C entry points take it, once a shape: quad, the
+    chunk count and the start, d0, length and shift arrays."""
+    plan = spmm_plan(offsets, n, nr_pad, ldx, ldy, aligned)
+    cols = list(zip(*plan.chunks))
+    n = len(plan.chunks)
+    return (int(plan.quad), n, (ctypes.c_longlong * n)(*cols[2]),
+            *((ctypes.c_int * n)(*cols[i]) for i in (0, 1, 3)))
 
 
 def dia_spmm(data: torch.Tensor, X: torch.Tensor,
@@ -101,10 +170,12 @@ def dia_spmm(data: torch.Tensor, X: torch.Tensor,
     lib = _library()
     k = X.shape[0]
     Y = torch.empty((k, nr), dtype=X.dtype, device=X.device)
+    aligned = all(t.data_ptr() % ALIGN == 0 for t in (data, X, Y))
     with torch.cuda.device(X.device):
         err = getattr(lib, name)(
-            data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1],
-            ndiag, _offsets_arg(offsets), k, X.shape[1], nr,
+            data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1], k,
+            X.shape[1], nr,
+            *_plan_args(offsets, nr, data.shape[1], X.shape[1], nr, aligned),
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _build.check(lib, err, "dia_spmm")

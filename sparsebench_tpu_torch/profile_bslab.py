@@ -1,15 +1,17 @@
 """The bslab SpMV kernels K6 and K7 and the bsell SpMV kernels K9-K11 timed
-on a CUDA card, optionally beside another tree's K6 and K10.
+on a CUDA card, optionally beside another tree's K6, K9 and K10.
 
     python -m sparsebench_tpu_torch.profile_bslab [--cases 100,200,rgl,
-        bsell100,bsell100s,bsell200] [--against DIR] [--reps 2]
+        bsell100,bsell100s,bsell200,bsell300] [--against DIR] [--reps 2]
 
 Each case is built as the bench builds it, f32 x and bf16 values: the n^3
 generated stencil as bslab (``100``, ``200``; ``BslabMatrix.from_stencil``)
 and the RGL matrix of 2M rows (``rgl``: band 512, deg 16, seed 1;
 ``rgl_bslab``); the stencil as bsell through the host CSR at 100^3
 (``bsell100``, the CLI's build) and on the device at 100^3 and 200^3
-(``bsell100s``, ``bsell200``; ``BsellMatrix.from_stencil``). Every kernel
+(``bsell100s``, ``bsell200``; ``BsellMatrix.from_stencil``) and, when
+asked for, at 300^3 (``bsell300``: x of 108 MB, beyond the 50 MB L2; no
+cuSPARSE beside it). Every kernel
 is first checked bit for bit against its plain version (``bslab_spmv_torch``,
 ``bsell_spmv_torch``), then timed: the better of ``reps`` CUDA-graph
 replays of 20 calls, CUDA events. Beside each time: the bound (bslab: every
@@ -23,11 +25,13 @@ K7, K10 and K11 run with ``win_plan``'s unit.
 ``--against DIR`` builds DIR/sparsebench_tpu_torch/csrc/bslab_spmv.cu and
 bsell_spmv.cu (another tree of this repository, for instance the parent
 commit unpacked with ``git archive`` into a directory that .gitignore
-lists) with this tree's nvcc flags, and times its K6 and its K10 in turns
-with this tree's: other, this, this, other. The other tree's K6 shares this
-tree's C interface; its K10 is called with the arguments its source
-declares after ``w_blocks`` (none, or this tree's unit of blocks, or that
-and a ring depth of two), and where it refuses the window it is left out.
+lists) with this tree's nvcc flags, and times its K6, K9 and K10 in turns
+with this tree's: other, this, this, other. The other tree's K6 and K9
+share this tree's C interfaces; its K10 is called with the arguments its
+source declares after ``w_blocks`` (none, or this tree's unit of blocks, or
+that and a ring depth of two), and where it refuses the window it is left
+out. (``lib_k8`` calls another tree's K8 the same way, for
+``chip_smoke.py --against``.)
 The last line is one JSON object of every time, with the card's name and
 power limit.
 """
@@ -67,8 +71,9 @@ from sparsebench_tpu_torch.profile_cg import replay_ms
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
 RGL_N = 2_000_000
 BSLAB_CASES = ("100", "200", "rgl")
-BSELL_CASES = ("bsell100", "bsell100s", "bsell200")
+BSELL_CASES = ("bsell100", "bsell100s", "bsell200", "bsell300")
 CASES = BSLAB_CASES + BSELL_CASES
+DEFAULT_CASES = CASES[:-1]  # bsell300 (x beyond the L2) when asked for
 
 
 def k10_unit_args(src: str) -> int:
@@ -104,7 +109,23 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
         if name == "bslab_spmv":
             fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
             fn.argtypes = [p] * 9 + [i32] * 3 + [p, i64, p, i32, i32, i32, p]
+        elif name == "dia_spmm":
+            # K8: data, X, Y, n, nr_pad, then the chunk plan (quad, chunks,
+            # start, d0, length, shift) or, before K8 took it, ndiag and
+            # the offsets
+            lib.k8_takes_plan = "int quad" in src.read_text()
+            fn = getattr(lib, f"sb_dia_spmm_{sfx}")
+            fn.argtypes = ([p, p, p, i64, i64, i32, i64, i64, i32, i32,
+                            ctypes.POINTER(i64)] + [ctypes.POINTER(i32)] * 3
+                           if lib.k8_takes_plan else
+                           [p, p, p, i64, i64, i32, ctypes.POINTER(i64), i32,
+                            i64, i64]) + [p]
         else:
+            # K9: blocks, base, x, vals, lidx, y, n_tiles, s_max, x_rows,
+            # stream
+            fn = getattr(lib, f"sb_bsell_spmv_{sfx}")
+            fn.argtypes = [p] * 6 + [i32] * 3 + [p]
+            fn.restype = i32
             # K10: blocks, wchunk, x, vals, lidx, y, n_tiles, s_max, x_rows,
             # w_blocks, [unit blocks, [ring,]] stream
             lib.k10_unit_args = k10_unit_args(src.read_text())
@@ -114,14 +135,59 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
     return lib
 
 
-def lib_k10(lib: ctypes.CDLL, A, xw, vals):
+def lib_k9(lib: ctypes.CDLL, A, x2d, vals, out=None):
+    """K9 of another tree's library on this tree's inputs: y (written into
+    ``out`` when given: a check fills it with NaN first, so that a launch
+    that writes nothing shows)."""
+    n_tiles = A.n_tiles
+    sfx = bsell_ops._check("bsell_spmv", A.blocks, A.win_base,
+                           (n_tiles, 1, 8), x2d, vals, A.lidx)
+    y = out if out is not None else torch.empty(
+        (n_tiles, 8, LANES), dtype=x2d.dtype, device=x2d.device)
+    err = getattr(lib, f"sb_bsell_spmv_{sfx}")(
+        A.blocks.data_ptr(), A.win_base.data_ptr(), x2d.data_ptr(),
+        vals.data_ptr(), A.lidx.data_ptr(), y.data_ptr(), n_tiles, A.s_max,
+        x2d.shape[0], torch.cuda.current_stream(x2d.device).cuda_stream)
+    _build.check(lib, err, "other bsell_spmv")
+    return y
+
+
+def lib_k8(lib: ctypes.CDLL, data, X, offsets, nr: int, out=None):
+    """K8 of another tree's library on this tree's inputs (a contiguous
+    (k, nr) X): Y, through the interface its source declares (into ``out``
+    when given, as ``lib_k9``)."""
+    from sparsebench_tpu_torch.ops import dia_spmm as spmm_ops
+
+    sfx = {torch.bfloat16: "bf16_f32", torch.float32: "f32_f32",
+           torch.float64: "f64_f64"}[data.dtype]
+    k = X.shape[0]
+    Y = out if out is not None else torch.empty((k, nr), dtype=X.dtype,
+                                                device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    offsets = tuple(int(o) for o in offsets)
+    head = (data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1])
+    if lib.k8_takes_plan:
+        aligned = all(t.data_ptr() % spmm_ops.ALIGN == 0 for t in (data, X, Y))
+        err = getattr(lib, f"sb_dia_spmm_{sfx}")(
+            *head, k, X.shape[1], nr, *spmm_ops._plan_args(
+                offsets, nr, data.shape[1], X.shape[1], nr, aligned), stream)
+    else:
+        arr = (ctypes.c_longlong * len(offsets))(*offsets)
+        err = getattr(lib, f"sb_dia_spmm_{sfx}")(
+            *head, len(offsets), arr, k, X.shape[1], nr, stream)
+    _build.check(lib, err, "other dia_spmm")
+    return Y
+
+
+def lib_k10(lib: ctypes.CDLL, A, xw, vals, out=None):
     """K10 of another tree's library on this tree's inputs, in this tree's
-    unit (``win_plan``) where it takes one: y, or None where it refuses the
-    launch."""
+    unit (``win_plan``) where it takes one: y (into ``out`` when given, as
+    ``lib_k9``), or None where it refuses the launch."""
     n_tiles = A.n_tiles
     sfx = bsell_ops._check("bsell_spmv_win2", A.blocks, A.wchunk,
                            (n_tiles,), xw, vals, A.lidx)
-    y = torch.empty((n_tiles, 8, LANES), dtype=xw.dtype, device=xw.device)
+    y = out if out is not None else torch.empty(
+        (n_tiles, 8, LANES), dtype=xw.dtype, device=xw.device)
     unit = (bsell_ops.win_plan(A.w_blocks, xw.dtype).cluster,
             2)[:lib.k10_unit_args]
     err = getattr(lib, f"sb_bsell_spmv_win2_{sfx}")(
@@ -209,6 +275,7 @@ def profile_case(case: str, other, reps: int, dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(y.view(torch.int32), y_ref.view(torch.int32)):
             raise SystemExit(f"{key} differs from bslab_spmv_torch on {case}")
+        y.fill_(float("nan"))  # the next kernel's output may reuse it
     ms = {}
     if other:  # in turns: other, this, this, other
         o1 = best_ms(kernels["K6 other"], reps)
@@ -237,7 +304,7 @@ def bsell_matrix(case: str, dev: torch.device):
     if case == "bsell100":
         return BsellMatrix.from_csr(generate_stencil(100, 100, 100), f32,
                                     device=dev)
-    n = 100 if case == "bsell100s" else 200
+    n = {"bsell100s": 100, "bsell200": 200, "bsell300": 300}[case]
     return BsellMatrix.from_stencil(n, n, n, device=dev, policy=f32)[0]
 
 
@@ -275,6 +342,7 @@ def profile_bsell(case: str, other, reps: int, dev, gpu: str) -> dict:
             A.wchunk, A.blocks, xw, vals, A.lidx, w_blocks=A.w_blocks),
     }
     if other is not None:
+        kernels["K9 other"] = lambda: lib_k9(other, A, x2d, vals)
         if lib_k10(other, A, xw, vals) is None:
             print(f"[profile_bslab] {case}: the other tree's K10 refused the "
                   f"window of 2*{A.w_blocks} rows", flush=True)
@@ -285,17 +353,24 @@ def profile_bsell(case: str, other, reps: int, dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(y.view(torch.int32), y_ref.view(torch.int32)):
             raise SystemExit(f"{key} differs from bsell_spmv_torch on {case}")
-    ms = {"K9": best_ms(kernels["K9"], reps)}
+        y.fill_(float("nan"))  # the next kernel's output may reuse it
+    if "K9 other" in kernels:
+        ms = dict(zip(("K9", "K9 other"), in_turns(kernels["K9"],
+                                                   kernels["K9 other"], reps)))
+    else:
+        ms = {"K9": best_ms(kernels["K9"], reps)}
     if "K10 other" in kernels:
         ms["K10"], ms["K10 other"] = in_turns(kernels["K10"],
                                               kernels["K10 other"], reps)
     else:
         ms["K10"] = best_ms(kernels["K10"], reps)
     ms["K11"] = best_ms(kernels["K11"], reps)
-    # cuSPARSE on the same stencil, from its bslab build
-    csr = csr_of(matrix("100" if case != "bsell200" else "200", dev))
-    ms["cuSPARSE"] = best_ms(lambda: csr @ x, reps)
-    del csr
+    # cuSPARSE on the same stencil, from its bslab build (not at 300^3,
+    # whose CSR build would hold some 20 GB)
+    if case != "bsell300":
+        csr = csr_of(matrix("100" if case != "bsell200" else "200", dev))
+        ms["cuSPARSE"] = best_ms(lambda: csr @ x, reps)
+        del csr
     nbytes = windowed_bytes(A)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     shares = ", ".join(f"{k} {v:.6f} ms ({bound / v:.3f} of the bound)"
@@ -311,12 +386,12 @@ def profile_bsell(case: str, other, reps: int, dev, gpu: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_bslab")
-    ap.add_argument("--cases", default=",".join(CASES),
+    ap.add_argument("--cases", default=",".join(DEFAULT_CASES),
                     help=f"comma-separated of {', '.join(CASES)}; default "
-                    "all")
+                    "all but bsell300")
     ap.add_argument("--against", type=Path, default=None,
-                    help="another tree of this repository whose K6 and K10 "
-                    "to time in turns with this tree's")
+                    help="another tree of this repository whose K6, K9 and "
+                    "K10 to time in turns with this tree's")
     ap.add_argument("--reps", type=int, default=2,
                     help="CUDA-graph replays a time; default 2")
     args = ap.parse_args(argv)

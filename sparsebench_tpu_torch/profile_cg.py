@@ -5,6 +5,8 @@
         [--variant standard|cs|sstep|pipe|fused|vmem]
         [--solver cg|nrhs|gmres|cheb|bicgstab|minres]
     python -m sparsebench_tpu_torch.profile_cg --patterns [-n 100 200]
+    python -m sparsebench_tpu_torch.profile_cg --k8-variants [-n 100 200]
+        [--against DIR]
 
 For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
 diagonals (K1), as the matrix-free stencil operator (K2-K5), as bslab
@@ -36,6 +38,17 @@ CUDA-graph replays of 20 calls timed with CUDA events, with the bytes K8
 moves at least (diagonals once, X and Y once). The patterns separate the
 cost of the matrix stream from that of the shifted x loads.
 
+``--k8-variants`` times designs of K8 that differ from this tree's by one
+edit of ``csrc/dia_spmm.cu`` (``K8_VARIANTS``: how many columns a thread
+sums, the block size; and two diagnostics that read the wrong x on
+purpose: every chunk's x from the same rows, so from L1, and no x loads at
+all), each written to ``build/k8_variants/`` and built with this tree's
+flags, on the n^3 stencil at k = 8, in turns with this tree's K8 (this,
+the others, the others again in reverse, this), beside its bound; with
+``--against DIR`` another tree's K8 among them (for instance the parent,
+unpacked with ``git archive``). Every variant but the diagnostics is first
+held to this tree's result bit for bit.
+
 ``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
 does for the CLI. Every time line carries the card's name and power limit
 from nvidia-smi.
@@ -47,6 +60,7 @@ import argparse
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -77,7 +91,8 @@ from sparsebench_tpu_torch.solvers.minres import minres_loop
 KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
            "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
            "stencil_cg_vmem_kernel", "bslab_spmv_kernel",
-           "bslab_spmv_win_kernel", "dia_spmm_kernel", "bsell_spmv_kernel",
+           "bslab_spmv_win_kernel", "dia_spmm_kernel", "dia_spmm_quad_kernel",
+           "bsell_spmv_kernel",
            "bsell_spmv_win_kernel")
 SOLVERS = ("cg", "nrhs", "gmres", "cheb", "bicgstab", "minres")
 GMRES_RESTART = 30
@@ -85,6 +100,22 @@ NRHS = 8  # right-hand sides of --solver nrhs
 PATTERN_KS = (1, 2, 4, 8, 16)  # block widths of --patterns
 OPERATORS = {"dia": DiaMatrix, "stencil": StencilOperator,
              "bslab": BslabMatrix, "bsell": BsellMatrix}
+# --k8-variants: (name, edits of csrc/dia_spmm.cu, its result is right)
+_X_LOADS = ("      if (j0 >= 0 && j0 < n) Vec4<TX>::load(xc + j0, w[c] + 1);\n"
+            "      if (lane == 0) edge[c] = x_at(xc, j0 - 1, n);\n"
+            "      if (lane == 31) edge[c] = x_at(xc, j0 + 4, n);\n")
+K8_VARIANTS = (
+    ("8 columns a thread", [("kSlices = 4;", "kSlices = 1;")], True),
+    ("4 columns a thread", [("kSlices = 4;", "kSlices = 2;")], True),
+    ("1 column a thread", [("kSlices = 4;", "kSlices = 8;"),
+                           ("kQuadThreads = 128;", "kQuadThreads = 256;")],
+     True),
+    ("blocks of 256", [("kQuadThreads = 128;", "kQuadThreads = 256;")], True),
+    ("blocks of 512", [("kQuadThreads = 128;", "kQuadThreads = 512;")], True),
+    ("x from L1", [("const long long j0 = i0 + s0 + 1 - shift;",
+                    "const long long j0 = i0;")], False),
+    ("no x loads", [(_X_LOADS, "      (void)xc;\n")], False),
+)
 
 
 def _best_wall(fn, reps: int = 3) -> float:
@@ -258,6 +289,72 @@ def profile_patterns(n: int, gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
+def k8_variant_trees(root) -> list:
+    """(name, tree, right) of ``K8_VARIANTS``: this tree's csrc/dia_spmm.cu
+    with the variant's edits and the shared headers, under ``root``."""
+    from sparsebench_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "dia_spmm.cu").read_text()
+    out = []
+    for i, (name, edits, right) in enumerate(K8_VARIANTS):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"--k8-variants: {name!r} does not apply to "
+                                 f"csrc/dia_spmm.cu ({old.strip()!r})")
+            text = text.replace(old, new)
+        tree = root / f"v{i}"
+        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        csrc.mkdir(parents=True, exist_ok=True)
+        for h in _build.CSRC_DIR.glob("*.cuh"):
+            (csrc / h.name).write_bytes(h.read_bytes())
+        (csrc / "dia_spmm.cu").write_text(text)
+        out.append((name, tree, right))
+    return out
+
+
+def profile_k8_variants(n: int, gpu: str, against=None) -> None:
+    """K8 at k = 8 on the n^3 stencil: this tree's beside its variants and,
+    with ``against``, another tree's, in turns."""
+    from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k8
+
+    dev = torch.device("cuda")
+    A, _ = DiaMatrix.from_stencil(n, n, n, device=dev, impl="kernel",
+                                  policy=DTypePolicy.from_names("f32"))
+    d, offs, nr = A.data, A.offsets, A.nr
+    X = torch.randn((NRHS, nr), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    fns = {"this tree": (lambda: dia_spmm(d, X, offs, nr), True)}
+    trees = k8_variant_trees(_build.BUILD_DIR.parent / "k8_variants")
+    if against is not None:
+        trees.insert(0, ("the other tree", against, True))
+    for name, tree, right in trees:
+        lib = build_other(tree, "dia_spmm")
+        fns[name] = (lambda lib=lib: lib_k8(lib, d, X, offs, nr), right)
+    want = fns["this tree"][0]()
+    for name, (fn, right) in fns.items():
+        y = fn()
+        if right and not torch.equal(y.view(torch.int32),
+                                     want.view(torch.int32)):
+            raise SystemExit(f"K8 {name} differs from this tree's at {n}^3")
+        y.fill_(float("nan"))  # the next variant's output may reuse it
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(replay_ms(fns[name][0]))
+    bound = (len(offs) * nr * d.element_size() + 2 * NRHS * nr * 4) / 3.35e9
+    this = min(ms["this tree"])
+    for name, runs in ms.items():
+        best = min(runs)
+        print(f"{n}^3 k={NRHS} K8 {name}{'' if fns[name][1] else ' (wrong x)'}"
+              f": {best:.6f} ms ({'/'.join(f'{t:.6f}' for t in runs)}), "
+              f"{best / this:.3f}x this tree's, {bound / best:.3f} of the "
+              f"bound {bound:.6f} ms | {gpu}", flush=True)
+    del A, d, X
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_cg")
     ap.add_argument("-n", type=int, nargs="+", default=[100, 200],
@@ -274,6 +371,12 @@ def main(argv=None) -> int:
     ap.add_argument("--patterns", action="store_true",
                     help="time K8 against k x K1 on diagonal patterns "
                     "(module docstring) instead of a solve")
+    ap.add_argument("--k8-variants", action="store_true",
+                    help="time K8 beside designs one edit away (module "
+                    "docstring) instead of a solve")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="with --k8-variants, another tree of this "
+                    "repository whose K8 to time in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cg needs a CUDA card")
@@ -284,7 +387,9 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} | {gpu}")
     for n in args.n:
-        if args.patterns:
+        if args.k8_variants:
+            profile_k8_variants(n, gpu, args.against)
+        elif args.patterns:
             profile_patterns(n, gpu)
         else:
             profile_size(n, args.itermax, args.fmt, args.variant, gpu,

@@ -17,6 +17,7 @@ digits they print, and the difference line exactly.
 """
 
 import re
+import time
 
 import jax
 import numpy as np
@@ -35,6 +36,7 @@ from sparsebench_tpu.formats.base import (  # noqa: E402
 )
 from sparsebench_tpu.host import HostCSR as JaxCSR  # noqa: E402
 from sparsebench_tpu.host import generate_stencil as jax_generate  # noqa: E402
+from sparsebench_tpu.host import native as jax_native  # noqa: E402
 from sparsebench_tpu.host import read_mm as jax_read_mm  # noqa: E402
 from sparsebench_tpu.host.rcm import permute_csr as jax_permute  # noqa: E402
 from sparsebench_tpu.host.rcm import rcm_permutation as jax_rcm  # noqa: E402
@@ -178,9 +180,27 @@ def test_build_arrays_equal_jax(case, dtype):
             assert g == w
 
 
+@pytest.fixture(scope="module")
+def jax_native_build():
+    """The JAX package's native host library, loaded before its
+    ``from_csr`` runs. That build takes the native C++ path where the
+    library loads and its numpy path where it does not, and the two store
+    an empty f32 matrix differently: the native path as f32 (no entry to
+    compress, the port's rule), the numpy path as bf16 (its zero padding
+    round-trips). The library is built by ``make`` at first use; where
+    several test processes start at once, one may find another's
+    half-written file, fail to load it and take the numpy path. So load it
+    here, looking again while another process may still be writing it."""
+    deadline = time.monotonic() + 120
+    while jax_native.get_lib() is None and time.monotonic() < deadline:
+        time.sleep(0.5)
+        jax_native._tried = False  # get_lib looks (and builds) again
+    return jax_native.get_lib()
+
+
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 @pytest.mark.parametrize("case", sorted(CSR_CASES))
-def test_from_csr_arrays_equal_jax(case, dtype):
+def test_from_csr_arrays_equal_jax(case, dtype, jax_native_build):
     """f32 values compress to bf16 where lossless, indices to int8."""
     cj = CSR_CASES[case]()
     Aj = jax_bsell.BsellMatrix.from_csr(cj, JaxPolicy.from_names(dtype, "i32"))

@@ -1,5 +1,4 @@
-"""The host-side planning of the bsell windowed kernels K10 and K11, on the
-CPU.
+"""The host-side planning of the bsell kernels K9, K10 and K11, on the CPU.
 
 K10 and K11 (``ops/bsell_spmv.py``, ``csrc/bsell_spmv.cu``) keep each
 tile's window of x rows [wchunk W, wchunk W + 2W) in a ring of two W-row
@@ -17,7 +16,11 @@ and are held here to plain references:
   without building the device arrays) every block id that a step reads
   lies in a resident chunk, every lane group is computed once, a step never
   spans a chunk change, and a chunk is copied only when it is not
-  resident, backward jumps included.
+  resident, backward jumps included;
+* K9's walk of lane groups (``k9_schedule``): persistent blocks of 8 warps,
+  as many as its launcher starts, each a contiguous run of lane groups, a
+  warp a lane group at a time; every lane group computed once, for tile
+  counts that do not divide the blocks.
 """
 
 from pathlib import Path
@@ -47,6 +50,7 @@ from sparsebench_tpu_torch.ops.bsell_spmv import (  # noqa: E402
 DATA = Path(__file__).parent / "data"
 DT = {"f32": torch.float32, "f64": torch.float64}
 WARPS = 32  # a K10/K11 block's warps (csrc/bsell_spmv.cu kWarpsWin)
+WARPS_K9 = 8  # a K9 block's warps (kWarpsK9)
 RING = 2    # chunks in a block's ring (kRing)
 F32 = JaxPolicy.from_names("f32", "i32")
 
@@ -358,3 +362,65 @@ def test_unit_ranges_split_the_lane_groups_evenly(units):
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     sizes = [g1 - g0 for g0, g1 in ranges]
     assert max(sizes) - min(sizes) <= 1
+
+
+def k9_grid(n_tiles, resident):
+    """K9's blocks (csrc/bsell_spmv.cu launch): as many as fit the card at
+    once, no more than it takes to give every warp a lane group."""
+    return min(resident, -(-(n_tiles * SUBLANES) // WARPS_K9))
+
+
+def k9_schedule(n_tiles, units):
+    """K9's walk (bsell_spmv_kernel), in Python: for each block, the lane
+    groups each of its warps computes, in order (warp w: g0 + w, g0 + w +
+    8, ... below g1)."""
+    total = n_tiles * SUBLANES
+    return [[list(range(unit_range(u, units, total)[0] + w,
+                        unit_range(u, units, total)[1], WARPS_K9))
+             for w in range(WARPS_K9)] for u in range(units)]
+
+
+@pytest.mark.parametrize("n_tiles", [1, 3, 13, 977, 7813])
+@pytest.mark.parametrize("resident", [1, 5, 132 * 4, 132 * 8])
+def test_k9_schedule_computes_every_lane_group_once(n_tiles, resident):
+    """977 and 7813 tiles are the stencil's at 100^3 and 200^3; 528 and 1056
+    blocks fill the card at 4 and 8 blocks an SM. Each block walks a
+    contiguous run of lane groups, its warps in steps of 8 consecutive
+    ones, and the runs tile the lane groups: each is computed once, the
+    blocks' and the warps' shares differing by at most one."""
+    units = k9_grid(n_tiles, resident)
+    assert 1 <= units <= resident
+    sched = k9_schedule(n_tiles, units)
+    total = n_tiles * SUBLANES
+    seen = np.zeros(total, np.int64)
+    for u, warps in enumerate(sched):
+        g0, g1 = unit_range(u, units, total)
+        assert sorted(g for gs in warps for g in gs) == list(range(g0, g1))
+        for gs in warps:
+            assert all(b - a == WARPS_K9 for a, b in zip(gs, gs[1:]))
+            seen[gs] += 1
+        loads = [len(gs) for gs in warps]
+        assert max(loads) - min(loads) <= 1 and sum(loads) > 0
+    np.testing.assert_array_equal(seen, 1)
+    sizes = [sum(map(len, warps)) for warps in sched]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("n,w,cluster", [(100, 168, 1), (200, 640, 4)])
+def test_auto_picks_k9_where_k10_could_run(n, w, cluster):
+    """bsell's ``auto`` on a CUDA device is K9 (``kernel``) at the 100^3 and
+    200^3 stencil shapes, where K10 would also run (one block, a unit of 4):
+    K9 measured faster there (formats/bsell.py resolve_impl). On the CPU it
+    is the plain version, and the kernels are refused."""
+    from sparsebench_tpu_torch.formats.bsell import resolve_impl
+
+    w_blocks, _, _ = stencil_plan(n, n, 1)
+    assert w_blocks == w
+    assert win_plan(w_blocks, torch.float32).cluster == cluster
+    for dt in (torch.float32, torch.float64):
+        win_plan(w_blocks, dt)  # K10 holds the window in f64 too
+    assert resolve_impl("auto", torch.device("cuda")) == "kernel"
+    assert resolve_impl("auto", torch.device("cuda", 0)) == "kernel"
+    assert resolve_impl("auto", torch.device("cpu")) == "torch"
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        resolve_impl("kernel_win2", torch.device("cpu"))

@@ -52,7 +52,12 @@ from sparsebench_tpu_torch.ops.bslab_spmv import (
     win_plan,
 )
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
-from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm, dia_spmm_torch
+from sparsebench_tpu_torch.ops.dia_spmm import (
+    aligned_shift,
+    dia_spmm,
+    dia_spmm_torch,
+    spmm_plan,
+)
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
 from sparsebench_tpu_torch.ops.memroof import (
     measure_dma_read_gbps,
@@ -794,6 +799,180 @@ def test_spmm_wrapper_refuses_non_cpu_non_cuda_tensors():
                  torch.zeros((2, 128), device="meta"), (0,), 128)
 
 
+def stencil_offsets(nx, ny, use_7pt=False):
+    """The DIA stencil's offsets, ascending (tests/test_torch_dia.py holds
+    them to the JAX package's): sz nx ny + sy nx + sx."""
+    A, _ = DiaMatrix.from_stencil(nx, ny, 3, use_7pt=use_7pt, device=CPU,
+                                  policy=DTypePolicy.from_names("f32"))
+    return A.offsets
+
+
+@pytest.mark.parametrize("nx,ny,use_7pt,lens,shifts", [
+    # every run of three centred on sz nx ny + sy nx = 0 mod 4
+    (100, 100, False, [3] * 9, [0] * 9),
+    (200, 200, False, [3] * 9, [0] * 9),
+    # 7 points: -nx ny, -nx, the run -1 0 1, nx, nx ny; the singles read
+    # X[i0 + o .. i0 + o + 3] with o their offset
+    (100, 100, True, [1, 1, 3, 1, 1], [1, 1, 0, 1, 1]),
+    (200, 200, True, [1, 1, 3, 1, 1], [1, 1, 0, 1, 1]),
+    # nx = 10: the runs centred on sy = +-1 (+-10 = 2 mod 4) are scalar
+    (10, 10, False, [3] * 9, [-1, 0, -1] * 3),
+])
+def test_spmm_plan_on_the_stencil(nx, ny, use_7pt, lens, shifts):
+    """K8's gate on the stencil's offsets at n = nx ny nz, a multiple of 4:
+    four rows a thread, the runs as chunks in order, and which of them
+    read x as one aligned vector a column (shift >= 0)."""
+    offsets = stencil_offsets(nx, ny, use_7pt)
+    n = nx * ny * 8
+    plan = spmm_plan(offsets, n, n, n, n, True)
+    assert plan.quad
+    assert [c.length for c in plan.chunks] == lens
+    assert [c.shift for c in plan.chunks] == shifts
+    assert [c.d0 for c in plan.chunks] == list(np.cumsum([0] + lens[:-1]))
+    assert [c.start for c in plan.chunks] == [offsets[c.d0]
+                                              for c in plan.chunks]
+    for c in plan.chunks:
+        assert list(offsets[c.d0:c.d0 + c.length]) == list(
+            range(c.start, c.start + c.length))
+
+
+@pytest.mark.parametrize("n,nr_pad,ldx,ldy,aligned", [
+    (630, 640, 630, 630, True),     # 10x9x7: n = 2 mod 4
+    (800, 896, 801, 800, True),     # a row stride of X not a multiple of 4
+    (800, 896, 800, 802, True),     # nor of Y
+    (800, 898, 800, 800, True),     # nor of the diagonals
+    (800, 896, 800, 800, False),    # a base pointer off 16 B
+])
+def test_spmm_plan_takes_the_general_form(n, nr_pad, ldx, ldy, aligned):
+    """Where a size, a stride or a base pointer does not allow aligned
+    vectors, one row a thread and every chunk read as scalars."""
+    offsets = stencil_offsets(100, 100)
+    plan = spmm_plan(offsets, n, nr_pad, ldx, ldy, aligned)
+    assert not plan.quad
+    assert all(c.shift == -1 for c in plan.chunks)
+    assert [c.length for c in plan.chunks] == [3] * 9
+    # chunks of consecutive offsets stop at four diagonals
+    plan = spmm_plan(range(-5, 5), 800, 896, 800, 800, True)
+    assert [(c.d0, c.length, c.start) for c in plan.chunks] == [
+        (0, 4, -5), (4, 4, -1), (8, 2, 3)]
+
+
+def test_aligned_shift_covers_what_four_rows_read():
+    """For every chunk of 1-4 consecutive offsets: where aligned_shift
+    gives a shift, the six x values from o - 1 (o = start + 1 - shift, 0
+    mod 4) hold every value rows i0 .. i0 + 3 read, at index q + u + shift;
+    where it gives -1, no o = 0 mod 4 does. A run of three is aligned
+    exactly where its centre is 0 mod 4."""
+    for start in range(-13, 14):
+        for length in range(1, 5):
+            shift = aligned_shift(start, length)
+            fits = [o for o in range(start - 8, start + 9) if o % 4 == 0
+                    and o - 1 <= start and start + length + 2 <= o + 4]
+            assert (shift >= 0) == bool(fits), (start, length)
+            if shift < 0:
+                continue
+            o = start + 1 - shift
+            assert o % 4 == 0 and 0 <= shift <= 2
+            for q in range(4):
+                for u in range(length):
+                    m = q + u + shift
+                    assert 0 <= m <= 5 and o - 1 + m == q + start + u
+            if length == 3:
+                assert (shift == 0) == ((start + 1) % 4 == 0)
+        assert aligned_shift(start, 3) in ((0,) if (start + 1) % 4 == 0
+                                           else (-1,))
+
+
+def emulate_four_row_form(data, X, offsets, n, plan):
+    """csrc/dia_spmm.cu's four-row form in torch: a thread per four rows,
+    x read as the kernel reads it (an aligned chunk's vector a column, the
+    value before it from the previous lane's vector and the one after from
+    the next lane's, lanes 0 and 31 reading theirs; another chunk's len + 3
+    scalars), summed per row in the diagonals' order, one rounding an op."""
+    assert plan.quad
+    k, xdt, zero = X.shape[0], X.dtype, torch.zeros((), dtype=X.dtype)
+    threads = -(-(n // 4) // 128) * 128
+    i0 = 4 * torch.arange(threads)
+    lane = torch.arange(threads) % 32
+    mine = i0 < n
+
+    def at(j):
+        """X[:, j] where 0 <= j < n, else 0: (k, threads)."""
+        return torch.where((j >= 0) & (j < n), X[:, j.clamp(0, n - 1)], zero)
+
+    acc = torch.zeros((k, threads, 4), dtype=xdt)
+    rows = (i0[:, None] + torch.arange(4)).clamp(max=data.shape[1] - 1)
+    for ch in plan.chunks:
+        a = [torch.where(mine[:, None], data[ch.d0 + u][rows].to(xdt), zero)
+             for u in range(ch.length)]
+        if ch.shift >= 0:
+            j0 = i0 + ch.start + 1 - ch.shift
+            inside = (j0 >= 0) & (j0 < n)
+            vec = torch.stack([torch.where(inside, at(j0 + m), zero)
+                               for m in range(4)], -1)
+            before = torch.where(lane == 0, at(j0 - 1),
+                                 torch.roll(vec[..., 3], 1, dims=1))
+            after = torch.where(lane == 31, at(j0 + 4),
+                                torch.roll(vec[..., 0], -1, dims=1))
+            w = torch.cat([before[..., None], vec, after[..., None]], -1)
+            shift = ch.shift
+        else:
+            w = torch.stack([at(i0 + ch.start + m)
+                             for m in range(ch.length + 3)], -1)
+            shift = 0
+        for u in range(ch.length):
+            for q in range(4):
+                acc[..., q] = acc[..., q] + a[u][:, q] * w[..., q + u + shift]
+    return acc.reshape(k, -1)[:, :n]
+
+
+@pytest.mark.parametrize("dims,use_7pt", [((10, 10, 8), False),
+                                          ((12, 10, 9), False),
+                                          ((8, 8, 8), True)])
+@pytest.mark.parametrize("pair", PAIRS)
+def test_four_row_form_emulated_equals_plain(dims, use_7pt, pair):
+    """The four-row form's reads and sums, emulated on the CPU, give the
+    plain version's bits: on the stencil with vector and scalar chunks
+    (10x10x8), with vectors only (12x10x9) and with the 7-point singles,
+    and on offsets of every phase mod 4 in chunks of 1-4."""
+    A, _ = DiaMatrix.from_stencil(*dims, use_7pt=use_7pt, device=CPU,
+                                  policy=DTypePolicy.from_names("f32"))
+    rng = np.random.default_rng(sum(dims))
+    cases = [(A.data, A.offsets, A.nr)]
+    offsets = (-37, -36, -35, -10, -3, 0, 1, 2, 5, 6, 7, 8, 9, 41, 42)
+    cases.append((torch.from_numpy(rng.standard_normal((len(offsets), 384))),
+                  offsets, 256))
+    for data, offs, n in cases:
+        data = data.to(DT[pair[0]])
+        X = torch.from_numpy(rng.standard_normal((3, n))).to(DT[pair[1]])
+        plan = spmm_plan(offs, n, data.shape[1], n, n, True)
+        assert plan.quad
+        shifts = {c.shift for c in plan.chunks}
+        assert shifts & {0, 1, 2} and (-1 in shifts or n == A.nr)
+        got = emulate_four_row_form(data, X, offs, n, plan)
+        want = dia_spmm_torch(data, X, offs, n)
+        bits = torch.int64 if X.dtype == torch.float64 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_k8_variants_are_one_edit_of_the_source(tmp_path):
+    """profile_cg --k8-variants writes each variant as this tree's
+    csrc/dia_spmm.cu with its edits, each found once, beside the shared
+    headers."""
+    from sparsebench_tpu_torch.profile_cg import K8_VARIANTS, k8_variant_trees
+
+    src = (_build.CSRC_DIR / "dia_spmm.cu").read_text()
+    trees = k8_variant_trees(tmp_path)
+    assert [name for name, _, _ in trees] == [v[0] for v in K8_VARIANTS]
+    for (name, tree, right), (_, edits, _) in zip(trees, K8_VARIANTS):
+        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        text = (csrc / "dia_spmm.cu").read_text()
+        assert text != src and all(new in text for _, new in edits), name
+        assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
+            p.name for p in _build.CSRC_DIR.glob("*.cuh"))
+    assert [right for _, _, right in trees].count(False) == 2
+
+
 def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):
     before = dia_spmm.launches
     Y = dia_spmm(data, X, offsets, nr)
@@ -826,6 +1005,26 @@ def test_spmm_kernel_on_edge_offsets(pair, offsets, nr, cuda_device):
     assert_spmm_is_k1_column_by_column(
         data.to(device=cuda_device, dtype=DT[pair[0]]),
         X.to(device=cuda_device, dtype=DT[pair[1]]), offsets, nr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("dims", [(10, 10, 8), (12, 10, 9)])
+@pytest.mark.parametrize("layout", ["contiguous", "ldx", "offset"])
+def test_spmm_kernel_forms_equal_plain_and_k1(layout, dims, pair,
+                                              cuda_device):
+    """Both forms of K8's gate on the card: four rows a thread with vector
+    and scalar chunks (10x10x8) or vectors only (12x10x9), and one row a
+    thread for an X with a row stride of nr + 1 or 4 B past 16 B."""
+    A, _ = DiaMatrix.from_stencil(*dims, policy=DTypePolicy.from_names("f32"),
+                                  device=cuda_device)
+    rng = np.random.default_rng(A.nr)
+    cols = A.nr + (layout == "ldx")
+    flat = torch.from_numpy(rng.standard_normal(8 * cols + 1)).to(
+        device=cuda_device, dtype=DT[pair[1]])
+    X = (flat[1:] if layout == "offset" else flat[:-1]).view(8, cols)
+    assert_spmm_is_k1_column_by_column(A.data.to(DT[pair[0]]), X, A.offsets,
+                                       A.nr)
 
 
 @pytest.mark.cuda
