@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
     python3 chip_smoke.py [--against DIR]
 
-(``--against``: phases 5d and 5f also time another tree's K8, K9 and K10
-in turns with this one's; without it the script needs no other tree.) Phases, each printing its own
+(``--against``: phases 5b, 5d and 5f also time another tree's K2 and K3,
+K8, K9 and K10 in turns with this one's; without it the script needs no
+other tree.) Phases, each printing its own
 lines; any failure raises and exits non-zero:
 
 1. fingerprint: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
@@ -17,11 +18,14 @@ lines; any failure raises and exits non-zero:
    generated stencil at 10x9x7, 100^3 and 200^3, on
    tests/data/matrix_band_klein.mtx and on synthetic edge offsets;
 3b. the stencil kernels against their plain versions: K2 (the apply, and
-   its dots form) for the 27- and 7-point stencils in bf16, f32 and f64 at
-   10x9x7, 100^3, 200^3 and edge shapes, the dots against their exact
-   value to the bound of the kernels' summation; K3 and K4 on
-   numpy-seeded random inputs; K5 (the whole CG solve in one launch) in
-   f64 and f32 at 100^3;
+   its dots form) and K3 (p' and w; delta) for the 27- and 7-point
+   stencils in bf16, f32 and f64 at 10x9x7, 100^3, 200^3 and edge shapes
+   (37x29x23, 64x8x3, 2x2x2, 1x1x1, 130x2x3, 128x5x4, 1x5x6), bit for
+   bit, the dots against their exact value to the bound of the kernels'
+   summation, on numpy-seeded random inputs; K2 and K3 again under forced
+   tile plans (every R, runs of 1 to 32 planes) at 100^3 and two edge
+   shapes, and a plan that does not fit refused; K4 bit for bit; K5 (the
+   whole CG solve in one launch) in f64 and f32 at 100^3;
 3c. the bslab kernels K6 and K7 (windowed) against bslab_spmv_torch, bit
    for bit, for (bf16, f32), (f32, f32) and (f64, f64) on the generated
    stencil at 10x9x7, 100^3 and 200^3 (K7 through a cluster of 4, f64 7),
@@ -48,8 +52,12 @@ lines; any failure raises and exits non-zero:
    version at 100^3 and 200^3, with physical GB/s, beside the same product
    as a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x);
 5b. times of K2-K5 (K5 at 100^3 and 200^3) beside their plain versions,
-   their bounds and, for K2, torch.nn.functional.conv3d; CG x150 seconds of
-   each stencil variant;
+   their bounds and, for K2, torch.nn.functional.conv3d; K5's bound counts
+   the part of r, p and x beyond the L2 read and written every iteration,
+   with the no-reuse figure beside it; with ``--against DIR`` that tree's
+   K2 and K3 (built with ``profile_bslab.build_other``, their outputs held
+   to this tree's) in turns with this tree's at 100^3 and 200^3; CG x150
+   seconds of each stencil variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
    GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M (K7 with
    win_plan's unit, and with a third ring slot in a forced cluster), and
@@ -427,7 +435,8 @@ def phase3b_stencil(dev):
     # K2: the apply bit for bit; the dots (f32 for every vector type) to
     # the summation bound of ``dots_check`` around their exact value
     shapes = [(10, 9, 7), (100, 100, 100), (200, 200, 200), (1, 1, 1),
-              (130, 2, 3), (128, 5, 4), (1, 5, 6)]
+              (130, 2, 3), (128, 5, 4), (1, 5, 6), (37, 29, 23), (64, 8, 3),
+              (2, 2, 2)]
     for dims in shapes:
         n = dims[0] * dims[1] * dims[2]
         for use_7pt in (False, True):
@@ -461,31 +470,36 @@ def phase3b_stencil(dev):
                       f"{'ok' if same and ok_dots else 'FAIL'}")
                 check(same and ok_dots, f"K2 disagrees on {name}")
     # K3: p' and w bit for bit, delta (at the compute width) to the
-    # summation bound around its exact value
-    for dims in [(10, 9, 7), (100, 100, 100), (200, 200, 200)]:
+    # summation bound around its exact value, 27- and 7-point
+    for dims in shapes:
         n = dims[0] * dims[1] * dims[2]
-        for dt in dts:
-            r, p = rand(n, dt), rand(n, dt)
-            beta = torch.tensor(float(rng.uniform(0.1, 2.0)), device=dev)
-            pn, w, d = stencil_axpy_apply_dots(r, p, beta, *dims)
-            pn_r, w_r, _d_r = stencil_axpy_apply_dots_torch(r, p, beta,
-                                                            *dims)
-            same = bits_equal(pn, pn_r) and bits_equal(w, w_r)
-            # p' and w at the compute width, before a bf16 store
-            cdt = d.dtype
-            pn_c, w_c, _ = stencil_axpy_apply_dots_torch(
-                r.to(cdt), p.to(cdt), beta, *dims)
-            e, tol, exact = dots_check(d, (w_c * pn_c).double(),
-                                       torch.finfo(cdt).eps)
-            ok = same and e <= tol
-            err["K3"] = max(err["K3"], float(
-                (w.double() - w_r.double()).abs().max()), float(
-                (pn.double() - pn_r.double()).abs().max()))
-            dots_rel["K3"] = max(dots_rel["K3"], e / max(abs(exact), 1e-30))
-            print(f"[3b K3] {dims[0]}x{dims[1]}x{dims[2]} {dt}: p', w "
-                  f"bit-identical {same}; |delta - exact| {e:.3e} (bound "
-                  f"{tol:.3e}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"K3 disagrees at {dims} {dt}")
+        for use_7pt in (False, True):
+            for dt in dts:
+                r, p = rand(n, dt), rand(n, dt)
+                beta = torch.tensor(float(rng.uniform(0.1, 2.0)), device=dev)
+                pn, w, d = stencil_axpy_apply_dots(r, p, beta, *dims, use_7pt)
+                pn_r, w_r, _d_r = stencil_axpy_apply_dots_torch(
+                    r, p, beta, *dims, use_7pt)
+                same = bits_equal(pn, pn_r) and bits_equal(w, w_r)
+                # p' and w at the compute width, before a bf16 store
+                cdt = d.dtype
+                pn_c, w_c, _ = stencil_axpy_apply_dots_torch(
+                    r.to(cdt), p.to(cdt), beta, *dims, use_7pt)
+                e, tol, exact = dots_check(d, (w_c * pn_c).double(),
+                                           torch.finfo(cdt).eps)
+                ok = same and e <= tol
+                err["K3"] = max(err["K3"], float(
+                    (w.double() - w_r.double()).abs().max()), float(
+                    (pn.double() - pn_r.double()).abs().max()))
+                dots_rel["K3"] = max(dots_rel["K3"],
+                                     e / max(abs(exact), 1e-30))
+                name = (f"{dims[0]}x{dims[1]}x{dims[2]} "
+                        f"{'7' if use_7pt else '27'}-pt {dt}")
+                print(f"[3b K3] {name}: p', w bit-identical {same}; "
+                      f"|delta - exact| {e:.3e} (bound {tol:.3e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"K3 disagrees on {name}")
+    stencil_forced_plans(dev, rng)
     # K4: all four outputs bit for bit, any length
     for n in (1, 1000, 10**6, 8 * 10**6):
         for dt in dts:
@@ -529,6 +543,59 @@ def phase3b_stencil(dev):
               f"{float((x_k - 1).abs().max()):.3e} {'ok' if ok else 'FAIL'}")
         check(ok, f"K5 disagrees with its plain version in {dt}")
     return err, dots_rel
+
+
+def stencil_forced_plans(dev, rng) -> None:
+    """K2 (with its dots) and K3 under forced tile plans, every R the
+    kernels are built for, bit for bit against their plain versions in
+    f32, 27- and 7-point; a plan that does not fit the grid is refused."""
+    import dataclasses
+
+    import torch
+
+    from sparsebench_tpu_torch.ops.stencil import (
+        stencil_apply,
+        stencil_apply_dots,
+        stencil_apply_torch,
+        stencil_axpy_apply_dots,
+        stencil_axpy_apply_dots_torch,
+        tile_plan,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dims in ((100, 100, 100), (37, 29, 23), (130, 2, 3)):
+        n = dims[0] * dims[1] * dims[2]
+        x, r, p = (torch.from_numpy(rng.standard_normal(n)).to(
+            dev, torch.float32) for _ in range(3))
+        beta = torch.tensor(0.7, device=dev)
+        for rows, tz in ((1, 1), (1, 32), (2, 16), (4, 8), (8, 1), (8, 4)):
+            plan = tile_plan(*dims, 4, sms, r=rows, tz=tz)
+            for use_7pt in (False, True):
+                y_ref = stencil_apply_torch(x, *dims, use_7pt)
+                same = (bits_equal(stencil_apply(x, *dims, use_7pt, plan),
+                                   y_ref)
+                        and bits_equal(stencil_apply_dots(
+                            x, *dims, use_7pt, plan)[0], y_ref))
+                pn, w, _d = stencil_axpy_apply_dots(r, p, beta, *dims,
+                                                    use_7pt, plan)
+                pn_r, w_r, _ = stencil_axpy_apply_dots_torch(r, p, beta,
+                                                             *dims, use_7pt)
+                same &= bits_equal(pn, pn_r) and bits_equal(w, w_r)
+                name = (f"{dims[0]}x{dims[1]}x{dims[2]} "
+                        f"{'7' if use_7pt else '27'}-pt R {rows} tz {tz} "
+                        f"(grid {plan.grid})")
+                print(f"[3b plans] {name}: K2 and K3 bit-identical {same} "
+                      f"{'ok' if same else 'FAIL'}")
+                check(same, f"K2/K3 disagree under the forced plan {name}")
+        bad = dataclasses.replace(plan, grid=plan.grid + 1)
+        try:
+            stencil_apply(x, *dims, False, bad)
+            refused = False
+        except RuntimeError:
+            refused = True
+        print(f"[3b plans] {dims}: a plan whose grid does not fit refused "
+              f"{refused} {'ok' if refused else 'FAIL'}")
+        check(refused, f"K2 took a plan that does not fit {dims}")
 
 
 def phase4b_stencil(cli, gpu):
@@ -654,9 +721,12 @@ def stencil_cg_seconds(dev, gpu) -> None:
                   f"{n}^3 {label}: k={res.iterations}, max|x-1| {diff}")
 
 
-def phase5b_times(dev, gpu):
+def phase5b_times(dev, gpu, against=None):
     """Per-call ms of K2-K5, their plain versions, bounds and library
-    calls; returns {kernel: {...}}."""
+    calls; with ``against`` (another tree of this repository, the parent
+    unpacked with git archive) that tree's K2 and K3, their outputs held to
+    this tree's, timed in turns with this tree's (other, this, this,
+    other). Returns {kernel: {...}}."""
     import torch
     import torch.nn.functional as F
 
@@ -675,6 +745,23 @@ def phase5b_times(dev, gpu):
 
     out = {"K2": {}, "K3": {}, "K4": {}, "K5": {}}
     rng = np.random.default_rng(7)
+    parent = None
+    if against is not None:
+        from sparsebench_tpu_torch.profile_bslab import (
+            build_other,
+            lib_k2,
+            lib_k3,
+        )
+
+        parent = build_other(against, "stencil")
+
+    def in_turns(key, n, other, this):
+        """The other tree's kernel and this tree's, (other, this, this,
+        other) by graph replay; records parent_ms."""
+        runs = [time_graph(f) for f in (other, this, this, other)]
+        out[key][n]["parent_ms"] = min(runs[0], runs[3])
+        return (f"; in turns: parent {runs[0]:.6f}/{runs[3]:.6f}, this "
+                f"{runs[1]:.6f}/{runs[2]:.6f} ms")
     torch.backends.cudnn.allow_tf32 = False  # the conv3d yardstick in f32
     for n in (100, 200):
         pts = n ** 3
@@ -697,21 +784,46 @@ def phase5b_times(dev, gpu):
         b_ms, b_by = bound(2 * 4 * pts, APPLY_FLOPS * pts)
         out["K2"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib, eager_ms=eager)
+        turns = ""
+        if parent is not None:
+            nan = torch.full_like(x, float("nan"))
+            check(bits_equal(lib_k2(parent, x, *dims, out=nan),
+                             stencil_apply(x, *dims)),
+                  f"the parent's K2 differs from this tree's at {n}^3")
+            del nan
+            turns = in_turns("K2", n, lambda: lib_k2(parent, x, *dims),
+                             lambda: stencil_apply(x, *dims))
         print(f"[5b times] K2 apply {n}^3 f32: kernel {all_ms['kernel']} ms, "
               f"plain {all_ms['plain']} ms (graph replay), kernel eager "
               f"{eager:.6f} ms, conv3d (cuDNN, TF32 off) "
               f"{lib:.6f} ms (max|conv3d - kernel| {conv_err:.3e}); bound "
-              f"{b_ms:.6f} ms ({b_by}) | {gpu}")
+              f"{b_ms:.6f} ms ({b_by}), {b_ms / k_ms:.3f} of it{turns} | "
+              f"{gpu}")
         k_ms, p_ms, all_ms, eager = time_pair(
             lambda: stencil_axpy_apply_dots(r, p, beta, *dims),
             lambda: stencil_axpy_apply_dots_torch(r, p, beta, *dims))
         b_ms, b_by = bound(4 * 4 * pts, K3_FLOPS * pts)
         out["K3"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, eager_ms=eager)
+        turns = ""
+        if parent is not None:
+            got = lib_k3(parent, r, p, beta, *dims)
+            want = stencil_axpy_apply_dots(r, p, beta, *dims)
+            check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+                  f"the parent's K3 differs from this tree's at {n}^3")
+            e, tol, _exact = dots_check(got[2], (want[1].double()
+                                                 * want[0].double()),
+                                        torch.finfo(torch.float32).eps)
+            check(e <= tol, f"the parent's K3 delta is off at {n}^3")
+            del got, want
+            turns = in_turns(
+                "K3", n, lambda: lib_k3(parent, r, p, beta, *dims),
+                lambda: stencil_axpy_apply_dots(r, p, beta, *dims))
         print(f"[5b times] K3 axpy+apply+dot {n}^3 f32: kernel "
               f"{all_ms['kernel']} ms, plain {all_ms['plain']} ms (graph "
               f"replay), kernel eager {eager:.6f} ms; bound "
-              f"{b_ms:.6f} ms ({b_by}) | {gpu}")
+              f"{b_ms:.6f} ms ({b_by}), {b_ms / k_ms:.3f} of it{turns} | "
+              f"{gpu}")
         vecs = [vec() for _ in range(6)]
         al = torch.tensor(0.3, device=dev)
         k_ms, p_ms, all_ms, eager = time_pair(
@@ -740,15 +852,31 @@ def phase5b_times(dev, gpu):
             lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
             lambda: stencil_cg_vmem_torch(r0, x0, 0.0, n, n, n, 150),
             graph=False, reps=3)
+        # The bound: r0 and x0 read and x written once; and every
+        # iteration run, the part of r, p and x (three f32 vectors) that
+        # the L2 cannot hold read once and written once, since an iteration
+        # reads and updates all three; the larger of those bytes over the
+        # memory rate and the operations over the f32 rate. Beside it the
+        # no-reuse figure: all of r, p and x read and written each
+        # iteration.
         pts = n ** 3
-        b_ms, b_by = bound(3 * 4 * pts, (2 + K5_FLOPS_PER_ITER * iters) * pts)
+        vecs = 3 * 4 * pts
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        beyond = max(0, vecs - l2)
+        b_ms, b_by = bound(vecs + iters * 2 * beyond,
+                           (2 + K5_FLOPS_PER_ITER * iters) * pts)
+        no_reuse_ms = (vecs + iters * 2 * vecs) / HBM_BYTES_PER_S * 1e3
         out["K5"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None, eager_ms=eager)
+                            bound_by=b_by, library_ms=None, eager_ms=eager,
+                            bound_no_reuse_ms=no_reuse_ms)
         print(f"[5b times] K5 whole CG solve {n}^3 f32 x150 ({iters} "
               f"iterations run): kernel {all_ms['kernel']} ms, plain "
               f"{all_ms['plain']} ms; bound {b_ms:.6f} ms ({b_by}: r0 and x0 "
-              f"read, x written once; {K5_FLOPS_PER_ITER} flops a point an "
-              f"iteration) | {gpu}")
+              f"read, x written once, and an iteration's {beyond} B of r, p "
+              f"and x beyond the {l2} B L2 read and written; "
+              f"{K5_FLOPS_PER_ITER} flops a point an iteration), "
+              f"{b_ms / k_ms:.3f} of it; no reuse (r, p, x read and written "
+              f"each iteration) {no_reuse_ms:.6f} ms | {gpu}")
         del b, x0, r0, _x, hist
     return out
 
@@ -2371,8 +2499,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--against", type=Path, default=None,
                     help="another tree of this repository (the parent "
-                    "unpacked with git archive) whose K8 (phase 5d), K9 and "
-                    "K10 (phase 5f) to time in turns with this tree's")
+                    "unpacked with git archive) whose K2 and K3 (phase 5b), "
+                    "K8 (phase 5d), K9 and K10 (phase 5f) to time in turns "
+                    "with this tree's")
     args = ap.parse_args(argv)
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -2541,7 +2670,7 @@ def main(argv=None) -> int:
         del A_k, A_t, x
 
     # -- phase 5b: times of K2-K5 and the stencil variants -------------------
-    times_b = phase5b_times(dev, gpu)
+    times_b = phase5b_times(dev, gpu, args.against)
     stencil_cg_seconds(dev, gpu)
 
     # -- phase 5c: times of K6 and K7 and the bslab CG -----------------------

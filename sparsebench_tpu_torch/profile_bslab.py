@@ -30,8 +30,9 @@ with this tree's: other, this, this, other. The other tree's K6 and K9
 share this tree's C interfaces; its K10 is called with the arguments its
 source declares after ``w_blocks`` (none, or this tree's unit of blocks, or
 that and a ring depth of two), and where it refuses the window it is left
-out. (``lib_k8`` calls another tree's K8 the same way, for
-``chip_smoke.py --against``.)
+out. (``lib_k8`` calls another tree's K8, and ``lib_k2`` and ``lib_k3``
+its stencil kernels K2 and K3, the same way, for ``chip_smoke.py
+--against``.)
 The last line is one JSON object of every time, with the card's name and
 power limit.
 """
@@ -105,6 +106,20 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
     lib.sb_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sb_cuda_error_string.restype = ctypes.c_char_p
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "stencil":
+        # K2 (x, y, parts) and K3 (r, p, beta, pn, w, parts), then nx, ny,
+        # nz, use_7pt and, where the source takes one, the tile plan (r,
+        # tz, grid, smem); before the march, one block of 256 points each
+        lib.stencil_takes_plan = "SB_STENCIL_PLAN" in src.read_text()
+        plan = [i32, i32, i64, i64] if lib.stencil_takes_plan else []
+        for sfx in ("bf16", "f32", "f64"):
+            fn = getattr(lib, f"sb_stencil_apply_{sfx}")
+            fn.argtypes = [p] * 3 + [i32] * 4 + plan + [p]
+            fn.restype = i32
+            fn = getattr(lib, f"sb_stencil_axpy_apply_dots_{sfx}")
+            fn.argtypes = [p] * 6 + [i32] * 4 + plan + [p]
+            fn.restype = i32
+        return lib
     for sfx in ops._SUFFIX.values():
         if name == "bslab_spmv":
             fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
@@ -133,6 +148,54 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
             fn.argtypes = [p] * 6 + [i32] * (4 + lib.k10_unit_args) + [p]
         fn.restype = i32
     return lib
+
+
+def _other_stencil_plan(lib: ctypes.CDLL, v, nx: int, ny: int, nz: int):
+    """(the plan arguments, the count of partials) of another tree's K2 or
+    K3: this tree's ``device_plan`` where its source takes a plan, else
+    none and one partial a 256-point block."""
+    from sparsebench_tpu_torch.ops import stencil as st
+
+    if not lib.stencil_takes_plan:
+        return (), -(-(nx * ny * nz) // 256)
+    plan = st.device_plan(v, nx, ny, nz)
+    return (plan.r, plan.tz, plan.grid, plan.smem), plan.grid
+
+
+def lib_k2(lib: ctypes.CDLL, x, nx: int, ny: int, nz: int,
+           use_7pt: bool = False, out=None):
+    """K2 of another tree's library on this tree's inputs: y (into ``out``
+    when given, as ``lib_k9``), through the interface its source
+    declares."""
+    from sparsebench_tpu_torch.ops import stencil as st
+
+    y = out if out is not None else torch.empty_like(x)
+    plan, _ = _other_stencil_plan(lib, x, nx, ny, nz)
+    err = getattr(lib, f"sb_stencil_apply_{st.DTYPE_SUFFIX[x.dtype]}")(
+        x.data_ptr(), y.data_ptr(), None, nx, ny, nz, int(use_7pt), *plan,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "other stencil_apply")
+    return y
+
+
+def lib_k3(lib: ctypes.CDLL, r, p, beta, nx: int, ny: int, nz: int,
+           use_7pt: bool = False):
+    """K3 of another tree's library on this tree's inputs: (p', w, delta)
+    through the interface its source declares; beta a 0-d tensor at the
+    compute width."""
+    from sparsebench_tpu_torch.ops import stencil as st
+
+    cdt = st.compute_dtype(r.dtype)
+    plan, n_parts = _other_stencil_plan(lib, r, nx, ny, nz)
+    pn, w = torch.empty_like(r), torch.empty_like(r)
+    parts = torch.empty(n_parts, dtype=cdt, device=r.device)
+    beta = beta.to(cdt).reshape(1)
+    err = getattr(lib, f"sb_stencil_axpy_apply_dots_{st.DTYPE_SUFFIX[r.dtype]}")(
+        r.data_ptr(), p.data_ptr(), beta.data_ptr(), pn.data_ptr(),
+        w.data_ptr(), parts.data_ptr(), nx, ny, nz, int(use_7pt), *plan,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, err, "other stencil_axpy_apply_dots")
+    return pn, w, torch.sum(parts)
 
 
 def lib_k9(lib: ctypes.CDLL, A, x2d, vals, out=None):

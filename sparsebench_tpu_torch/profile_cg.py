@@ -7,6 +7,8 @@
     python -m sparsebench_tpu_torch.profile_cg --patterns [-n 100 200]
     python -m sparsebench_tpu_torch.profile_cg --k8-variants [-n 100 200]
         [--against DIR]
+    python -m sparsebench_tpu_torch.profile_cg --stencil-plans [-n 100 200]
+        [--against DIR] [--stencil-variants]
 
 For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
 diagonals (K1), as the matrix-free stencil operator (K2-K5), as bslab
@@ -48,6 +50,19 @@ the others, the others again in reverse, this), beside its bound; with
 ``--against DIR`` another tree's K8 among them (for instance the parent,
 unpacked with ``git archive``). Every variant but the diagnostics is first
 held to this tree's result bit for bit.
+
+``--stencil-plans`` times the stencil kernels K2 (the apply) and K3 (the
+fused p-update, apply and dot) on the n^3 grid, f32, under the default
+tile plan (``device_plan``) and under each forced plan of
+``STENCIL_PLANS`` (R rows a thread, tz planes a run), in turns (the
+default, the others, the others again in reverse, the default), each first
+held bit for bit to the plain version; with ``--against DIR`` another
+tree's K2 and K3 among them (``profile_bslab.lib_k2``, ``lib_k3``), its
+outputs held to this tree's; with ``--stencil-variants`` also the kernels
+of ``STENCIL_VARIANTS``, each one edit of ``csrc/stencil.cu`` away
+(written to ``build/stencil_variants/``), on the default plan. Beside
+each: the share of the bytes bound (x read and y written; K3 r and p read,
+p' and w written; 3.35 TB/s).
 
 ``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
 does for the CLI. Every time line carries the card's name and power limit
@@ -115,6 +130,18 @@ K8_VARIANTS = (
     ("x from L1", [("const long long j0 = i0 + s0 + 1 - shift;",
                     "const long long j0 = i0;")], False),
     ("no x loads", [(_X_LOADS, "      (void)xc;\n")], False),
+)
+# --stencil-plans: (R, tz) forced beside the default plan
+STENCIL_PLANS = ((1, 16), (1, 32), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8),
+                 (8, 2), (8, 4))
+# --stencil-variants: (name, edits of csrc/stencil.cu, its result is right)
+STENCIL_VARIANTS = (
+    ("K2 unbounded", [("std::is_same<T, float>::value && R <= 2 ? 6 : 1;",
+                       "1;")], True),
+    ("K3 at five blocks an SM",
+     [("__launch_bounds__(kThreads)\nstencil_axpy_apply_dots_kernel(",
+       "__launch_bounds__(kThreads, 5)\nstencil_axpy_apply_dots_kernel(")],
+     True),
 )
 
 
@@ -289,26 +316,27 @@ def profile_patterns(n: int, gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
-def k8_variant_trees(root) -> list:
-    """(name, tree, right) of ``K8_VARIANTS``: this tree's csrc/dia_spmm.cu
-    with the variant's edits and the shared headers, under ``root``."""
+def variant_trees(root, source: str, variants) -> list:
+    """(name, tree, right) of each (name, edits, right) of ``variants``:
+    this tree's csrc/<source> with the variant's edits and the shared
+    headers, under ``root``."""
     from sparsebench_tpu_torch.ops import _build
 
-    src = (_build.CSRC_DIR / "dia_spmm.cu").read_text()
+    src = (_build.CSRC_DIR / source).read_text()
     out = []
-    for i, (name, edits, right) in enumerate(K8_VARIANTS):
+    for i, (name, edits, right) in enumerate(variants):
         text = src
         for old, new in edits:
             if text.count(old) != 1:
-                raise SystemExit(f"--k8-variants: {name!r} does not apply to "
-                                 f"csrc/dia_spmm.cu ({old.strip()!r})")
+                raise SystemExit(f"variant {name!r} does not apply to "
+                                 f"csrc/{source} ({old.strip()!r})")
             text = text.replace(old, new)
         tree = root / f"v{i}"
         csrc = tree / "sparsebench_tpu_torch" / "csrc"
         csrc.mkdir(parents=True, exist_ok=True)
         for h in _build.CSRC_DIR.glob("*.cuh"):
             (csrc / h.name).write_bytes(h.read_bytes())
-        (csrc / "dia_spmm.cu").write_text(text)
+        (csrc / source).write_text(text)
         out.append((name, tree, right))
     return out
 
@@ -326,7 +354,8 @@ def profile_k8_variants(n: int, gpu: str, against=None) -> None:
     X = torch.randn((NRHS, nr), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
     fns = {"this tree": (lambda: dia_spmm(d, X, offs, nr), True)}
-    trees = k8_variant_trees(_build.BUILD_DIR.parent / "k8_variants")
+    trees = variant_trees(_build.BUILD_DIR.parent / "k8_variants",
+                          "dia_spmm.cu", K8_VARIANTS)
     if against is not None:
         trees.insert(0, ("the other tree", against, True))
     for name, tree, right in trees:
@@ -355,6 +384,67 @@ def profile_k8_variants(n: int, gpu: str, against=None) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_stencil_plans(n: int, gpu: str, against=None,
+                          variants: bool = False) -> None:
+    """K2 and K3 on the n^3 grid under the default plan, each forced plan
+    of ``STENCIL_PLANS`` and, with ``against``, another tree's kernels and,
+    with ``variants``, those of ``STENCIL_VARIANTS``, in turns."""
+    from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.ops import stencil as st
+    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k2, lib_k3
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, r, p = (torch.randn(n ** 3, device=dev, generator=gen)
+               for _ in range(3))
+    beta = torch.tensor(0.5, device=dev)
+    dims = (n, n, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {"default": st.device_plan(x, *dims)}
+    for rows, tz in STENCIL_PLANS:
+        plans[f"R {rows} tz {tz}"] = st.tile_plan(*dims, 4, sms, r=rows,
+                                                  tz=tz)
+    want = (st.stencil_apply_torch(x, *dims),
+            *st.stencil_axpy_apply_dots_torch(r, p, beta, *dims)[:2])
+    fns = {}
+    for name, plan in plans.items():
+        fns[name] = (
+            lambda plan=plan: st.stencil_apply(x, *dims, plan=plan),
+            lambda plan=plan: st.stencil_axpy_apply_dots(r, p, beta, *dims,
+                                                         plan=plan))
+    trees = (variant_trees(_build.BUILD_DIR.parent / "stencil_variants",
+                           "stencil.cu", STENCIL_VARIANTS) if variants else [])
+    if against is not None:
+        trees.insert(0, ("the other tree", against, True))
+    for name, tree, _right in trees:
+        lib = build_other(tree, "stencil")
+        fns[name] = (lambda lib=lib: lib_k2(lib, x, *dims),
+                     lambda lib=lib: lib_k3(lib, r, p, beta, *dims))
+    for name, (k2, k3) in fns.items():
+        got = (k2(), *k3()[:2])
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want)):
+            raise SystemExit(f"K2/K3 {name} differs from the plain version "
+                             f"at {n}^3")
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: ([], []) for name in fns}
+    for name in order:
+        for j in range(2):
+            ms[name][j].append(replay_ms(fns[name][j]))
+    bounds = (2 * 4 * n ** 3 / 3.35e9, 4 * 4 * n ** 3 / 3.35e9)
+    for name, (t2, t3) in ms.items():
+        plan = plans.get(name)
+        shape = (f"R {plan.r} tz {plan.tz}, grid {plan.grid}"
+                 if plan is not None else "its own launch")
+        print(f"{n}^3 f32 {name} ({shape}): K2 {min(t2):.6f} ms "
+              f"({'/'.join(f'{t:.6f}' for t in t2)}), {bounds[0] / min(t2):.3f}"
+              f" of the bound {bounds[0]:.6f} ms; K3 {min(t3):.6f} ms "
+              f"({'/'.join(f'{t:.6f}' for t in t3)}), {bounds[1] / min(t3):.3f}"
+              f" of the bound {bounds[1]:.6f} ms | {gpu}", flush=True)
+    del x, r, p
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_cg")
     ap.add_argument("-n", type=int, nargs="+", default=[100, 200],
@@ -374,9 +464,16 @@ def main(argv=None) -> int:
     ap.add_argument("--k8-variants", action="store_true",
                     help="time K8 beside designs one edit away (module "
                     "docstring) instead of a solve")
+    ap.add_argument("--stencil-plans", action="store_true",
+                    help="time K2 and K3 under forced tile plans (module "
+                    "docstring) instead of a solve")
+    ap.add_argument("--stencil-variants", action="store_true",
+                    help="--stencil-plans, and K2 and K3 built one edit "
+                    "away (module docstring) among them")
     ap.add_argument("--against", type=Path, default=None,
-                    help="with --k8-variants, another tree of this "
-                    "repository whose K8 to time in turns with this tree's")
+                    help="with --k8-variants or --stencil-plans, another "
+                    "tree of this repository whose K8, or K2 and K3, to "
+                    "time in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cg needs a CUDA card")
@@ -389,6 +486,9 @@ def main(argv=None) -> int:
     for n in args.n:
         if args.k8_variants:
             profile_k8_variants(n, gpu, args.against)
+        elif args.stencil_plans or args.stencil_variants:
+            profile_stencil_plans(n, gpu, args.against,
+                                  args.stencil_variants)
         elif args.patterns:
             profile_patterns(n, gpu)
         else:

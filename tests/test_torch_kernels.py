@@ -64,6 +64,7 @@ from sparsebench_tpu_torch.ops.memroof import (
     read_passes,
     read_passes_torch,
 )
+from sparsebench_tpu_torch.ops import stencil as stencil_ops
 from sparsebench_tpu_torch.ops.stencil import (
     stencil_apply,
     stencil_apply_dots,
@@ -181,6 +182,14 @@ def test_kernel_sources_are_found():
 
 STENCIL_CASES = [((10, 9, 7), False), ((8, 8, 8), True), ((1, 1, 1), False),
                  ((130, 2, 3), False), ((128, 5, 4), True), ((1, 5, 6), False)]
+# the kernels' cases: those, the other edge shapes of chip_smoke.py phase 3b
+# and the main path's 100^3 and 200^3
+KERNEL_STENCIL_CASES = STENCIL_CASES + [
+    ((37, 29, 23), False), ((37, 29, 23), True), ((64, 8, 3), False),
+    ((64, 8, 3), True), ((2, 2, 2), False), ((2, 2, 2), True),
+    ((1, 5, 6), True), ((130, 2, 3), True), ((100, 100, 100), False),
+    ((100, 100, 100), True), ((200, 200, 200), False),
+    ((200, 200, 200), True)]
 
 
 def stencil_launches():
@@ -390,7 +399,7 @@ def assert_dot_near_exact(got, terms, eps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
-@pytest.mark.parametrize("case", STENCIL_CASES)
+@pytest.mark.parametrize("case", KERNEL_STENCIL_CASES)
 def test_stencil_apply_kernel_equals_plain(case, dt, cuda_device):
     """K2 and its dots form against the plain versions on the card."""
     dims, use_7pt = case
@@ -435,7 +444,7 @@ def test_dots_bound_holds_and_catches_a_wrong_reduction(dot):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
-@pytest.mark.parametrize("case", STENCIL_CASES[:4])
+@pytest.mark.parametrize("case", KERNEL_STENCIL_CASES)
 def test_stencil_axpy_apply_dots_kernel_equals_plain(case, dt, cuda_device):
     """K3: p' and w bit for bit, delta to its summation bound around the
     exact sum of w p' at the compute width."""
@@ -457,6 +466,59 @@ def test_stencil_axpy_apply_dots_kernel_equals_plain(case, dt, cuda_device):
     pn_c, w_c, _ = stencil_axpy_apply_dots_torch(r.to(cdt), p.to(cdt), beta,
                                                  *dims, use_7pt)
     assert_dot_near_exact(d, (w_c * pn_c).double(), torch.finfo(cdt).eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,tz", [(1, 1), (1, 32), (2, 3), (2, 16), (4, 8),
+                                  (8, 1), (8, 4)])
+@pytest.mark.parametrize("dims", [(100, 100, 100), (37, 29, 23),
+                                  (130, 2, 3), (2, 2, 2)])
+def test_stencil_kernels_under_forced_plans(dims, r, tz, cuda_device):
+    """K2, its dots form and K3 bit for bit under forced tile plans, every
+    R the kernels are built for, 27- and 7-point, f32 and f64; the dots'
+    partials are one a block of the plan."""
+    n = dims[0] * dims[1] * dims[2]
+    rng = np.random.default_rng(r * 100 + tz)
+    for dt in ("f32", "f64"):
+        x, rv, p = (torch.from_numpy(rng.standard_normal(n)).to(
+            device=cuda_device, dtype=DT[dt]) for _ in range(3))
+        plan = stencil_ops.tile_plan(*dims, x.element_size(), 132, r=r, tz=tz)
+        for use_7pt in (False, True):
+            want = stencil_apply_torch(x, *dims, use_7pt)
+            assert_bits_equal(stencil_apply(x, *dims, use_7pt, plan), want)
+            y, parts = stencil_ops._launch_apply(x, *dims, use_7pt, True,
+                                                 plan)
+            assert_bits_equal(y, want)
+            assert parts.shape == (plan.grid, 2)
+            pn, w, parts3 = stencil_ops._launch_axpy(rv, p, 0.8, *dims,
+                                                     use_7pt, plan)
+            pn_ref, w_ref, _ = stencil_axpy_apply_dots_torch(rv, p, 0.8,
+                                                             *dims, use_7pt)
+            assert_bits_equal(pn, pn_ref)
+            assert_bits_equal(w, w_ref)
+            assert parts3.shape == (plan.grid,)
+            assert_dot_near_exact(parts3.sum(), (w.double() * pn.double()),
+                                  torch.finfo(x.dtype).eps)
+
+
+@pytest.mark.cuda
+def test_stencil_kernels_refuse_a_plan_that_does_not_fit(cuda_device):
+    """The C entry points check the plan against the grid: a wrong grid,
+    wrong shared bytes, an R they are not built for or the plan of another
+    grid is refused before anything launches."""
+    import dataclasses
+
+    dims = (37, 29, 23)
+    x = torch.zeros(37 * 29 * 23, device=cuda_device)
+    plan = stencil_ops.tile_plan(*dims, 4, 132)
+    for bad in (dataclasses.replace(plan, grid=plan.grid + 1),
+                dataclasses.replace(plan, smem=plan.smem + 4),
+                dataclasses.replace(plan, r=3),
+                stencil_ops.tile_plan(70, 29, 23, 4, 132, r=1, tz=1)):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            stencil_apply(x, *dims, False, bad)
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            stencil_axpy_apply_dots(x, x, 1.0, *dims, True, bad)
 
 
 @pytest.mark.cuda
@@ -959,10 +1021,10 @@ def test_k8_variants_are_one_edit_of_the_source(tmp_path):
     """profile_cg --k8-variants writes each variant as this tree's
     csrc/dia_spmm.cu with its edits, each found once, beside the shared
     headers."""
-    from sparsebench_tpu_torch.profile_cg import K8_VARIANTS, k8_variant_trees
+    from sparsebench_tpu_torch.profile_cg import K8_VARIANTS, variant_trees
 
     src = (_build.CSRC_DIR / "dia_spmm.cu").read_text()
-    trees = k8_variant_trees(tmp_path)
+    trees = variant_trees(tmp_path, "dia_spmm.cu", K8_VARIANTS)
     assert [name for name, _, _ in trees] == [v[0] for v in K8_VARIANTS]
     for (name, tree, right), (_, edits, _) in zip(trees, K8_VARIANTS):
         csrc = tree / "sparsebench_tpu_torch" / "csrc"
@@ -971,6 +1033,24 @@ def test_k8_variants_are_one_edit_of_the_source(tmp_path):
         assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
             p.name for p in _build.CSRC_DIR.glob("*.cuh"))
     assert [right for _, _, right in trees].count(False) == 2
+
+
+def test_stencil_variants_are_one_edit_of_the_source(tmp_path):
+    """profile_cg --stencil-variants writes each variant as this tree's
+    csrc/stencil.cu with its edits (the kernels' launch bounds), each
+    found once, beside the shared headers."""
+    from sparsebench_tpu_torch.profile_cg import STENCIL_VARIANTS, variant_trees
+
+    src = (_build.CSRC_DIR / "stencil.cu").read_text()
+    trees = variant_trees(tmp_path, "stencil.cu", STENCIL_VARIANTS)
+    assert [name for name, _, _ in trees] == [v[0] for v in STENCIL_VARIANTS]
+    for (name, tree, right), (_, edits, _) in zip(trees, STENCIL_VARIANTS):
+        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        text = (csrc / "stencil.cu").read_text()
+        assert edits and right, name
+        assert text != src and all(new in text for _, new in edits), name
+        assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
+            p.name for p in _build.CSRC_DIR.glob("*.cuh"))
 
 
 def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):

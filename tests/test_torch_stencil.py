@@ -52,9 +52,13 @@ EPS = {"f64": np.finfo(np.float64).eps, "f32": np.finfo(np.float32).eps}
 APPLY_TOL = {"f64": 1e-13, "f32": 28 * EPS["f32"]}
 
 # (dims, use_7pt): asymmetric, 7-point, a single point, nx past one and
-# exactly one 128-lane group (JAX pads one extra lane group there)
+# exactly one 128-lane group (JAX pads one extra lane group there); then
+# the edge shapes of the kernels' tile march (chip_smoke.py phase 3b): nx
+# past one 32-column tile, ny past one tile of rows, a two-point cube
+ODD_CASES = [((37, 29, 23), False), ((37, 29, 23), True), ((64, 8, 3), False),
+             ((64, 8, 3), True), ((2, 2, 2), False), ((2, 2, 2), True)]
 APPLY_CASES = [((10, 9, 7), False), ((8, 8, 8), True), ((1, 1, 1), False),
-               ((130, 2, 3), False), ((128, 5, 4), False)]
+               ((130, 2, 3), False), ((128, 5, 4), False)] + ODD_CASES
 
 
 def jax_op(dims, use_7pt, dtype, impl):
@@ -111,7 +115,7 @@ def test_apply_matches_jax(case, dtype, impl):
 
 
 @pytest.mark.parametrize("case", [APPLY_CASES[0], APPLY_CASES[1],
-                                  APPLY_CASES[4]])
+                                  APPLY_CASES[4]] + ODD_CASES)
 def test_apply_dots_match_jax(case):
     """K2's dots form: [x.x, (Ax).x] in f32, against the Pallas kernel's
     per-tile partials summed (interpret mode)."""
@@ -133,7 +137,7 @@ def test_apply_dots_match_jax(case):
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("case", [APPLY_CASES[0], APPLY_CASES[1],
-                                  APPLY_CASES[3]])
+                                  APPLY_CASES[3]] + ODD_CASES)
 def test_axpy_spmv_dots_matches_jax(case, dtype):
     """K3's plain version: p' = r + beta p, w = A p', delta = p'.w (delta at
     the vectors' width), against the Pallas kernel in interpret mode."""
