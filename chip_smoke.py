@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
     python3 chip_smoke.py [--against DIR]
 
-(``--against``: phases 5b, 5d and 5f also time another tree's K2 and K3,
-K8, K9 and K10 in turns with this one's; without it the script needs no
-other tree.) Phases, each printing its own
+(``--against``: phases 5b, 5d and 5f also time another tree's K2, K3 and
+K5, K8, K9 and K10 in turns with this one's; without it the script needs
+no other tree.) Phases, each printing its own
 lines; any failure raises and exits non-zero:
 
 1. fingerprint: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
@@ -25,7 +25,11 @@ lines; any failure raises and exits non-zero:
    summation, on numpy-seeded random inputs; K2 and K3 again under forced
    tile plans (every R, runs of 1 to 32 planes) at 100^3 and two edge
    shapes, and a plan that does not fit refused; K4 bit for bit; K5 (the
-   whole CG solve in one launch) in f64 and f32 at 100^3;
+   whole CG solve in one launch) in f64 and f32: its SASS free of
+   non-coherent loads, then against stencil_cg_vmem_torch at 100^3, the
+   odd shapes 37x29x23, 64x8x3, 130x2x3, 2x2x2 and 1x1x1, 7-point, an
+   early exit by eps, a zero r0 (NaN history from k = 1) and forced plans
+   with fewer tiles than blocks and with many more;
 3c. the bslab kernels K6 and K7 (windowed) against bslab_spmv_torch, bit
    for bit, for (bf16, f32), (f32, f32) and (f64, f64) on the generated
    stencil at 10x9x7, 100^3 and 200^3 (K7 through a cluster of 4, f64 7),
@@ -55,8 +59,9 @@ lines; any failure raises and exits non-zero:
    their bounds and, for K2, torch.nn.functional.conv3d; K5's bound counts
    the part of r, p and x beyond the L2 read and written every iteration,
    with the no-reuse figure beside it; with ``--against DIR`` that tree's
-   K2 and K3 (built with ``profile_bslab.build_other``, their outputs held
-   to this tree's) in turns with this tree's at 100^3 and 200^3; CG x150
+   K2, K3 and K5 (built with ``profile_bslab.build_other``, their outputs
+   held to this tree's) in turns with this tree's at 100^3 and 200^3, with
+   each K5's share of its bound and of the no-reuse figure; CG x150
    seconds of each stencil variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
    GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M (K7 with
@@ -180,8 +185,8 @@ VARIANTS = ("standard", "cs", "fused", "vmem")
 # operations a point, 27-point stencil: an apply is 26 adds, a multiply and
 # a subtraction; K3 adds the p-update and the dot; one CG iteration (K5's
 # work) is the p-update (2), one apply, p.Ap (2) and the r and x updates
-# and r.r (6). K5 recomputes A p for its r update, a second apply that is
-# its own design's cost and not counted in its bound.
+# and r.r (6); a design that forms A p twice an iteration pays the second
+# apply itself, and the bound does not count it.
 APPLY_FLOPS = 28
 K3_FLOPS = APPLY_FLOPS + 4
 K4_FLOPS = 8
@@ -407,7 +412,6 @@ def phase3b_stencil(dev):
     dots})."""
     import torch
 
-    from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
     from sparsebench_tpu_torch.ops.stencil import (
         stencil_apply,
@@ -416,10 +420,6 @@ def phase3b_stencil(dev):
         stencil_apply_torch,
         stencil_axpy_apply_dots,
         stencil_axpy_apply_dots_torch,
-    )
-    from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
-        stencil_cg_vmem,
-        stencil_cg_vmem_torch,
     )
 
     dts = {"bf16": torch.bfloat16, "f32": torch.float32,
@@ -515,34 +515,112 @@ def phase3b_stencil(dev):
             print(f"[3b K4] n={n} {dt}: bit-identical {same} "
                   f"{'ok' if same else 'FAIL'}")
             check(same, f"K4 disagrees at n={n} {dt}")
-    # K5 at 100^3 from the same r0 and x0: k equal and the history to its
-    # rtol above its floor, x to its atol (the sums run in another order).
-    # f64: rtol 1e-9 above 1e-10 of the start, x to 1e-10; f32 (the float
-    # instantiation the main path runs): rtol 1e-4 above 1e-4, x to 1e-4.
-    A, counts = StencilOperator.from_stencil(100, 100, 100, device=dev)
-    for dt, floor, rtol, atol in (("f64", NOISE_FLOOR, HIST_RTOL, 1e-10),
-                                  ("f32", 1e-4, 1e-4, 1e-4)):
-        b = torch.from_numpy(27.0 - (counts - 1.0)).to(dev, dts[dt])
-        x0 = torch.zeros_like(b)
-        r0 = b - A.spmv(x0)
-        x_k, h_k = stencil_cg_vmem(r0, x0, 0.0, 100, 100, 100, 150)
-        x_p, h_p = stencil_cg_vmem_torch(r0, x0, 0.0, 100, 100, 100, 150)
-        h_k, h_p = h_k.cpu().numpy(), h_p.cpu().numpy()
-        k_k, k_p = int(np.sum(~np.isnan(h_k))), int(np.sum(~np.isnan(h_p)))
-        sel = h_p[:k_p] >= floor * h_p[0]
-        rel = float(np.max(np.abs(h_k[:k_p][sel] - h_p[:k_p][sel])
-                           / h_p[:k_p][sel]))
-        ex = float((x_k - x_p).abs().max())
-        err["K5"] = max(err["K5"], ex)
-        ok = (k_k == k_p and rel <= rtol and ex <= atol
-              and bool(torch.isfinite(x_k).all()))
-        print(f"[3b K5] 100^3 {dt} x150: k {k_k} vs plain {k_p}; "
-              f"{int(sel.sum())} history entries above {floor} of the start,"
-              f" max rel diff {rel:.3e} (rtol {rtol}); max|x_kernel - "
-              f"x_plain| {ex:.3e} (atol {atol}); max|x-1| "
-              f"{float((x_k - 1).abs().max()):.3e} {'ok' if ok else 'FAIL'}")
-        check(ok, f"K5 disagrees with its plain version in {dt}")
+    err["K5"] = phase3b_vmem(dev)
     return err, dots_rel
+
+
+# K5's cases in phase 3b: (dims, 7-point, eps as a share of |r0|,
+# itermax, forced (R, tz) or None, r0 zero), each in f64 and f32. The odd
+# shapes run only as many iterations as keep their residual above the
+# rounding floor, where k is decided by the recurrence and not by the
+# order of the dots' sums. At 100^3 the forced R 2, tz 16 gives fewer
+# tiles (196) than blocks, and R 1, tz 1 many more (5200), in both types.
+K5_CASES = [((100, 100, 100), False, 0.0, 150, None, False),
+            ((37, 29, 23), False, 0.0, 40, None, False),
+            ((64, 8, 3), False, 0.0, 20, None, False),
+            ((130, 2, 3), False, 0.0, 20, None, False),
+            ((2, 2, 2), False, 0.0, 6, None, False),
+            ((1, 1, 1), False, 0.0, 4, None, False),
+            ((100, 100, 100), True, 0.0, 150, None, False),
+            ((37, 29, 23), True, 0.0, 40, None, False),
+            ((100, 100, 100), False, 1e-3, 150, None, False),
+            ((37, 29, 23), False, 0.0, 10, None, True),
+            ((100, 100, 100), False, 0.0, 150, (2, 16), False),
+            ((100, 100, 100), False, 0.0, 150, (1, 1), False),
+            ((37, 29, 23), True, 0.0, 40, (1, 1), False)]
+
+
+def phase3b_vmem(dev) -> float:
+    """K5 against stencil_cg_vmem_torch from the same r0 and x0 (b = A 1,
+    x0 = 0) at each of ``K5_CASES``: k equal and the history to its rtol
+    above its floor, x to its atol (the dots' sums run in another order):
+    f64 rtol 1e-9 above 1e-10 of the start, x to 1e-10; f32 (the
+    instantiation the main path runs) rtol 1e-4 above 1e-4, x to 1e-4; a
+    zero r0 gives hist[0] = 0, NaN from k = 1 and x0 back, bit for bit.
+    The forced plans at 100^3 give fewer tiles than blocks (R 2, tz 16)
+    and many more (R 1, tz 1). Also: the K5 library holds no non-coherent load
+    (LDG.E.CONSTANT) in its kernel. Returns the largest |x - x_plain|."""
+    import torch
+
+    from sparsebench_tpu_torch.formats.stencil import stencil_row_counts
+    from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.ops.stencil import stencil_apply_torch
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+        device_cg_plan,
+        stencil_cg_vmem,
+        stencil_cg_vmem_torch,
+    )
+
+    lib = _build.build(["stencil_cg_vmem"])["stencil_cg_vmem"]
+    sass = subprocess.run(
+        [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    kernels = re.findall(r"Function : (\S*stencil_cg_vmem_kernel\S*)", sass)
+    nc = len(re.findall(r"LDG\S*CONSTANT", sass))
+    sass_ok = bool(kernels) and nc == 0
+    print(f"[3b K5] SASS of {lib.name}: {len(kernels)} kernels, {nc} "
+          f"non-coherent loads (LDG.E.CONSTANT) {'ok' if sass_ok else 'FAIL'}")
+    check(sass_ok, "K5 loads through the non-coherent path")
+    worst = 0.0
+    for dims, use_7pt, eps_share, itermax, forced, zero in K5_CASES:
+        for dt, floor, rtol, atol in (
+                (torch.float64, NOISE_FLOOR, HIST_RTOL, 1e-10),
+                (torch.float32, 1e-4, 1e-4, 1e-4)):
+            b = torch.from_numpy(27.0 - (stencil_row_counts(
+                *dims, use_7pt) - 1.0)).to(dev, dt)
+            x0 = torch.zeros_like(b)
+            r0 = b - stencil_apply_torch(x0, *dims, use_7pt)
+            if zero:
+                r0 = torch.zeros_like(b)
+                x0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+                    b.numel())).to(dev, dt)
+            eps = eps_share * float(torch.linalg.vector_norm(r0))
+            plan = device_cg_plan(r0, *dims, use_7pt, *(forced or ()))
+            x_k, h_k = stencil_cg_vmem(r0, x0, eps, *dims, itermax, use_7pt,
+                                       plan)
+            x_p, h_p = stencil_cg_vmem_torch(r0, x0, eps, *dims, itermax,
+                                             use_7pt)
+            h_k, h_p = h_k.cpu().numpy(), h_p.cpu().numpy()
+            k_k = int(np.sum(~np.isnan(h_k)))
+            k_p = int(np.sum(~np.isnan(h_p)))
+            ex = float((x_k - x_p).abs().max())
+            worst = max(worst, ex)
+            if zero:
+                rel = 0.0
+                ok = (k_k == k_p == 1 and h_k[0] == 0 and bits_equal(x_k, x0)
+                      and bits_equal(x_p, x0))
+            else:
+                sel = h_p[:k_p] >= floor * h_p[0]
+                rel = float(np.max(np.abs(h_k[:k_p][sel] - h_p[:k_p][sel])
+                                   / h_p[:k_p][sel]))
+                ok = (k_k == k_p and rel <= rtol and ex <= atol
+                      and bool(torch.isfinite(x_k).all())
+                      and bool(np.isnan(h_k[k_k:]).all()))
+            if forced and dims == (100, 100, 100):
+                ok &= (plan.tiles < plan.blocks) == (forced == (2, 16))
+            name = (f"{dims[0]}x{dims[1]}x{dims[2]} "
+                    f"{'7' if use_7pt else '27'}-pt {str(dt)[6:]} x{itermax}"
+                    f"{f' eps {eps:.3e}' if eps else ''}"
+                    f"{' r0 = 0' if zero else ''} (R {plan.r} tz {plan.tz}, "
+                    f"{plan.tiles} tiles on {plan.blocks} blocks"
+                    f"{', forced' if forced else ''})")
+            print(f"[3b K5] {name}: k {k_k} vs plain {k_p}; max rel diff of "
+                  f"the history {rel:.3e} (rtol {rtol} above {floor} of the "
+                  f"start); max|x_kernel - x_plain| {ex:.3e} (atol {atol}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K5 disagrees with its plain version at {name}")
+    return worst
 
 
 def stencil_forced_plans(dev, rng) -> None:
@@ -660,7 +738,7 @@ def phase4b_stencil(cli, gpu):
 
 
 def vmem200_history() -> None:
-    """K5 at 200^3 (r and p stream from device memory there) against its
+    """K5 at 200^3 (its vectors stream from device memory there) against its
     plain version from the same r0 and x0: k equal and the history to rtol
     1e-9 above 1e-10 of the start in f64, x to 1e-10."""
     import torch
@@ -745,15 +823,17 @@ def phase5b_times(dev, gpu, against=None):
 
     out = {"K2": {}, "K3": {}, "K4": {}, "K5": {}}
     rng = np.random.default_rng(7)
-    parent = None
+    parent = parent_k5 = None
     if against is not None:
         from sparsebench_tpu_torch.profile_bslab import (
             build_other,
             lib_k2,
             lib_k3,
+            lib_k5,
         )
 
         parent = build_other(against, "stencil")
+        parent_k5 = build_other(against, "stencil_cg_vmem")
 
     def in_turns(key, n, other, this):
         """The other tree's kernel and this tree's, (other, this, this,
@@ -837,8 +917,8 @@ def phase5b_times(dev, gpu, against=None):
               f"{eager:.6f} ms; bound {b_ms:.6f} ms "
               f"({b_by}) | {gpu}")
         del x, r, p, vecs, x5
-    # K5: one whole solve in f32, 150 iterations (at 200^3 r and p stream
-    # from device memory)
+    # K5: one whole solve in f32, 150 iterations (at 200^3 the vectors
+    # stream from device memory)
     for n in (100, 200):
         b = torch.from_numpy((27.0 - (stencil_row_counts(n, n, n) - 1.0))
                              .astype(np.float32)).to(dev)
@@ -869,14 +949,44 @@ def phase5b_times(dev, gpu, against=None):
         out["K5"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, eager_ms=eager,
                             bound_no_reuse_ms=no_reuse_ms)
+        turns = ""
+        if parent_k5 is not None:
+            # the parent's K5 on the same r0 and x0: k equal, the f32
+            # history to rtol 1e-4 above 1e-4 of its start and x to 1e-4
+            # of this tree's; then both in turns (other, this, this, other),
+            # each the best of 3 back-to-back solves
+            x_o, h_o = lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150)
+            x_t, h_t = stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150)
+            h_o, h_t = h_o.cpu().numpy(), h_t.cpu().numpy()
+            k_o, k_t = (int(np.sum(~np.isnan(h))) for h in (h_o, h_t))
+            sel = h_t[:k_t] >= 1e-4 * h_t[0]
+            check(k_o == k_t and np.allclose(h_o[:k_t][sel], h_t[:k_t][sel],
+                                             rtol=1e-4, atol=0)
+                  and float((x_o - x_t).abs().max()) <= 1e-4,
+                  f"the parent's K5 differs from this tree's at {n}^3")
+            del x_o, x_t
+            runs = [time_call(f, 3) for f in (
+                lambda: lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150),
+                lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
+                lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
+                lambda: lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150))]
+            o_ms, t_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
+            out["K5"][n]["parent_ms"] = o_ms
+            turns = (f"; in turns: parent {runs[0]:.6f}/{runs[3]:.6f}, this "
+                     f"{runs[1]:.6f}/{runs[2]:.6f} ms, {o_ms / t_ms:.3f}x; "
+                     f"the parent at {b_ms / o_ms:.4f} of the bound and "
+                     f"{no_reuse_ms / o_ms:.4f} of the no-reuse figure, "
+                     f"this tree at {b_ms / t_ms:.4f} and "
+                     f"{no_reuse_ms / t_ms:.4f}")
         print(f"[5b times] K5 whole CG solve {n}^3 f32 x150 ({iters} "
               f"iterations run): kernel {all_ms['kernel']} ms, plain "
               f"{all_ms['plain']} ms; bound {b_ms:.6f} ms ({b_by}: r0 and x0 "
               f"read, x written once, and an iteration's {beyond} B of r, p "
               f"and x beyond the {l2} B L2 read and written; "
               f"{K5_FLOPS_PER_ITER} flops a point an iteration), "
-              f"{b_ms / k_ms:.3f} of it; no reuse (r, p, x read and written "
-              f"each iteration) {no_reuse_ms:.6f} ms | {gpu}")
+              f"{b_ms / k_ms:.4f} of it; no reuse (r, p, x read and written "
+              f"each iteration) {no_reuse_ms:.6f} ms, {no_reuse_ms / k_ms:.4f}"
+              f" of it{turns} | {gpu}")
         del b, x0, r0, _x, hist
     return out
 
@@ -2499,7 +2609,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--against", type=Path, default=None,
                     help="another tree of this repository (the parent "
-                    "unpacked with git archive) whose K2 and K3 (phase 5b), "
+                    "unpacked with git archive) whose K2, K3 and K5 (phase "
+                    "5b), "
                     "K8 (phase 5d), K9 and K10 (phase 5f) to time in turns "
                     "with this tree's")
     args = ap.parse_args(argv)

@@ -675,7 +675,7 @@ def section_stencil(s: Suite) -> None:
 
 def section_vmem200(s: Suite) -> None:
     """6b1. The whole-solve vmem CG (K5) on hpcg.par's 200^3 workload, where
-    r and p stream from device memory: valid only with k = 150 (or a
+    its vectors stream from device memory: valid only with k = 150 (or a
     residual of exactly 0) and max|x - 1| < 1e-5."""
     from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.solvers.cg import init_vectors

@@ -134,6 +134,7 @@ stencil_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   extern __shared__ __align__(16) unsigned char march_smem[];  // two planes
   OutApply<T, kDots> out{y, 0.0f, 0.0f};
   sb::march<C, R, kSeven>(StageVec<T>{x}, g, tz, tiles_x, tiles_y,
+                          static_cast<int>(blockIdx.x),
                           reinterpret_cast<C*>(march_smem), out);
   if constexpr (!kDots) return;
   __shared__ float red[kThreads];
@@ -157,29 +158,11 @@ stencil_axpy_apply_dots_kernel(const T* __restrict__ r, const T* __restrict__ p,
   extern __shared__ __align__(16) unsigned char march_smem[];  // two planes
   OutAxpy<T> out{pn, w, C(0)};
   sb::march<C, R, kSeven>(StageAxpy<T>{r, p, *beta}, g, tz, tiles_x, tiles_y,
+                          static_cast<int>(blockIdx.x),
                           reinterpret_cast<C*>(march_smem), out);
   __shared__ C red[kThreads];
   const C delta = block_sum(out.delta, red);
   if (threadIdx.x == 0) parts[blockIdx.x] = delta;
-}
-
-// The plan's launch: R and the stencil as template arguments; false when
-// R is not one the kernels are built for (march_plan_ok refuses it first).
-template <int R, typename Launch>
-bool with_r(int r, bool use_7pt, Launch&& launch) {
-  if (r != R) return false;
-  if (use_7pt) {
-    launch(std::integral_constant<int, R>{}, std::true_type{});
-  } else {
-    launch(std::integral_constant<int, R>{}, std::false_type{});
-  }
-  return true;
-}
-
-template <typename Launch>
-void dispatch(int r, bool use_7pt, Launch&& launch) {
-  with_r<1>(r, use_7pt, launch) || with_r<2>(r, use_7pt, launch) ||
-      with_r<4>(r, use_7pt, launch) || with_r<8>(r, use_7pt, launch);
 }
 
 bool bad_dims(int nx, int ny, int nz) { return nx <= 0 || ny <= 0 || nz <= 0; }
@@ -194,7 +177,7 @@ int apply(const void* x, void* y, void* parts, int nx, int ny, int nz,
   int tiles_x = 0, tiles_y = 0;
   if (!sb::march_plan_ok<C>(g, r, tz, grid, smem, &tiles_x, &tiles_y))
     return static_cast<int>(cudaErrorInvalidValue);
-  dispatch(r, use_7pt != 0, [&](auto kr, auto k7) {
+  sb::dispatch(r, use_7pt != 0, [&](auto kr, auto k7) {
     constexpr int kR = decltype(kr)::value;
     constexpr bool k7pt = decltype(k7)::value;
     const auto kernel = parts != nullptr ? stencil_apply_kernel<T, kR, k7pt, true>
@@ -218,7 +201,7 @@ int axpy_apply_dots(const void* r, const void* p, const void* beta, void* pn,
   int tiles_x = 0, tiles_y = 0;
   if (!sb::march_plan_ok<C>(g, rows, tz, grid, smem, &tiles_x, &tiles_y))
     return static_cast<int>(cudaErrorInvalidValue);
-  dispatch(rows, use_7pt != 0, [&](auto kr, auto k7) {
+  sb::dispatch(rows, use_7pt != 0, [&](auto kr, auto k7) {
     stencil_axpy_apply_dots_kernel<T, decltype(kr)::value, decltype(k7)::value>
         <<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(

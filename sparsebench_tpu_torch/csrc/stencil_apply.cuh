@@ -1,7 +1,7 @@
-// The matrix-free 27/7-point stencil apply, shared by csrc/stencil.cu (K2,
-// K3) and csrc/stencil_cg_vmem.cu (K5): apply_point forms one point from
-// its neighbours' loads (K5), and march forms a tile of points a plane at a
-// time from planes staged in shared memory (K2, K3).
+// The matrix-free 27/7-point stencil apply of csrc/stencil.cu (K2, K3) and
+// csrc/stencil_cg_vmem.cu (K5): march forms a tile of points a plane at a
+// time from planes staged in shared memory, so no point reads its
+// neighbours from memory one load at a time.
 //
 // The generated matrix (reference src/matrix.c:30-121) is, with S_a the
 // zero-boundary 3-point sum along axis a, (S_a v)[i] = v[i-1] + v[i] + v[i+1]:
@@ -14,13 +14,13 @@
 // stage of the separable sum, exactly as the plain version's zero padding
 // does (ops/stencil.py _sum3). Each 3-point sum is ((left + centre) + right)
 // and every operation is rounded on its own, so a kernel and the plain
-// version agree bit for bit. Both forms below keep that order: march stages
-// a 0 wherever apply_point takes C(0), and a sum over a plane or row outside
-// the domain is (0 + 0) + 0 = +0, the C(0) that apply_point takes there.
+// version agree bit for bit: the march stages a 0 wherever the plain
+// version pads, and a sum over a plane or row outside the domain is
+// (0 + 0) + 0 = +0, the plain version's value there.
 //
-// A Load functor gives the compute-type value of the operand at a flat
-// index; K3 forms r + beta*p there, so the p-update of a neighbour is
-// recomputed instead of read back.
+// A Stage functor gives what one staged value needs from memory and the
+// compute-type value made from it; K3 and K5 form r + beta*p there, so the
+// p-update of a neighbour is recomputed instead of read back.
 //
 // The march. A block of kThreads threads (8 warps) owns an (x, y) tile of
 // kTileX = 32 columns (a warp's lanes) by 8 R rows (R rows a warp, one
@@ -34,11 +34,16 @@
 // three z-sums and is written out. The loads of the next two planes stay
 // in flight in registers while the block sums, and with two buffers one
 // barrier a plane suffices. A plane or row outside the domain is staged as
-// zeros, so the edges need no other case. The host-side plan (tile counts,
-// runs, grid and shared bytes) is checked by march_plan_ok against what
-// ops/stencil.py tile_plan computes.
+// zeros, so the edges need no other case. The caller names the tile: K2
+// and K3 march the tile of their block index, K5's persistent blocks walk
+// tiles b, b + G, b + 2G, ... The host-side plan (tile counts, runs, grid
+// and shared bytes) is checked by march_shape_ok and march_plan_ok against
+// what ops/stencil.py tile_plan (K5: ops/stencil_cg_vmem.py cg_plan)
+// computes.
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -50,49 +55,7 @@ struct Grid3 {
   long long n;      // nx * ny * nz
 };
 
-template <typename C, typename Load>
-__device__ __forceinline__ C sum_x(const Load& ld, long long i, int ix, int nx) {
-  const C m = ix > 0 ? ld(i - 1) : C(0);
-  const C c = ld(i);
-  const C p = ix + 1 < nx ? ld(i + 1) : C(0);
-  return add_rn(add_rn(m, c), p);
-}
-
-template <typename C, typename Load>
-__device__ __forceinline__ C sum_yx(const Load& ld, long long i, int ix, int iy,
-                                    const Grid3& g) {
-  const C m = iy > 0 ? sum_x<C>(ld, i - g.nx, ix, g.nx) : C(0);
-  const C c = sum_x<C>(ld, i, ix, g.nx);
-  const C p = iy + 1 < g.ny ? sum_x<C>(ld, i + g.nx, ix, g.nx) : C(0);
-  return add_rn(add_rn(m, c), p);
-}
-
-// y = (A v)[i]; *centre receives v[i] as ld gives it
-template <typename C, typename Load>
-__device__ __forceinline__ C apply_point(const Load& ld, long long i,
-                                         const Grid3& g, bool use_7pt,
-                                         C* centre) {
-  const int ix = static_cast<int>(i % g.nx);
-  const long long line = i / g.nx;
-  const int iy = static_cast<int>(line % g.ny);
-  const int iz = static_cast<int>(line / g.ny);
-  const C c = ld(i);
-  *centre = c;
-  if (!use_7pt) {
-    const C m = iz > 0 ? sum_yx<C>(ld, i - g.plane, ix, iy, g) : C(0);
-    const C s = sum_yx<C>(ld, i, ix, iy, g);
-    const C p = iz + 1 < g.nz ? sum_yx<C>(ld, i + g.plane, ix, iy, g) : C(0);
-    return sub_rn(mul_rn(C(28), c), add_rn(add_rn(m, s), p));
-  }
-  const C sx = sum_x<C>(ld, i, ix, g.nx);
-  const C sy = add_rn(add_rn(iy > 0 ? ld(i - g.nx) : C(0), c),
-                      iy + 1 < g.ny ? ld(i + g.nx) : C(0));
-  const C sz = add_rn(add_rn(iz > 0 ? ld(i - g.plane) : C(0), c),
-                      iz + 1 < g.nz ? ld(i + g.plane) : C(0));
-  return sub_rn(mul_rn(C(30), c), add_rn(add_rn(sx, sy), sz));
-}
-
-// -- the tiled plane march (K2, K3) ------------------------------------------
+// -- the tiled plane march ---------------------------------------------------
 
 constexpr int kMarchWarps = kThreads / 32;  // 8: one warp for R rows of a tile
 constexpr int kTileX = 32;                  // a warp's lanes: one column each
@@ -106,16 +69,15 @@ struct MarchShape {
   static constexpr int kSlots = (kBuffer + kThreads - 1) / kThreads;  // values a thread stages
 };
 
-// The block's place in the plan: blocks walk x tiles fastest, then y tiles,
-// then runs of tz planes (ops/stencil.py block_origin).
+// Tile b of the plan: x tiles fastest, then y tiles, then runs of tz
+// planes (ops/stencil.py block_origin).
 struct MarchTile {
   int x0, y0, z0, z1;  // first column and row; planes [z0, z1)
 };
 
-__device__ __forceinline__ MarchTile march_tile(const Grid3& g, int tile_y,
-                                                int tz, int tiles_x,
-                                                int tiles_y) {
-  const int b = static_cast<int>(blockIdx.x);
+__device__ __forceinline__ MarchTile march_tile(const Grid3& g, int b,
+                                                int tile_y, int tz,
+                                                int tiles_x, int tiles_y) {
   const int rest = b / tiles_x;
   MarchTile t;
   t.x0 = (b - rest * tiles_x) * kTileX;
@@ -125,12 +87,15 @@ __device__ __forceinline__ MarchTile march_tile(const Grid3& g, int tile_y,
   return t;
 }
 
-// Walks the block's tile (march_tile) and calls out(i, y, c) for each of
-// the thread's R points i inside the domain, y the apply at i and c the
-// operand there. Stage gives Raw, what one staged
-// value needs from memory, by load(flat index) and the compute-type value
-// by make(raw). smem holds two buffers of MarchShape<R>::kBuffer values.
-// Every thread of the block must call it.
+// Walks tile ``tile`` of the plan (march_tile) and calls out(i, y, c) for
+// each of the thread's R points i inside the domain, y the apply at i and c
+// the operand there. Stage gives Raw, what one staged value needs from
+// memory, by load(flat index) and the compute-type value by make(raw).
+// smem holds two buffers of MarchShape<R>::kBuffer values. Every thread of
+// the block must call it; a caller that marches another tile with the same
+// buffers puts a __syncthreads() between the two, since a thread's first
+// plane of the next tile may overwrite a buffer that another thread still
+// reads.
 //
 // Thread t stages values t + 256 s of a buffer (row e / 34, column e % 34
 // of the tile and its halo), so a warp's loads cover one or two runs of a
@@ -139,14 +104,14 @@ __device__ __forceinline__ MarchTile march_tile(const Grid3& g, int tile_y,
 // plane k's sums, so every thread keeps two planes of loads in flight.
 template <typename C, int R, bool kSeven, typename Stage, typename Out>
 __device__ __forceinline__ void march(const Stage& st, const Grid3& g, int tz,
-                                      int tiles_x, int tiles_y, C* smem,
-                                      Out& out) {
+                                      int tiles_x, int tiles_y, int tile,
+                                      C* smem, Out& out) {
   using Shape = MarchShape<R>;
   using Raw = typename Stage::Raw;
   using Set = Raw[Shape::kSlots];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const MarchTile t = march_tile(g, Shape::kTileY, tz, tiles_x, tiles_y);
+  const MarchTile t = march_tile(g, tile, Shape::kTileY, tz, tiles_x, tiles_y);
   // each staged value's offset in a plane, and whether it lies in the
   // domain's (x, y) range (bit s); a plane holds fewer than 2^31 values
   // (march_plan_ok)
@@ -251,25 +216,56 @@ __device__ __forceinline__ void march(const Stage& st, const Grid3& g, int tz,
   }
 }
 
-// The plan the host passes (ops/stencil.py tile_plan), checked against the
-// grid: R one of 1, 2, 4, 8; tz >= 1; the grid and the shared bytes those
-// give. Fills the tile counts.
+// The march's shape on the grid, as the host plans it: R one of 1, 2, 4,
+// 8; tz >= 1; the shared bytes of two staged planes; at most 2^31 - 1
+// tiles and a plane of fewer than 2^31 values (the march's int offsets).
+// Fills the tile counts.
 template <typename C>
-inline bool march_plan_ok(const Grid3& g, int r, int tz, long long grid,
-                          long long smem, int* tiles_x, int* tiles_y) {
+inline bool march_shape_ok(const Grid3& g, int r, int tz, long long smem,
+                           int* tiles_x, int* tiles_y, long long* tiles) {
   if (r != 1 && r != 2 && r != 4 && r != 8) return false;
   if (tz < 1) return false;
   const long long tile_y = static_cast<long long>(kMarchWarps) * r;
   const long long tx = (g.nx + kTileX - 1) / kTileX;
   const long long ty = (g.ny + tile_y - 1) / tile_y;
   const long long runs = (g.nz + tz - 1) / tz;
-  const long long want = tx * ty * runs;
   const long long bytes = 2 * (tile_y + 2) * kStageX * static_cast<long long>(sizeof(C));
-  if (grid != want || want > 0x7fffffffLL || smem != bytes) return false;
+  if (tx * ty * runs > 0x7fffffffLL || smem != bytes) return false;
   if ((static_cast<long long>(g.ny) + 2) * g.nx >= 0x7fffffffLL) return false;  // int offsets
   *tiles_x = static_cast<int>(tx);
   *tiles_y = static_cast<int>(ty);
+  *tiles = tx * ty * runs;
   return true;
+}
+
+// The plan of K2 and K3 (ops/stencil.py tile_plan): the march's shape and a
+// grid of one block a tile.
+template <typename C>
+inline bool march_plan_ok(const Grid3& g, int r, int tz, long long grid,
+                          long long smem, int* tiles_x, int* tiles_y) {
+  long long tiles = 0;
+  return march_shape_ok<C>(g, r, tz, smem, tiles_x, tiles_y, &tiles) &&
+         grid == tiles;
+}
+
+// Calls launch(integral_constant<int, R>, bool_constant<7-point>) for the
+// plan's R, which march_shape_ok has checked is one the kernels are built
+// for.
+template <int R, typename Launch>
+bool with_r(int r, bool use_7pt, Launch&& launch) {
+  if (r != R) return false;
+  if (use_7pt) {
+    launch(std::integral_constant<int, R>{}, std::true_type{});
+  } else {
+    launch(std::integral_constant<int, R>{}, std::false_type{});
+  }
+  return true;
+}
+
+template <typename Launch>
+void dispatch(int r, bool use_7pt, Launch&& launch) {
+  with_r<1>(r, use_7pt, launch) || with_r<2>(r, use_7pt, launch) ||
+      with_r<4>(r, use_7pt, launch) || with_r<8>(r, use_7pt, launch);
 }
 
 inline Grid3 make_grid(int nx, int ny, int nz) {

@@ -125,11 +125,23 @@ class TilePlan:
         return WARPS * self.r
 
 
-def _positive_int(name: str, v) -> int:
+def _positive_int(name: str, v, who: str = "tile_plan") -> int:
     if isinstance(v, bool) or not isinstance(v, int) or v < 1:
-        raise ValueError(f"tile_plan: {name} must be a positive int, got "
-                         f"{v!r}")
+        raise ValueError(f"{who}: {name} must be a positive int, got {v!r}")
     return v
+
+
+def plan_rows(ny: int) -> int:
+    """The default R: the one of ``PLAN_ROWS`` that stages the fewest rows
+    of a plane, ceil(ny / 8R) (8R + 2), the larger on a tie."""
+    return min(PLAN_ROWS, key=lambda q: (-(-ny // (WARPS * q))
+                                         * (WARPS * q + 2), -q))
+
+
+def march_smem(r: int, itemsize: int) -> int:
+    """The march's dynamic shared bytes: two staged planes of (8R + 2) x 34
+    values at the compute width (f32 for bf16 vectors)."""
+    return 2 * (WARPS * r + 2) * STAGE_X * (8 if itemsize == 8 else 4)
 
 
 def tile_plan(nx: int, ny: int, nz: int, itemsize: int, sms: int,
@@ -153,8 +165,7 @@ def tile_plan(nx: int, ny: int, nz: int, itemsize: int, sms: int,
         raise ValueError(f"tile_plan: a plane of {nx} x {ny} points is too "
                          "large for the kernels' 32-bit in-plane offsets")
     if r is None:
-        r = min(PLAN_ROWS, key=lambda q: (-(-ny // (WARPS * q))
-                                          * (WARPS * q + 2), -q))
+        r = plan_rows(ny)
     elif r not in PLAN_ROWS:
         raise ValueError(f"tile_plan: r must be one of {PLAN_ROWS}, got "
                          f"{r!r}")
@@ -171,16 +182,15 @@ def tile_plan(nx: int, ny: int, nz: int, itemsize: int, sms: int,
         raise ValueError(f"tile_plan: r * tz = {r * tz} exceeds the dots' "
                          f"serial run of {MAX_SERIAL}")
     runs = -(-nz // tz)
-    compute = 8 if itemsize == 8 else 4
     return TilePlan(r=r, tz=tz, tiles_x=tiles_x, tiles_y=tiles_y, runs=runs,
-                    grid=tiles_x * tiles_y * runs,
-                    smem=2 * (WARPS * r + 2) * STAGE_X * compute)
+                    grid=tiles_x * tiles_y * runs, smem=march_smem(r, itemsize))
 
 
-def block_origin(plan: TilePlan, nz: int, b: int):
-    """(x0, y0, z0, z1) of block ``b`` of ``plan``: its tile's first column
-    and row and its planes [z0, z1), as the kernels compute them (x tiles
-    fastest, then y tiles, then runs)."""
+def block_origin(plan, nz: int, b: int):
+    """(x0, y0, z0, z1) of tile ``b`` of ``plan`` (a ``TilePlan``, where
+    block b marches tile b, or K5's ``CgPlan``): its first column and row
+    and its planes [z0, z1), as the kernels compute them (x tiles fastest,
+    then y tiles, then runs)."""
     rest, tx = divmod(b, plan.tiles_x)
     run, ty = divmod(rest, plan.tiles_y)
     return (tx * TILE_X, ty * plan.tile_y, run * plan.tz,

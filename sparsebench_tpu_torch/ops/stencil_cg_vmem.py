@@ -1,29 +1,45 @@
 """The whole CG solve on the matrix-free stencil in one launch: the CUDA
-kernel K5 and its plain PyTorch version.
+kernel K5, its plan and its plain PyTorch version.
 
 Counterpart of sparsebench_tpu/ops/stencil_cg_vmem.py
 (``stencil_cg_vmem_pallas``). The kernel is ``csrc/stencil_cg_vmem.cu``, one
-cooperative launch of a persistent kernel whose grid-wide barriers separate
-the phases of each iteration; its source note gives the recurrence (the
-lagged exit test, beta = 0 at k == 1, the breakdown freeze, NaN history
-past the exit) and the design.
+cooperative launch of a persistent kernel; its source note gives the
+recurrence (the lagged exit test, beta = 0 at k == 1, the breakdown freeze,
+NaN history past the exit), the design and the memory-ordering argument.
+An iteration is two phases separated by two grid barriers: phase A marches
+the plan's tiles (``csrc/stencil_apply.cuh``), forms p' = r + beta p_old
+while staging, writes p' into the other of two p buffers and w = A p', and
+adds p'.w to a partial a block; phase B streams r -= alpha w, x += alpha p'
+and r.r.
+
+The plan (``cg_plan``). The march's R rows a thread and its shared bytes
+(``ops/stencil.py`` ``plan_rows``, ``march_smem``), the persistent grid (the
+blocks of the kernel that fit on the card at once at those bytes, which the
+C side reports; a larger grid would deadlock the barriers) and tz, the
+planes a tile, chosen so that the tiles spread evenly over the blocks:
+block b walks tiles b, b + blocks, ... (``block_tiles``; a tile's place is
+``ops/stencil.py`` ``block_origin``). Partials are one a block for each of
+the two dots. ``device_cg_plan`` makes the plan on the card; the C side
+recomputes it and refuses one that differs.
 
 Viability (``vmem_cg_viable``). The TPU kernel keeps r and p in VMEM and
 plans its tiles for that (``_plan``); on a backend whose VMEM it has not
 measured, the CPU among them, only the conservative tier of that plan
 runs, and 200^3 is refused. The plain version keeps that refusal, so the
-two packages refuse the same grids on the CPU. On the card r and p stay
-in device memory either way, so the kernel runs every grid whose vectors
-fit the card's memory; whether r and p also fit the 50 MB L2
-(``L2_RESIDENT_BUDGET``, 40 MB with margin for x's stream: 100^3 in f32
-takes 8 MB, 200^3 64 MB) only moves its speed, and the wrapper notes it
-on stderr once per grid.
+two packages refuse the same grids on the CPU. On the card the vectors
+stay in device memory either way, so the kernel runs every grid whose
+``VECTORS`` vectors fit the card's memory; whether the five that an
+iteration touches (r, the two p buffers, w and x) also fit the 50 MB L2
+(``L2_RESIDENT_BUDGET``, 40 MB with margin: 100^3 in f32 takes 20 MB,
+200^3 160 MB) only moves its speed, and the wrapper notes it on stderr
+once per grid.
 
 * ``stencil_cg_vmem_torch(r0, x0, eps, nx, ny, nz, itermax, use_7pt)`` —
   the plain version, the same recurrence in PyTorch with the stencil's
   plain apply; it reads the scalars on the host.
-* ``stencil_cg_vmem(...)`` — the wrapper: CPU tensors to the plain version,
-  CUDA tensors to the kernel (or it raises); ``launches`` counts launches.
+* ``stencil_cg_vmem(..., plan=None)`` — the wrapper: CPU tensors to the
+  plain version, CUDA tensors to the kernel on ``plan`` (by default
+  ``device_cg_plan``'s), or it raises; ``launches`` counts launches.
 
 Both take r0 = b - A x0 and x0 of one dtype, f32 or f64 (the computation
 runs in that dtype; the solver widens bf16 vectors first), and return
@@ -33,18 +49,33 @@ runs in that dtype; the solver widens bf16 vectors first), and return
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import sys
 
 import torch
 
 from sparsebench_tpu_torch.ops import _build
-from sparsebench_tpu_torch.ops.stencil import on_cpu, stencil_apply_torch
+from sparsebench_tpu_torch.ops import stencil as st
+from sparsebench_tpu_torch.ops.stencil import (
+    MAX_SERIAL,
+    PLAN_ROWS,
+    TILE_X,
+    WARPS,
+    march_smem,
+    on_cpu,
+    plan_rows,
+    stencil_apply_torch,
+)
 
-L2_RESIDENT_BUDGET = 40 * 2**20  # bytes of r and p; the H100's L2 is 50 MB
+# bytes of the vectors an iteration touches (r, the two p buffers, w and
+# x) that the L2 is planned to hold; the H100's L2 is 50 MB
+L2_RESIDENT_BUDGET = 40 * 2**20
 # vectors of n values a kernel solve holds in device memory: r0 and x0,
-# and the kernel's r, p and x
-VECTORS = 5
+# and the kernel's r, two p buffers, w and x
+VECTORS = 7
+# of those, the ones an iteration reads or writes
+ITERATION_VECTORS = 5
 
 # The JAX package's conservative VMEM tier (sparsebench_tpu/ops/
 # stencil_cg_vmem.py ``_plan`` with ``_conservative_vmem()``): r and p,
@@ -83,13 +114,89 @@ def vmem_cg_viable(nx: int, ny: int, nz: int, itemsize: int = 4,
 
 @functools.lru_cache(maxsize=None)
 def _note_l2(nx: int, ny: int, nz: int, itemsize: int) -> None:
-    """Say once per grid whether r and p fit the L2 budget."""
-    nbytes = 2 * nx * ny * nz * itemsize
+    """Say once per grid whether an iteration's vectors fit the L2 budget."""
+    nbytes = ITERATION_VECTORS * nx * ny * nz * itemsize
     where = ("within" if nbytes <= L2_RESIDENT_BUDGET
              else "above, so they stream from device memory,")
-    print(f"vmem CG {nx}x{ny}x{nz}: r and p take {nbytes / 2**20:.1f} MB, "
-          f"{where} the {L2_RESIDENT_BUDGET / 2**20:.0f} MB the L2 is "
-          "planned to hold", file=sys.stderr)
+    print(f"vmem CG {nx}x{ny}x{nz}: r, the two p buffers, w and x take "
+          f"{nbytes / 2**20:.1f} MB, {where} the "
+          f"{L2_RESIDENT_BUDGET / 2**20:.0f} MB the L2 is planned to hold",
+          file=sys.stderr)
+
+
+@dataclasses.dataclass(frozen=True)
+class CgPlan:
+    """K5's launch: the march's R rows a thread and tz planes a tile, the
+    tile counts (tiles_x * tiles_y * runs tiles), the persistent grid
+    (``blocks``, all co-resident), the dynamic shared bytes (two staged
+    planes) and ``parts``, the partials (one a block for each of the two
+    dots)."""
+
+    r: int
+    tz: int
+    tiles_x: int
+    tiles_y: int
+    runs: int
+    tiles: int
+    blocks: int
+    smem: int
+    parts: int
+
+    @property
+    def tile_y(self) -> int:
+        return WARPS * self.r
+
+
+def block_tiles(plan: CgPlan, b: int) -> range:
+    """The tiles block ``b`` marches in phase A, in order: b, b + blocks,
+    ..."""
+    return range(b, plan.tiles, plan.blocks)
+
+
+def cg_plan(nx: int, ny: int, nz: int, itemsize: int, resident: int,
+            r: int = None, tz: int = None) -> CgPlan:
+    """K5's plan for an nx x ny x nz grid of vectors of ``itemsize`` bytes
+    (4 f32, 8 f64) on a card where ``resident`` blocks of the kernel fit at
+    once at the plan's shared bytes. ``r`` and ``tz`` force those choices.
+    By default R is ``plan_rows(ny)``, and tz, up to ``MAX_SERIAL`` / R and
+    nz, the one whose busiest block stages the fewest planes,
+    ceil(tiles / resident) (tz + 2), the larger on a tie, then evened out
+    over its runs. Raises ValueError on a bad input or a forced plan
+    outside those limits."""
+    for name, v in (("nx", nx), ("ny", ny), ("nz", nz),
+                    ("resident", resident)):
+        st._positive_int(name, v, "cg_plan")
+    if itemsize not in (4, 8):
+        raise ValueError(f"cg_plan: itemsize must be 4 or 8, got "
+                         f"{itemsize!r}")
+    if (ny + 2) * nx >= 2**31 - 1:
+        raise ValueError(f"cg_plan: a plane of {nx} x {ny} points is too "
+                         "large for the march's 32-bit in-plane offsets")
+    if r is None:
+        r = plan_rows(ny)
+    elif r not in PLAN_ROWS:
+        raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got {r!r}")
+    tz_max = MAX_SERIAL // r
+    tiles_x = -(-nx // TILE_X)
+    tiles_y = -(-ny // (WARPS * r))
+
+    def tiles_at(q: int) -> int:
+        return tiles_x * tiles_y * -(-nz // q)
+
+    if tz is None:
+        tz = min(range(1, min(tz_max, nz) + 1),
+                 key=lambda q: (-(-tiles_at(q) // resident) * (q + 2), -q))
+        tz = -(-nz // -(-nz // tz))  # the same runs, evened out
+    elif st._positive_int("tz", tz, "cg_plan") > tz_max:
+        raise ValueError(f"cg_plan: r * tz = {r * tz} exceeds "
+                         f"{MAX_SERIAL}")
+    tiles = tiles_at(tz)
+    if tiles >= 2**31:
+        raise ValueError(f"cg_plan: {tiles} tiles exceed the kernel's "
+                         "32-bit tile index")
+    return CgPlan(r=r, tz=tz, tiles_x=tiles_x, tiles_y=tiles_y,
+                  runs=-(-nz // tz), tiles=tiles, blocks=resident,
+                  smem=march_smem(r, itemsize), parts=2 * resident)
 
 
 def _check(r0: torch.Tensor, x0: torch.Tensor, nx: int, ny: int, nz: int,
@@ -152,55 +259,78 @@ def stencil_cg_vmem_torch(r0, x0, eps, nx: int, ny: int, nz: int,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("stencil_cg_vmem")
-    p, i32 = ctypes.c_void_p, ctypes.c_int
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")
-        fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
+        fn.argtypes = [p] * 8 + [i32] * 5 + [i32, i32, i64, i64, p]
         fn.restype = i32
         fn = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")
-        fn.argtypes = [ctypes.POINTER(i32)]
+        fn.argtypes = [i32, i32, i64, ctypes.POINTER(i32)]
         fn.restype = i32
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def grid_blocks(dtype: torch.dtype, device_index: int) -> int:
-    """The kernel's grid on a device: the co-resident block count."""
+def resident_blocks(dtype: torch.dtype, r: int, use_7pt: bool, smem: int,
+                    device_index: int) -> int:
+    """The blocks of the kernel (R rows, the stencil, the vector type) that
+    fit on a device at once with ``smem`` bytes of dynamic shared memory."""
     lib = _library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{_SUFFIX[dtype]}")(
-            ctypes.byref(blocks))
+            r, int(use_7pt), smem, ctypes.byref(blocks))
     _build.check(lib, err, "stencil_cg_vmem occupancy")
     return blocks.value
 
 
+def device_cg_plan(v: torch.Tensor, nx: int, ny: int, nz: int,
+                   use_7pt: bool = False, r: int = None,
+                   tz: int = None) -> CgPlan:
+    """``cg_plan`` for CUDA vectors like ``v`` on their card (R and tz
+    forced where given)."""
+    r = plan_rows(ny) if r is None else r
+    if r not in PLAN_ROWS:
+        raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got {r!r}")
+    index = (v.device.index if v.device.index is not None
+             else torch.cuda.current_device())
+    resident = resident_blocks(v.dtype, r, bool(use_7pt),
+                               march_smem(r, v.element_size()), index)
+    return cg_plan(nx, ny, nz, v.element_size(), resident, r=r, tz=tz)
+
+
 def stencil_cg_vmem(r0, x0, eps, nx: int, ny: int, nz: int, itermax: int,
-                    use_7pt: bool = False):
-    """K5: the whole solve in one cooperative launch for CUDA tensors, the
-    plain version for CPU tensors."""
+                    use_7pt: bool = False, plan: CgPlan = None):
+    """K5: the whole solve in one cooperative launch for CUDA tensors (on
+    ``plan``, by default ``device_cg_plan``'s), the plain version for CPU
+    tensors."""
     if on_cpu("stencil_cg_vmem", r0, x0):
         return stencil_cg_vmem_torch(r0, x0, eps, nx, ny, nz, itermax,
                                      use_7pt)
+    x, hist = _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan)
+    stencil_cg_vmem.launches += 1
+    return x, hist
+
+
+def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
+    """(x, hist): K5 on ``plan`` (default ``device_cg_plan``'s) from r0 and
+    x0, which it copies; the two p buffers (the first zeros), w and the
+    partials beside them."""
     _check(r0, x0, nx, ny, nz, itermax)
     _note_l2(nx, ny, nz, r0.element_size())
     dev = r0.device
-    blocks = grid_blocks(r0.dtype, dev.index if dev.index is not None
-                         else torch.cuda.current_device())
+    plan = plan or device_cg_plan(r0, nx, ny, nz, use_7pt)
     r = r0.contiguous().clone()
     x = x0.contiguous().clone()
-    p = torch.zeros_like(r)
+    p0 = torch.zeros_like(r)  # p_old of the first iteration
+    p1 = torch.empty_like(r)
+    w = torch.empty_like(r)
     hist = torch.empty(itermax, dtype=r0.dtype, device=dev)
-    parts = torch.empty(2 * blocks, dtype=r0.dtype, device=dev)
+    parts = torch.empty(plan.parts, dtype=r0.dtype, device=dev)
     eps_t = torch.as_tensor(eps, device=dev).to(r0.dtype).reshape(1)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"sb_stencil_cg_vmem_{_SUFFIX[r0.dtype]}")(
-            r.data_ptr(), p.data_ptr(), x.data_ptr(), hist.data_ptr(),
-            parts.data_ptr(), eps_t.data_ptr(), nx, ny, nz, int(use_7pt),
-            itermax, blocks, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "stencil_cg_vmem")
-    stencil_cg_vmem.launches += 1
+    st._call(_library(), f"sb_stencil_cg_vmem_{_SUFFIX[r0.dtype]}", dev, r,
+             p0, p1, w, x, hist, parts, eps_t, nx, ny, nz, int(use_7pt),
+             itermax, plan.r, plan.tz, plan.blocks, plan.smem)
     return x, hist
 
 

@@ -30,9 +30,9 @@ with this tree's: other, this, this, other. The other tree's K6 and K9
 share this tree's C interfaces; its K10 is called with the arguments its
 source declares after ``w_blocks`` (none, or this tree's unit of blocks, or
 that and a ring depth of two), and where it refuses the window it is left
-out. (``lib_k8`` calls another tree's K8, and ``lib_k2`` and ``lib_k3``
-its stencil kernels K2 and K3, the same way, for ``chip_smoke.py
---against``.)
+out. (``lib_k8`` calls another tree's K8, ``lib_k2`` and ``lib_k3``
+its stencil kernels K2 and K3, and ``lib_k5`` its one-launch CG K5, the
+same way, for ``chip_smoke.py --against`` and ``profile_cg``.)
 The last line is one JSON object of every time, with the card's name and
 power limit.
 """
@@ -120,6 +120,21 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
             fn.argtypes = [p] * 6 + [i32] * 4 + plan + [p]
             fn.restype = i32
         return lib
+    if name == "stencil_cg_vmem":
+        # K5: before the march, (r, p, x, hist, parts, eps, nx, ny, nz,
+        # use_7pt, itermax, blocks); since, the two p buffers and w after
+        # r and the plan (rows, tz, blocks, smem) after itermax
+        lib.k5_takes_plan = "SB_CG_PLAN" in src.read_text()
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")
+            fn.argtypes = ([p] * 8 + [i32] * 7 + [i64, i64, p]
+                           if lib.k5_takes_plan else [p] * 6 + [i32] * 6 + [p])
+            fn.restype = i32
+            fn = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")
+            fn.argtypes = ([i32, i32, i64, ctypes.POINTER(i32)]
+                           if lib.k5_takes_plan else [ctypes.POINTER(i32)])
+            fn.restype = i32
+        return lib
     for sfx in ops._SUFFIX.values():
         if name == "bslab_spmv":
             fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
@@ -196,6 +211,49 @@ def lib_k3(lib: ctypes.CDLL, r, p, beta, nx: int, ny: int, nz: int,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "other stencil_axpy_apply_dots")
     return pn, w, torch.sum(parts)
+
+
+def lib_k5(lib: ctypes.CDLL, r0, x0, eps: float, nx: int, ny: int, nz: int,
+           itermax: int, use_7pt: bool = False):
+    """K5 of another tree's library on this tree's inputs: (x, hist),
+    through the interface its source declares; where it takes a plan,
+    ``cg_plan`` at the blocks its own kernel fits on the card."""
+    from sparsebench_tpu_torch.ops import stencil as st
+    from sparsebench_tpu_torch.ops import stencil_cg_vmem as scv
+
+    sfx = scv._SUFFIX[r0.dtype]
+    dev = r0.device
+    blocks = ctypes.c_int(0)
+    r, x = r0.clone(), x0.clone()
+    hist = torch.empty(itermax, dtype=r0.dtype, device=dev)
+    eps_t = torch.full((1,), eps, dtype=r0.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if lib.k5_takes_plan:
+        rows = st.plan_rows(ny)
+        smem = st.march_smem(rows, r0.element_size())
+        err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")(
+            rows, int(use_7pt), smem, ctypes.byref(blocks))
+        _build.check(lib, err, "other stencil_cg_vmem occupancy")
+        plan = scv.cg_plan(nx, ny, nz, r0.element_size(), blocks.value)
+        p0, p1, w = torch.zeros_like(r), torch.empty_like(r), torch.empty_like(r)
+        parts = torch.empty(plan.parts, dtype=r0.dtype, device=dev)
+        err = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")(
+            r.data_ptr(), p0.data_ptr(), p1.data_ptr(), w.data_ptr(),
+            x.data_ptr(), hist.data_ptr(), parts.data_ptr(), eps_t.data_ptr(),
+            nx, ny, nz, int(use_7pt), itermax, plan.r, plan.tz, plan.blocks,
+            plan.smem, stream)
+    else:
+        err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")(
+            ctypes.byref(blocks))
+        _build.check(lib, err, "other stencil_cg_vmem occupancy")
+        p = torch.zeros_like(r)
+        parts = torch.empty(2 * blocks.value, dtype=r0.dtype, device=dev)
+        err = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")(
+            r.data_ptr(), p.data_ptr(), x.data_ptr(), hist.data_ptr(),
+            parts.data_ptr(), eps_t.data_ptr(), nx, ny, nz, int(use_7pt),
+            itermax, blocks.value, stream)
+    _build.check(lib, err, "other stencil_cg_vmem")
+    return x, hist
 
 
 def lib_k9(lib: ctypes.CDLL, A, x2d, vals, out=None):

@@ -9,6 +9,8 @@
         [--against DIR]
     python -m sparsebench_tpu_torch.profile_cg --stencil-plans [-n 100 200]
         [--against DIR] [--stencil-variants]
+    python -m sparsebench_tpu_torch.profile_cg --vmem-variants [-n 100 200]
+        [--against DIR]
 
 For each size n, f32 vectors: the n^3 generated stencil as DIA with bf16
 diagonals (K1), as the matrix-free stencil operator (K2-K5), as bslab
@@ -63,6 +65,25 @@ of ``STENCIL_VARIANTS``, each one edit of ``csrc/stencil.cu`` away
 (written to ``build/stencil_variants/``), on the default plan. Beside
 each: the share of the bytes bound (x read and y written; K3 r and p read,
 p' and w written; 3.35 TB/s).
+
+``--vmem-variants`` times the one-launch CG kernel K5 (a whole solve of
+``-i`` iterations, f32, 27-point, from x0 = 0 on the generated problem) on
+its default plan beside forced plans (``VMEM_PLANS``: R, tz) and beside
+the kernels of ``VMEM_VARIANTS``, each one edit of
+``csrc/stencil_cg_vmem.cu`` away (written to ``build/vmem_variants/``):
+phase B with one value a load instead of 16 bytes, and the kernel bounded
+to four blocks an SM (the source note gives the two design choices that
+were measured this way and the losers deleted); with ``--against DIR``
+another tree's K5 among them
+(``profile_bslab.lib_k5``). Each is first held to this tree's result: k
+equal, the history to rtol 1e-4 above 1e-4 of its start, x to 1e-4 (bit
+for bit where its sums run in this tree's order: a variant that keeps the
+plan and the order of the dots); then all are timed in
+turns (this, the others, the others again in reverse, this), each the
+better of its runs of ``VMEM_REPS`` back-to-back solves timed with CUDA
+events. Beside each: the share of K5's bound (chip_smoke.py phase 5b: r0
+and x0 read, x written, and each iteration the part of r, p and x beyond
+the L2 read and written; 3.35 TB/s).
 
 ``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
 does for the CLI. Every time line carries the card's name and power limit
@@ -143,6 +164,19 @@ STENCIL_VARIANTS = (
        "__launch_bounds__(kThreads, 5)\nstencil_axpy_apply_dots_kernel(")],
      True),
 )
+
+# --vmem-variants: (R, tz) forced beside the default plan, and (name, edits
+# of csrc/stencil_cg_vmem.cu, its sums run in this tree's order)
+VMEM_PLANS = ((2, 4), (2, 8), (2, 16), (4, 8), (1, 16))
+VMEM_VARIANTS = (
+    ("phase B one value a load",
+     [("const bool vec = aligned16(r)", "const bool vec = false && aligned16(r)")],
+     False),
+    ("four blocks an SM",
+     [("__launch_bounds__(kThreads)\nstencil_cg_vmem_kernel(",
+       "__launch_bounds__(kThreads, 4)\nstencil_cg_vmem_kernel(")], False),
+)
+VMEM_REPS = 3
 
 
 def _best_wall(fn, reps: int = 3) -> float:
@@ -445,6 +479,102 @@ def profile_stencil_plans(n: int, gpu: str, against=None,
     torch.cuda.empty_cache()
 
 
+def event_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``reps`` back-to-back calls of ``fn``,
+    timed with CUDA events after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k5_bound_ms(n: int, iters: int, l2: int) -> float:
+    """K5's bound at n^3, f32 (chip_smoke.py phase 5b's): the larger of
+    the bytes (r0 and x0 read and x written once; each iteration the part
+    of r, p and x beyond the L2 read and written) over 3.35 TB/s and the
+    operations (38 a point an iteration, 2 a point once) over 67 TFLOP/s."""
+    pts = n ** 3
+    vecs = 3 * 4 * pts
+    nbytes = vecs + iters * 2 * max(0, vecs - l2)
+    return max(nbytes / 3.35e9, (2 + 38 * iters) * pts / 67e9)
+
+
+def profile_vmem_variants(n: int, itermax: int, gpu: str,
+                          against=None) -> None:
+    """K5 on the n^3 problem: the default plan, the forced plans of
+    ``VMEM_PLANS``, the variants of ``VMEM_VARIANTS`` and, with
+    ``against``, another tree's K5, in turns."""
+    from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.ops import stencil_cg_vmem as scv
+    from sparsebench_tpu_torch.ops.stencil import stencil_apply
+    from sparsebench_tpu_torch.profile_bslab import build_other, lib_k5
+
+    dev = torch.device("cuda")
+    dims = (n, n, n)
+    A, counts = StencilOperator.from_stencil(*dims, device=dev)
+    b = torch.from_numpy(27.0 - (counts - 1.0)).to(dev, torch.float32)
+    x0 = torch.zeros_like(b)
+    r0 = b - stencil_apply(x0, *dims)
+    fns = {"this tree": (lambda: scv.stencil_cg_vmem(
+        r0, x0, 0.0, *dims, itermax), True)}
+    plan = scv.device_cg_plan(r0, *dims)
+    shapes = {"this tree": f"R {plan.r} tz {plan.tz}, {plan.tiles} tiles on "
+              f"{plan.blocks} blocks"}
+    for rows, tz in VMEM_PLANS:
+        forced = scv.device_cg_plan(r0, *dims, r=rows, tz=tz)
+        name = f"R {rows} tz {tz}"
+        shapes[name] = f"{forced.tiles} tiles on {forced.blocks} blocks"
+        fns[name] = (lambda forced=forced: scv.stencil_cg_vmem(
+            r0, x0, 0.0, *dims, itermax, plan=forced), False)
+    trees = variant_trees(_build.BUILD_DIR.parent / "vmem_variants",
+                          "stencil_cg_vmem.cu", VMEM_VARIANTS)
+    if against is not None:
+        trees.insert(0, ("the other tree", against, False))
+    for name, tree, same in trees:
+        lib = build_other(tree, "stencil_cg_vmem")
+        fns[name] = (lambda lib=lib: lib_k5(lib, r0, x0, 0.0, *dims, itermax),
+                     same)
+    x_ref, h_ref = fns["this tree"][0]()
+    h_ref = h_ref.cpu().numpy()
+    k_ref = int(np.sum(~np.isnan(h_ref)))
+    sel = h_ref[:k_ref] >= 1e-4 * h_ref[0]
+    for name, (fn, same) in fns.items():
+        x, h = fn()
+        h = h.cpu().numpy()
+        k = int(np.sum(~np.isnan(h)))
+        ok = (k == k_ref and np.allclose(h[:k][sel], h_ref[:k][sel],
+                                         rtol=1e-4, atol=0)
+              and float((x - x_ref).abs().max()) <= 1e-4)
+        if same:
+            ok &= (np.array_equal(h.view(np.int32), h_ref.view(np.int32))
+                   and torch.equal(x.view(torch.int32),
+                                   x_ref.view(torch.int32)))
+        if not ok:
+            raise SystemExit(f"K5 {name} differs from this tree's at {n}^3")
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(event_ms(fns[name][0], VMEM_REPS))
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    bound = k5_bound_ms(n, k_ref - 1, l2)
+    this = min(ms["this tree"])
+    for name, runs in ms.items():
+        best = min(runs)
+        shape = shapes.get(name, "its own plan")
+        each = "/".join(f"{t:.6f}" for t in runs)
+        print(f"{n}^3 f32 x{itermax} K5 {name} ({shape}): {best:.6f} ms "
+              f"({each}), {best / this:.3f}x this tree's, {bound / best:.4f} "
+              f"of the bound {bound:.6f} ms | {gpu}", flush=True)
+    del A, b, x0, r0
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsebench_tpu_torch.profile_cg")
     ap.add_argument("-n", type=int, nargs="+", default=[100, 200],
@@ -470,10 +600,14 @@ def main(argv=None) -> int:
     ap.add_argument("--stencil-variants", action="store_true",
                     help="--stencil-plans, and K2 and K3 built one edit "
                     "away (module docstring) among them")
+    ap.add_argument("--vmem-variants", action="store_true",
+                    help="time K5 under forced plans and built one edit "
+                    "away (module docstring) instead of a solve")
     ap.add_argument("--against", type=Path, default=None,
-                    help="with --k8-variants or --stencil-plans, another "
-                    "tree of this repository whose K8, or K2 and K3, to "
-                    "time in turns with this tree's")
+                    help="with --k8-variants, --stencil-plans or "
+                    "--vmem-variants, another tree of this repository whose "
+                    "K8, K2 and K3, or K5, to time in turns with this "
+                    "tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_cg needs a CUDA card")
@@ -486,6 +620,8 @@ def main(argv=None) -> int:
     for n in args.n:
         if args.k8_variants:
             profile_k8_variants(n, gpu, args.against)
+        elif args.vmem_variants:
+            profile_vmem_variants(n, args.itermax, gpu, args.against)
         elif args.stencil_plans or args.stencil_variants:
             profile_stencil_plans(n, gpu, args.against,
                                   args.stencil_variants)

@@ -539,20 +539,32 @@ def test_cs_update_kernel_equals_plain(n, dt, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "f64"])
-@pytest.mark.parametrize("dims,use_7pt,eps", [((10, 9, 8), False, 0.0),
-                                              ((8, 8, 8), True, 1e-8),
-                                              ((40, 30, 20), False, 0.0),
-                                              ((100, 100, 100), False, 0.0)])
-def test_vmem_kernel_matches_plain(dims, use_7pt, eps, dt, cuda_device):
+@pytest.mark.parametrize("dims,use_7pt,eps,forced", [
+    ((10, 9, 8), False, 0.0, None), ((8, 8, 8), True, 1e-8, None),
+    ((40, 30, 20), False, 0.0, None), ((100, 100, 100), False, 0.0, None),
+    ((37, 29, 23), False, 0.0, None), ((64, 8, 3), False, 0.0, None),
+    ((130, 2, 3), True, 0.0, None), ((2, 2, 2), False, 0.0, None),
+    ((1, 1, 1), False, 0.0, None), ((200, 200, 200), False, 0.0, None),
+    # forced plans: fewer tiles than blocks, and many more
+    ((100, 100, 100), False, 0.0, (2, 16)), ((100, 100, 100), True, 0.0,
+                                             (1, 1)),
+    ((100, 100, 100), False, 0.0, (8, 4)),
+    ((37, 29, 23), False, 0.0, (1, 1)), ((37, 29, 23), True, 0.0, (4, 2))])
+def test_vmem_kernel_matches_plain(dims, use_7pt, eps, forced, dt,
+                                   cuda_device):
     """K5 against its plain version: k equal, the history to rtol 1e-9
-    (f64; 1e-4 in f32) above its noise floor, one launch per solve."""
+    (f64; 1e-4 in f32) above its noise floor, one launch per solve; on the
+    default plan and on forced ones."""
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import device_cg_plan
+
     A, counts = StencilOperator.from_stencil(*dims, use_7pt=use_7pt,
                                              device=cuda_device)
     b = torch.from_numpy(27.0 - (counts - 1.0)).to(cuda_device, DT[dt])
     x0 = torch.zeros_like(b)
     r0 = b - A.spmv(x0)
+    plan = (device_cg_plan(r0, *dims, use_7pt, *forced) if forced else None)
     before = stencil_cg_vmem.launches
-    x, h = stencil_cg_vmem(r0, x0, eps, *dims, 40, use_7pt)
+    x, h = stencil_cg_vmem(r0, x0, eps, *dims, 40, use_7pt, plan)
     assert stencil_cg_vmem.launches == before + 1
     x_ref, h_ref = stencil_cg_vmem_torch(r0, x0, eps, *dims, 40, use_7pt)
     h, h_ref = h.cpu().numpy(), h_ref.cpu().numpy()
@@ -565,6 +577,54 @@ def test_vmem_kernel_matches_plain(dims, use_7pt, eps, dt, cuda_device):
     assert bool(torch.isfinite(x).all())
     np.testing.assert_allclose(x.cpu().numpy(), x_ref.cpu().numpy(), rtol=0,
                                atol=1e-10 if dt == "f64" else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("dims,use_7pt,x0_scale,eps,itermax,forced", [
+    ((37, 29, 23), False, 0.0, 0.0, 30, None),
+    ((130, 2, 3), True, 0.0, 0.0, 20, None),
+    ((10, 9, 8), True, 0.1, 1e-8, 60, None),
+    ((2, 2, 2), False, 0.0, 0.0, 8, None),
+    ((37, 29, 23), False, 0.0, 0.0, 12, (8, 4)),
+    ((37, 29, 23), True, 0.0, 0.0, 12, (1, 1)),
+    ((100, 100, 100), False, 0.0, 0.0, 6, None)])
+def test_vmem_kernel_equals_its_schedule(dims, use_7pt, x0_scale, eps,
+                                         itermax, forced, dt, cuda_device):
+    """K5 bit for bit against the CPU emulation of its schedule
+    (tests/test_torch_stencil_cg_plan.py ``k5_emulate``) on the card's
+    plan: the same p', w, r and x in every iteration and the same order of
+    sums, so the same x and history."""
+    from test_torch_stencil_cg_plan import k5_emulate, problem
+
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import device_cg_plan
+
+    r0, x0 = problem(dims, use_7pt, DT[dt], x0_scale)
+    plan = device_cg_plan(r0.to(cuda_device), *dims, use_7pt,
+                          *(forced or ()))
+    x, h = stencil_cg_vmem(r0.to(cuda_device), x0.to(cuda_device), eps,
+                           *dims, itermax, use_7pt, plan)
+    x_e, h_e = k5_emulate(r0, x0, eps, dims, itermax, use_7pt, plan)
+    assert_bits_equal(h.cpu(), h_e)
+    assert_bits_equal(x.cpu(), x_e)
+
+
+@pytest.mark.cuda
+def test_vmem_kernel_refuses_a_plan_that_differs(cuda_device):
+    """The C side recomputes the plan: another grid, a tz or R the shared
+    bytes do not match are refused before anything launches."""
+    import dataclasses
+
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import device_cg_plan
+
+    dims = (37, 29, 23)
+    r0 = torch.ones(math.prod(dims), device=cuda_device)
+    plan = device_cg_plan(r0, *dims)
+    for bad in (dataclasses.replace(plan, blocks=plan.blocks + 1),
+                dataclasses.replace(plan, tz=0),
+                dataclasses.replace(plan, r=2 if plan.r != 2 else 4)):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            stencil_cg_vmem(r0, r0, 0.0, *dims, 5, False, bad)
 
 
 @pytest.mark.cuda
@@ -1051,6 +1111,32 @@ def test_stencil_variants_are_one_edit_of_the_source(tmp_path):
         assert text != src and all(new in text for _, new in edits), name
         assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
             p.name for p in _build.CSRC_DIR.glob("*.cuh"))
+
+
+def test_vmem_variants_are_one_edit_of_the_source(tmp_path):
+    """profile_cg --vmem-variants writes each variant as this tree's
+    csrc/stencil_cg_vmem.cu with its edit, found once, beside the shared
+    headers; the forced plans it times are plans cg_plan accepts."""
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import cg_plan
+    from sparsebench_tpu_torch.profile_cg import (
+        VMEM_PLANS,
+        VMEM_VARIANTS,
+        variant_trees,
+    )
+
+    src = (_build.CSRC_DIR / "stencil_cg_vmem.cu").read_text()
+    trees = variant_trees(tmp_path, "stencil_cg_vmem.cu", VMEM_VARIANTS)
+    assert [name for name, _, _ in trees] == [v[0] for v in VMEM_VARIANTS]
+    for (name, tree, _), (_, edits, _) in zip(trees, VMEM_VARIANTS):
+        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        text = (csrc / "stencil_cg_vmem.cu").read_text()
+        assert len(edits) == 1 and text != src, name
+        assert all(new in text for _, new in edits), name
+        assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
+            p.name for p in _build.CSRC_DIR.glob("*.cuh"))
+    for rows, tz in VMEM_PLANS:
+        for n in (100, 200):
+            assert cg_plan(n, n, n, 4, 396, r=rows, tz=tz).tz == tz
 
 
 def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):
