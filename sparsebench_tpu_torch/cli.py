@@ -112,7 +112,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="Per-region timing report (reference profiler table)")
     ap.add_argument("--trace", metavar="DIR", default=None,
-                    help="Write a torch.profiler Chrome trace to DIR")
+                    help="Write a Chrome trace to DIR/trace.json: the "
+                         "card's CUDA activity (device operations and the "
+                         "runtime calls that issued them) and the program's "
+                         "spans; no host operations")
     ap.add_argument("--checkpoint", metavar="PATH", default=None,
                     help="Checkpoint solver state to PATH and resume from it")
     ap.add_argument("--checkpoint-every", type=int, default=50,

@@ -18,6 +18,14 @@ to (ndiag, nr_pad).
 on the CPU; ``kernel`` on the CPU raises. Unlike the JAX package there is
 no self-check that quietly swaps a failing kernel for the plain path: a
 wrong kernel fails loudly.
+
+While the program's recorder records (``profiler.py``), ``spmv`` and
+``spmm_kn`` are spans ``dia.spmv`` and ``dia.spmm`` (the wrapper's checks,
+the output's allocation and the launch; ``kernel``: K1, K8 with its
+``form``, or ``torch``), and ``from_stencil`` is a span ``dia.build`` with
+its device step (``dia.build.diagonals``: the diagonals and row counts
+enqueued) and its host step (``dia.build.row_counts``: the counts copied
+to the host, which waits for the device).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.base import default_policy, round_up
 from sparsebench_tpu_torch.formats.registry import register_format
@@ -201,6 +210,14 @@ class DiaMatrix:
         Returns ``(matrix, row_counts)``; the row counts feed the
         reference's b = 27 - (nnzrow - 1) setup (src/CGSolver.c:25-36).
         """
+        with profiler.span("dia.build", n=nx * ny * nz,
+                           points=7 if use_7pt else 27):
+            return cls._from_stencil(nx, ny, nz, device, rank, size, use_7pt,
+                                     policy, impl, compress)
+
+    @classmethod
+    def _from_stencil(cls, nx, ny, nz, device, rank, size, use_7pt, policy,
+                      impl, compress):
         policy = default_policy(policy)
         device = torch.device(device)
         impl = resolve_impl(impl, device)
@@ -233,11 +250,13 @@ class DiaMatrix:
         else:
             store_dt = policy.value
         nr_pad = _grid_pad(local_nrow)
-        data, counts = _stencil_dia(
-            specs, nx, ny, local_nrow, total_nrow, start_row, nr_pad,
-            store_dt, device,
-        )
-        counts = counts[:local_nrow].cpu().numpy()
+        with profiler.span("dia.build.diagonals"):
+            data, counts = _stencil_dia(
+                specs, nx, ny, local_nrow, total_nrow, start_row, nr_pad,
+                store_dt, device,
+            )
+        with profiler.span("dia.build.row_counts"):
+            counts = counts[:local_nrow].cpu().numpy()
 
         # offsets as from_csr derives them (global col - local row): they
         # include the rank's start_row shift for stacked multi-rank grids
@@ -304,6 +323,13 @@ class DiaMatrix:
         """y = A x for a length-nc x on this matrix's device. bf16 x is
         widened to f32 for the sum and the result narrowed back, as the JAX
         package's kernel path does (formats/dia.py:357-375)."""
+        if profiler.recording():
+            with profiler.span("dia.spmv", kernel="K1" if self.impl == "kernel"
+                               else "torch"):
+                return self._spmv(x)
+        return self._spmv(x)
+
+    def _spmv(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = x.dtype
         if out_dtype == torch.bfloat16:
             x = x.to(torch.float32)
@@ -323,6 +349,13 @@ class DiaMatrix:
         for the sum and the result narrowed back, as ``spmv`` does (the JAX
         package's Pallas path, formats/dia.py:437-448), so row c of the
         result is ``spmv(X[c])`` bit for bit."""
+        if profiler.recording():
+            with profiler.span("dia.spmm", kernel="K8" if self.impl == "kernel"
+                               else "torch", rhs=X.shape[0]):
+                return self._spmm_kn(X)
+        return self._spmm_kn(X)
+
+    def _spmm_kn(self, X: torch.Tensor) -> torch.Tensor:
         out_dtype = X.dtype
         if out_dtype == torch.bfloat16:
             X = X.to(torch.float32)

@@ -15,6 +15,11 @@ No PyTorch headers are compiled: the wrappers pass tensor pointers and the
 CUDA stream as integers (``ops/dia_spmv.py``). Every library exports
 ``sb_cuda_error_string`` (``csrc/common.cuh``), which ``check`` uses to name
 a launch error.
+
+Each library loaded in the process is kept in ``LOADS`` (its name, whether
+nvcc ran, the seconds of its build and load); while the program's recorder
+records, the load is also a span ``load_library`` and a build counts
+``libraries_built`` (``profiler.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
+
+from sparsebench_tpu_torch import profiler
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -113,13 +121,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return out
 
 
+class Load(NamedTuple):
+    """A library's load: ``built`` when nvcc ran for it."""
+    library: str
+    built: bool
+    seconds: float
+
+
+LOADS: list = []  # every Load of this process, in order
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The kernel library built from ``csrc/<name>.cu``, built on first
     use."""
-    lib = ctypes.CDLL(str(build([name])[name]))
-    lib.sb_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.sb_cuda_error_string.restype = ctypes.c_char_p
+    t0 = time.perf_counter()
+    with profiler.span("load_library", library=name) as s:
+        src = CSRC_DIR / f"{name}.cu"
+        built = src.is_file() and not library_path(src).exists()
+        lib = ctypes.CDLL(str(build([name])[name]))
+        lib.sb_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sb_cuda_error_string.restype = ctypes.c_char_p
+        s.set(built=built)
+        if built:
+            profiler.count("libraries_built")
+    LOADS.append(Load(name, built, time.perf_counter() - t0))
     return lib
 
 

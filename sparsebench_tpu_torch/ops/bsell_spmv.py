@@ -59,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 LANES = 128
 SUBLANES = 8
@@ -268,3 +269,12 @@ def bsell_spmv_windowed(wchunk: torch.Tensor, blocks: torch.Tensor,
 bsell_spmv.launches = 0
 bsell_spmv_win2.launches = 0
 bsell_spmv_windowed.launches = 0
+
+# the registry's entries (profiler.kernels): K10 and K11 share one body
+KERNELS = (
+    Kernel("K9", ("bsell_spmv_kernel",), "SpMV kernels", (bsell_spmv,)),
+    Kernel("K10", ("bsell_spmv_win_kernel",), "SpMV kernels",
+           (bsell_spmv_win2,)),
+    Kernel("K11", ("bsell_spmv_win_kernel",), "SpMV kernels",
+           (bsell_spmv_windowed,)),
+)

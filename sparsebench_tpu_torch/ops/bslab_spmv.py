@@ -44,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 LANES = 128
 
@@ -289,3 +290,10 @@ def bslab_spmv_win(wchunk: torch.Tensor, sl: Slices, x: torch.Tensor, *,
 
 bslab_spmv.launches = 0
 bslab_spmv_win.launches = 0
+
+# the registry's entries (profiler.kernels)
+KERNELS = (
+    Kernel("K6", ("bslab_spmv_kernel",), "SpMV kernels", (bslab_spmv,)),
+    Kernel("K7", ("bslab_spmv_win_kernel",), "SpMV kernels",
+           (bslab_spmv_win,)),
+)

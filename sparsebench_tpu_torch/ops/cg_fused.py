@@ -30,6 +30,7 @@ from sparsebench_tpu_torch.ops.stencil import (
     compute_dtype,
     on_cpu,
 )
+from sparsebench_tpu_torch.profiler import Kernel
 
 
 def cs_update_torch(u, p, w, s, x, r, alpha, beta):
@@ -87,3 +88,6 @@ def cs_update(u, p, w, s, x, r, alpha, beta):
 
 
 cs_update.launches = 0
+
+# the registry's entry (profiler.kernels)
+KERNELS = (Kernel("K4", ("cs_update_kernel",), "solver loops", (cs_update,)),)

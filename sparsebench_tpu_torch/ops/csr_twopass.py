@@ -34,6 +34,7 @@ import functools
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 LANES = 128
 
@@ -126,3 +127,6 @@ def pass1_products(val: torch.Tensor, colrel: torch.Tensor,
 
 
 pass1_products.launches = 0
+
+# the registry's entry (profiler.kernels)
+KERNELS = (Kernel("P5", ("pass1_kernel",), "prototypes", (pass1_products,)),)

@@ -11,7 +11,8 @@ why its design differs from the TPU kernel's.
 * ``dia_spmm(data, X, offsets, nr)`` — the wrapper. CPU tensors go to the
   plain version; CUDA tensors launch the kernel or raise. There is no
   fallback from one to the other. ``dia_spmm.launches`` counts kernel
-  launches.
+  launches; the form launched (``quad``: four rows a thread, or ``row``)
+  is set on the caller's open span (``profiler.annotate``).
 
 Both take ``data`` of shape (ndiag, nr_pad), as ``dia_spmv`` does, and a
 slab-major X of shape (k, >= nr), of which the first ``nr`` entries of each
@@ -29,8 +30,10 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.ops.dia_spmv import MAX_DIAGS
+from sparsebench_tpu_torch.profiler import Kernel
 
 # (data dtype, X dtype) -> C entry point in csrc/dia_spmm.cu
 _ENTRY = {
@@ -171,11 +174,12 @@ def dia_spmm(data: torch.Tensor, X: torch.Tensor,
     k = X.shape[0]
     Y = torch.empty((k, nr), dtype=X.dtype, device=X.device)
     aligned = all(t.data_ptr() % ALIGN == 0 for t in (data, X, Y))
+    plan = _plan_args(offsets, nr, data.shape[1], X.shape[1], nr, aligned)
+    profiler.annotate(form="quad" if plan[0] else "row")
     with torch.cuda.device(X.device):
         err = getattr(lib, name)(
             data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1], k,
-            X.shape[1], nr,
-            *_plan_args(offsets, nr, data.shape[1], X.shape[1], nr, aligned),
+            X.shape[1], nr, *plan,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _build.check(lib, err, "dia_spmm")
@@ -184,3 +188,7 @@ def dia_spmm(data: torch.Tensor, X: torch.Tensor,
 
 
 dia_spmm.launches = 0
+
+# the registry's entry (profiler.kernels): one row a thread, or four
+KERNELS = (Kernel("K8", ("dia_spmm_kernel", "dia_spmm_quad_kernel"),
+                  "SpMV kernels", (dia_spmm,)),)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 MAX_DIAGS = 64  # kMaxDiags in csrc/dia_spmv.cu; DIA's max_diags default
 
@@ -114,3 +115,6 @@ def dia_spmv(data: torch.Tensor, x: torch.Tensor,
 
 
 dia_spmv.launches = 0
+
+# the registry's entry (profiler.kernels)
+KERNELS = (Kernel("K1", ("dia_spmv_kernel",), "SpMV kernels", (dia_spmv,)),)

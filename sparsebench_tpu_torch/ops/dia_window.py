@@ -52,6 +52,7 @@ from typing import Sequence, Tuple
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 LANES = 128
 PIECE_ROWS = 8   # rows a staged kernel block computes (csrc kPieceRows)
@@ -226,3 +227,11 @@ def dia_shear(x1d: torch.Tensor, data3d: torch.Tensor, shifts: Sequence[int],
 
 dia_window.launches = 0
 dia_shear.launches = 0
+
+# the registry's entries (profiler.kernels): P2 runs P1's bodies
+KERNELS = (
+    Kernel("P1", ("window_direct_kernel", "window_staged_kernel"),
+           "prototypes", (dia_window,)),
+    Kernel("P2", ("window_direct_kernel", "window_staged_kernel"),
+           "prototypes", (dia_shear,)),
+)

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 from sparsebench_tpu_torch.utils import elapsed_seconds
 
 LANES = 128
@@ -160,3 +161,6 @@ def measure_dma_read_gbps(n_floats: int = 64 * 1024 * 1024, reps: int = 4,
     if dt <= 0:
         dt = t_hi / (3 * reps)
     return n_tiles * tile_rows * LANES * 4 / dt / 1e9
+
+# the registry's entry (profiler.kernels): the device's read ceiling
+KERNELS = (Kernel("K12", ("read_passes_kernel",), "device", (read_passes,)),)

@@ -58,6 +58,7 @@ import functools
 import torch
 
 from sparsebench_tpu_torch.ops import _build
+from sparsebench_tpu_torch.profiler import Kernel
 
 THREADS = 256            # kThreads in csrc/common.cuh: a block's threads
 TILE_X = 32              # sb::kTileX: a tile's columns, one a lane
@@ -366,3 +367,11 @@ def stencil_axpy_apply_dots(r: torch.Tensor, p: torch.Tensor, beta,
 stencil_apply.launches = 0
 stencil_apply_dots.launches = 0
 stencil_axpy_apply_dots.launches = 0
+
+# the registry's entries (profiler.kernels): K2 with and without its dots
+KERNELS = (
+    Kernel("K2", ("stencil_apply_kernel",), "SpMV kernels",
+           (stencil_apply, stencil_apply_dots)),
+    Kernel("K3", ("stencil_axpy_apply_dots_kernel",), "SpMV kernels",
+           (stencil_axpy_apply_dots,)),
+)

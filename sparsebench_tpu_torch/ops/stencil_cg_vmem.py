@@ -67,6 +67,7 @@ from sparsebench_tpu_torch.ops.stencil import (
     plan_rows,
     stencil_apply_torch,
 )
+from sparsebench_tpu_torch.profiler import Kernel
 
 # bytes of the vectors an iteration touches (r, the two p buffers, w and
 # x) that the L2 is planned to hold; the H100's L2 is 50 MB
@@ -335,3 +336,7 @@ def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
 
 
 stencil_cg_vmem.launches = 0
+
+# the registry's entry (profiler.kernels): a whole solve in one launch
+KERNELS = (Kernel("K5", ("stencil_cg_vmem_kernel",), "solver loops",
+                  (stencil_cg_vmem,)),)

@@ -111,6 +111,7 @@ from sparsebench_tpu_torch.formats.rgl_build import rgl_bslab
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
 from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+from sparsebench_tpu_torch.profiler import device_name, kernels_named
 from sparsebench_tpu_torch.solvers.bicgstab import bicgstab_loop
 from sparsebench_tpu_torch.solvers.cg import (
     CG_LOOPS,
@@ -123,13 +124,6 @@ from sparsebench_tpu_torch.solvers.chebyshev import cheby_loop, estimate_bounds
 from sparsebench_tpu_torch.solvers.gmres import gmres_cycle
 from sparsebench_tpu_torch.solvers.minres import minres_loop
 
-# the port's kernels, by the names their device events carry
-KERNELS = ("dia_spmv_kernel", "stencil_apply_kernel",
-           "stencil_axpy_apply_dots_kernel", "cs_update_kernel",
-           "stencil_cg_vmem_kernel", "bslab_spmv_kernel",
-           "bslab_spmv_win_kernel", "dia_spmm_kernel", "dia_spmm_quad_kernel",
-           "bsell_spmv_kernel",
-           "bsell_spmv_win_kernel")
 SOLVERS = ("cg", "nrhs", "gmres", "cheb", "bicgstab", "minres")
 GMRES_RESTART = 30
 NRHS = 8  # right-hand sides of --solver nrhs
@@ -283,19 +277,20 @@ def profile_size(n: int, itermax: int, fmt: str, variant: str,
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time for e in evs) * 1e-6
-    ours = {}
+    ours = {}  # the registry's kernels (profiler.kernels), by device name
     for e in evs:
-        for name in KERNELS:
-            if name in e.name:
-                t, c = ours.get(name, (0.0, 0))
-                ours[name] = (t + e.device_time * 1e-6, c + 1)
+        if kernels_named(e.name):
+            name = device_name(e.name)
+            t, c = ours.get(name, (0.0, 0))
+            ours[name] = (t + e.device_time * 1e-6, c + 1)
     own = sum(t for t, _c in ours.values())
     print(f"{tag}: wall {wall:.6f} s; device busy {busy:.6f} s "
           f"({busy / wall * 100:.1f} % of wall); port kernels {own:.6f} s "
           f"({own / busy * 100:.1f} % of device); "
           f"{len(evs) / itermax:.1f} device kernels per iteration | {gpu}")
     for name, (t, c) in sorted(ours.items()):
-        print(f"    kernel {name}: {t:.6f} s device, {c} launches")
+        ids = "/".join(k.id for k in kernels_named(name))
+        print(f"    kernel {ids} {name}: {t:.6f} s device, {c} launches")
     by_name: dict = {}
     for e in evs:
         t, c = by_name.get(e.name[:90], (0.0, 0))

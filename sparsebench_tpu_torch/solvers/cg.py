@@ -38,6 +38,12 @@ masked fixed-trip design; ``sstep`` (``solvers/cg_sstep.py``) and ``pipe``
 modules say why). ``resolve_cg_loop`` maps a name to its loop.
 ``inv_diag`` (Jacobi) and ``precond`` (``solvers/precond.ChebPrecond``)
 precondition ``standard``, ``cs`` and ``pipe``; ``sstep`` takes Jacobi.
+
+While the program's recorder records (``profiler.py``), each solve of a
+loop of ``CG_LOOPS`` is a span ``cg.solve`` (``variant``, ``itermax``,
+``n``) holding a span ``cg.init`` and, in the eager loops, one span
+``cg.body`` a body; ``cg.bodies`` counts the bodies issued. The loops read
+the recorder's switch once a solve.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
 from sparsebench_tpu_torch.ops.blas1 import ddot
 from sparsebench_tpu_torch.ops.cg_fused import cs_update
@@ -151,53 +158,73 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
     steps = torch.arange(hist.numel(), device=r.device)
     spmv = matvec(A)
     apply_m = resolve_apply_m(precond, inv_diag, spmv, vdt)
-    for _ in range(k_end - (1 if k_start is None else k_start)):
-        active = (k < k_end) & (normr > eps) & ~done
-        first = k == 1
-        if apply_m is None:
-            new_rtrans = ddot(r, r, acc_dtype=sdt)
-            rt = torch.where(first, rtrans, new_rtrans)
-            # first body: p = r (beta = 0; x0 is finite, so r + 0*p == r)
-            beta = torch.where(first, 0, safe_div(new_rtrans, rtrans)).to(vdt)
-            p_new = r + beta * p
-            normr_new = torch.sqrt(rt)
-        else:
-            # PCG: rtrans carries r.z; the history the true ||r||
-            z = apply_m(r)
-            rz = ddot(r, z, acc_dtype=sdt)
-            rt = torch.where(first, rtrans, rz)
-            beta = torch.where(first, 0, safe_div(rz, rtrans)).to(vdt)
-            p_new = z + beta * p
-            normr_new = torch.sqrt(ddot(r, r, acc_dtype=sdt))
-        hist = torch.where(active & (steps == k), normr_new, hist)
+    span = profiler.span_fn()
+    bodies = k_end - (1 if k_start is None else k_start)
+    for _ in range(bodies):
+        with span("cg.body"):
+            active = (k < k_end) & (normr > eps) & ~done
+            first = k == 1
+            if apply_m is None:
+                new_rtrans = ddot(r, r, acc_dtype=sdt)
+                rt = torch.where(first, rtrans, new_rtrans)
+                # first body: p = r (beta = 0; x0 is finite, so r + 0*p == r)
+                beta = torch.where(first, 0, safe_div(new_rtrans, rtrans)).to(vdt)
+                p_new = r + beta * p
+                normr_new = torch.sqrt(rt)
+            else:
+                # PCG: rtrans carries r.z; the history the true ||r||
+                z = apply_m(r)
+                rz = ddot(r, z, acc_dtype=sdt)
+                rt = torch.where(first, rtrans, rz)
+                beta = torch.where(first, 0, safe_div(rz, rtrans)).to(vdt)
+                p_new = z + beta * p
+                normr_new = torch.sqrt(ddot(r, r, acc_dtype=sdt))
+            hist = torch.where(active & (steps == k), normr_new, hist)
 
-        Ap = spmv(p_new)
-        pAp = ddot(p_new, Ap, acc_dtype=sdt)
-        breakdown = pAp <= rt * 1e-30
-        alpha = torch.where(breakdown | ~active, 0, safe_div(rt, pAp)).to(vdt)
-        x = x + alpha * p_new
-        r = r - alpha * Ap
+            Ap = spmv(p_new)
+            pAp = ddot(p_new, Ap, acc_dtype=sdt)
+            breakdown = pAp <= rt * 1e-30
+            alpha = torch.where(breakdown | ~active, 0, safe_div(rt, pAp)).to(vdt)
+            x = x + alpha * p_new
+            r = r - alpha * Ap
 
-        p = torch.where(active, p_new, p)
-        rtrans = torch.where(active, rt, rtrans)
-        normr = torch.where(active, normr_new, normr)
-        done = done | (active & breakdown)
-        k = k + active.to(k.dtype)
+            p = torch.where(active, p_new, p)
+            rtrans = torch.where(active, rt, rtrans)
+            normr = torch.where(active, normr_new, normr)
+            done = done | (active & breakdown)
+            k = k + active.to(k.dtype)
+    profiler.count("cg.bodies", max(bodies, 0))
     return k, x, p, r, rtrans, normr, hist, done
 
 
+def _solve_span(variant: str):
+    """Decorate a loop of ``CG_LOOPS``: a solve is a span ``cg.solve``
+    while the recorder records."""
+    def wrap(loop):
+        @functools.wraps(loop)
+        def solve(A, b, x0, itermax, eps, *args, **kw):
+            with profiler.span("cg.solve", variant=variant, itermax=itermax,
+                               n=b.numel()):
+                return loop(A, b, x0, itermax, eps, *args, **kw)
+        return solve
+    return wrap
+
+
+@_solve_span("standard")
 def cg_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
             acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
             precond=None):
     """CG from x0: returns (x, k, history[itermax]) as device tensors, with
     history[j] = normr at iteration j (NaN where not reached)."""
-    state = cg_init(A, b, x0, itermax, acc_dtype, inv_diag, precond)
+    with profiler.span("cg.init"):
+        state = cg_init(A, b, x0, itermax, acc_dtype, inv_diag, precond)
     k, x, _p, _r, _rtrans, _normr, hist, _done = cg_run(
         A, state, itermax, eps, acc_dtype, inv_diag, precond
     )
     return x, k, hist
 
 
+@_solve_span("cs")
 def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
                acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
                precond=None):
@@ -242,56 +269,60 @@ def cg_cs_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
             parts.append(ddot(r, r, acc_dtype=sdt))
         return w, torch.stack(parts)
 
-    eps = _eps_tensor(eps, sdt, device)
-    r = b - spmv(x0)
-    u = apply_m(r) if has_m else r
-    w, gd = spmv_dots(r, u)
-    gamma = gd[0]
-    rr = gd[2] if has_m else gamma
-    alpha = safe_div(gamma, gd[1])
-    normr = torch.sqrt(rr)
-    hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
-    hist[0] = normr
-    x = x0
-    p = torch.zeros_like(b)
-    s = torch.zeros_like(b)
-    beta = torch.zeros((), dtype=sdt, device=device)
-    k = torch.ones((), dtype=torch.int64, device=device)
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    steps = torch.arange(itermax, device=device)
-    for _ in range(itermax - 1):
-        active = (k < itermax) & (normr > eps) & ~done
-        normr_new = torch.sqrt(rr)
-        hist = torch.where(active & (steps == k), normr_new, hist)
-        a = torch.where(active, alpha, 0)
-        if fused:
-            p_new, s_new, x, r = cs_update(u, p, w, s, x, r, a, beta)
-        else:
-            b_v = beta.to(vdt)
-            p_new = u + b_v * p
-            s_new = w + b_v * s
-            a_v = a.to(vdt)
-            x = x + a_v * p_new
-            r = r - a_v * s_new
+    span = profiler.span_fn()
+    with span("cg.init"):
+        eps = _eps_tensor(eps, sdt, device)
+        r = b - spmv(x0)
         u = apply_m(r) if has_m else r
         w, gd = spmv_dots(r, u)
-        g_new, d_new = gd[0], gd[1]
-        rr_new = gd[2] if has_m else g_new
-        beta_new = safe_div(g_new, gamma)
-        denom = d_new - beta_new * safe_div(g_new, alpha)
-        # denom is p.Ap in disguise: the same positivity guard as cg_run
-        breakdown = denom <= g_new * 1e-30
-        alpha_new = torch.where(breakdown, 0, safe_div(g_new, denom))
+        gamma = gd[0]
+        rr = gd[2] if has_m else gamma
+        alpha = safe_div(gamma, gd[1])
+        normr = torch.sqrt(rr)
+        hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
+        hist[0] = normr
+        x = x0
+        p = torch.zeros_like(b)
+        s = torch.zeros_like(b)
+        beta = torch.zeros((), dtype=sdt, device=device)
+        k = torch.ones((), dtype=torch.int64, device=device)
+        done = torch.zeros((), dtype=torch.bool, device=device)
+        steps = torch.arange(itermax, device=device)
+    for _ in range(itermax - 1):
+        with span("cg.body"):
+            active = (k < itermax) & (normr > eps) & ~done
+            normr_new = torch.sqrt(rr)
+            hist = torch.where(active & (steps == k), normr_new, hist)
+            a = torch.where(active, alpha, 0)
+            if fused:
+                p_new, s_new, x, r = cs_update(u, p, w, s, x, r, a, beta)
+            else:
+                b_v = beta.to(vdt)
+                p_new = u + b_v * p
+                s_new = w + b_v * s
+                a_v = a.to(vdt)
+                x = x + a_v * p_new
+                r = r - a_v * s_new
+            u = apply_m(r) if has_m else r
+            w, gd = spmv_dots(r, u)
+            g_new, d_new = gd[0], gd[1]
+            rr_new = gd[2] if has_m else g_new
+            beta_new = safe_div(g_new, gamma)
+            denom = d_new - beta_new * safe_div(g_new, alpha)
+            # denom is p.Ap in disguise: the same positivity guard as cg_run
+            breakdown = denom <= g_new * 1e-30
+            alpha_new = torch.where(breakdown, 0, safe_div(g_new, denom))
 
-        p = torch.where(active, p_new, p)
-        s = torch.where(active, s_new, s)
-        gamma = torch.where(active, g_new, gamma)
-        rr = torch.where(active, rr_new, rr)
-        alpha = torch.where(active, alpha_new, alpha)
-        beta = torch.where(active, beta_new, beta)
-        normr = torch.where(active, normr_new, normr)
-        done = done | (active & breakdown)
-        k = k + active.to(k.dtype)
+            p = torch.where(active, p_new, p)
+            s = torch.where(active, s_new, s)
+            gamma = torch.where(active, g_new, gamma)
+            rr = torch.where(active, rr_new, rr)
+            alpha = torch.where(active, alpha_new, alpha)
+            beta = torch.where(active, beta_new, beta)
+            normr = torch.where(active, normr_new, normr)
+            done = done | (active & breakdown)
+            k = k + active.to(k.dtype)
+    profiler.count("cg.bodies", itermax - 1)
     return x, k, hist
 
 
@@ -303,6 +334,7 @@ def _unpreconditioned(variant: str, inv_diag, precond) -> None:
         )
 
 
+@_solve_span("fused")
 def cg_fused_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
                   acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
                   precond=None):
@@ -320,41 +352,46 @@ def cg_fused_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
     vdt = b.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
     device = b.device
-    eps = _eps_tensor(eps, sdt, device)
-    r = b - A.spmv(x0)
-    rtrans = ddot(r, r, acc_dtype=sdt)
-    rtrans_prev = rtrans
-    normr = torch.sqrt(rtrans)
-    hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
-    hist[0] = normr
-    x = x0
-    p = torch.zeros_like(b)
-    k = torch.ones((), dtype=torch.int64, device=device)
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    steps = torch.arange(itermax, device=device)
+    span = profiler.span_fn()
+    with span("cg.init"):
+        eps = _eps_tensor(eps, sdt, device)
+        r = b - A.spmv(x0)
+        rtrans = ddot(r, r, acc_dtype=sdt)
+        rtrans_prev = rtrans
+        normr = torch.sqrt(rtrans)
+        hist = torch.full((itermax,), float("nan"), dtype=sdt, device=device)
+        hist[0] = normr
+        x = x0
+        p = torch.zeros_like(b)
+        k = torch.ones((), dtype=torch.int64, device=device)
+        done = torch.zeros((), dtype=torch.bool, device=device)
+        steps = torch.arange(itermax, device=device)
     for _ in range(itermax - 1):
-        active = (k < itermax) & (normr > eps) & ~done
-        normr_new = torch.sqrt(rtrans)
-        hist = torch.where(active & (steps == k), normr_new, hist)
-        beta = torch.where(k == 1, 0, safe_div(rtrans, rtrans_prev))
-        p_new, w, dpart = A.axpy_spmv_dots(r, p, beta)
-        pAp = dpart.to(sdt)
-        breakdown = pAp <= rtrans * 1e-30
-        alpha = torch.where(breakdown | ~active, 0,
-                            safe_div(rtrans, pAp)).to(vdt)
-        x = x + alpha * p_new
-        r = r - alpha * w
-        new_rtrans = ddot(r, r, acc_dtype=sdt)
+        with span("cg.body"):
+            active = (k < itermax) & (normr > eps) & ~done
+            normr_new = torch.sqrt(rtrans)
+            hist = torch.where(active & (steps == k), normr_new, hist)
+            beta = torch.where(k == 1, 0, safe_div(rtrans, rtrans_prev))
+            p_new, w, dpart = A.axpy_spmv_dots(r, p, beta)
+            pAp = dpart.to(sdt)
+            breakdown = pAp <= rtrans * 1e-30
+            alpha = torch.where(breakdown | ~active, 0,
+                                safe_div(rtrans, pAp)).to(vdt)
+            x = x + alpha * p_new
+            r = r - alpha * w
+            new_rtrans = ddot(r, r, acc_dtype=sdt)
 
-        p = torch.where(active, p_new, p)
-        rtrans_prev = torch.where(active, rtrans, rtrans_prev)
-        rtrans = torch.where(active, new_rtrans, rtrans)
-        normr = torch.where(active, normr_new, normr)
-        done = done | (active & breakdown)
-        k = k + active.to(k.dtype)
+            p = torch.where(active, p_new, p)
+            rtrans_prev = torch.where(active, rtrans, rtrans_prev)
+            rtrans = torch.where(active, new_rtrans, rtrans)
+            normr = torch.where(active, normr_new, normr)
+            done = done | (active & breakdown)
+            k = k + active.to(k.dtype)
+    profiler.count("cg.bodies", itermax - 1)
     return x, k, hist
 
 
+@_solve_span("vmem")
 def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
                  acc_dtype: Optional[torch.dtype] = None, inv_diag=None,
                  precond=None):
@@ -376,10 +413,11 @@ def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
             "cg variant"
         )
     vdt = b.dtype
-    if vdt == torch.bfloat16:
-        b = b.to(torch.float32)
-        x0 = x0.to(torch.float32)
-    r0 = b - A.spmv(x0)
+    with profiler.span("cg.init"):
+        if vdt == torch.bfloat16:
+            b = b.to(torch.float32)
+            x0 = x0.to(torch.float32)
+        r0 = b - A.spmv(x0)
     fn = stencil_cg_vmem if A.impl == "kernel" else stencil_cg_vmem_torch
     x, hist = fn(r0, x0, eps, A.nx, A.ny, A.nz, itermax, A.use_7pt)
     k = torch.sum(~torch.isnan(hist))

@@ -25,6 +25,10 @@ bodies. Every body keeps its frozen columns exactly (P held with
 frozen) change nothing, and the history, the per-column counts and X come
 out as the JAX ``while_loop``'s. The body index is the iteration index,
 known on the host.
+
+While the program's recorder records (``profiler.py``), a solve is a span
+``cg_multi.solve`` (``rhs``, ``itermax``, ``n``) holding ``cg_multi.init``
+and one ``cg_multi.body`` a body; ``cg_multi.bodies`` counts the bodies.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
 from sparsebench_tpu_torch.solvers.cg import (
     CGResult,
@@ -77,38 +82,44 @@ def cg_multi_loop(A, B: torch.Tensor, X0: torch.Tensor, itermax: int, eps,
         # one sum per column, at the accumulation dtype
         return torch.sum(U.to(sdt) * V.to(sdt), dim=1)
 
-    eps = torch.as_tensor(eps, device=device).to(sdt)
-    X = X0
-    R = B - spmm(X0)
-    rtrans = dots(R, R)
-    normr = torch.sqrt(rtrans)
-    hist = torch.full((itermax, k_rhs), float("nan"), dtype=sdt,
-                      device=device)
-    hist[0] = normr
-    active = normr > eps
-    P = torch.zeros_like(B)
-    iters = torch.ones(k_rhs, dtype=torch.int32, device=device)
-    for it in range(1, itermax):
-        if it == 1:
-            new_rtrans = rtrans
-            beta = torch.zeros_like(rtrans)
-        else:
-            new_rtrans = dots(R, R)
-            beta = safe_div(new_rtrans, rtrans)
-        P = torch.where(active[:, None], R + beta[:, None].to(vdt) * P, P)
-        normr_k = torch.sqrt(new_rtrans)
-        hist[it] = torch.where(active, normr_k, float("nan"))
-        AP = spmm(P)
-        pAp = dots(P, AP)
-        # per-column breakdown guard (cg_run's): freeze that column
-        breakdown = pAp <= new_rtrans * 1e-30
-        step = active & ~breakdown
-        alpha = torch.where(step, safe_div(new_rtrans, pAp), 0).to(vdt)
-        X = X + alpha[:, None] * P
-        R = R - alpha[:, None] * AP
-        iters = iters + active.to(torch.int32)
-        active = step & (normr_k > eps)
-        rtrans = new_rtrans
+    span = profiler.span_fn()
+    with span("cg_multi.solve", rhs=k_rhs, itermax=itermax,
+              n=B.shape[1]):
+        with span("cg_multi.init"):
+            eps = torch.as_tensor(eps, device=device).to(sdt)
+            X = X0
+            R = B - spmm(X0)
+            rtrans = dots(R, R)
+            normr = torch.sqrt(rtrans)
+            hist = torch.full((itermax, k_rhs), float("nan"), dtype=sdt,
+                              device=device)
+            hist[0] = normr
+            active = normr > eps
+            P = torch.zeros_like(B)
+            iters = torch.ones(k_rhs, dtype=torch.int32, device=device)
+        for it in range(1, itermax):
+            with span("cg_multi.body"):
+                if it == 1:
+                    new_rtrans = rtrans
+                    beta = torch.zeros_like(rtrans)
+                else:
+                    new_rtrans = dots(R, R)
+                    beta = safe_div(new_rtrans, rtrans)
+                P = torch.where(active[:, None], R + beta[:, None].to(vdt) * P, P)
+                normr_k = torch.sqrt(new_rtrans)
+                hist[it] = torch.where(active, normr_k, float("nan"))
+                AP = spmm(P)
+                pAp = dots(P, AP)
+                # per-column breakdown guard (cg_run's): freeze that column
+                breakdown = pAp <= new_rtrans * 1e-30
+                step = active & ~breakdown
+                alpha = torch.where(step, safe_div(new_rtrans, pAp), 0).to(vdt)
+                X = X + alpha[:, None] * P
+                R = R - alpha[:, None] * AP
+                iters = iters + active.to(torch.int32)
+                active = step & (normr_k > eps)
+                rtrans = new_rtrans
+    profiler.count("cg_multi.bodies", max(itermax - 1, 0))
     return X, iters, hist
 
 
