@@ -37,9 +37,11 @@ lines; any failure raises and exits non-zero:
    wide pool and with grouped pools; K7 again with a forced cluster of 2
    wherever one block would do;
 4. main path: the CLI as a user runs it (``-t cg`` at 100^3, ``-f hpcg.par
-   -t cg`` at 200^3, ``-t spmv``), with the kernel launch count set to 0
-   before and read after those runs; then the f64 residual history at 100^3
-   through the kernel against the plain version;
+   -t cg`` at 200^3, ``-t spmv``), with the launch counts of K1 and K13
+   set to 0 before and read after those runs (each solve one K13 r.r, then
+   A, B and C a body; none in ``-t spmv``); then the f64 residual history
+   at 100^3 through the kernels (K1, K13) against the plain version (the
+   plain SpMV and the plain body, ``cg_body.plain_bodies``);
 4b. the stencil path: ``--fmt stencil -t cg`` with each CG variant at 100^3
    and 200^3, ``cs`` with SB_FUSED_CS=1, and ``-t spmv --fmt stencil``,
    with every stencil kernel's launch count set to 0 before and read after;
@@ -52,9 +54,10 @@ lines; any failure raises and exits non-zero:
    cluster), and ``-m <file> -t cg`` on a host RGL matrix
    of 100k rows written as .mtx (DIA refuses it, auto falls back to
    bslab), with the K6 and K7 counts set to 0 before and read after;
-5. times: CG solve seconds and per-SpMV milliseconds of K1 and its plain
-   version at 100^3 and 200^3, with physical GB/s, beside the same product
-   as a cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x);
+5. times: CG solve seconds (K1 and K13 against the plain SpMV and body)
+   and per-SpMV milliseconds of K1 and its plain version at 100^3 and
+   200^3, with physical GB/s, beside the same product as a cuSPARSE CSR
+   SpMV (torch.sparse_csr_tensor @ x);
 5b. times of K2-K5 (K5 at 100^3 and 200^3) beside their plain versions,
    their bounds and, for K2, torch.nn.functional.conv3d; K5's bound counts
    the part of r, p and x beyond the L2 read and written every iteration,
@@ -134,19 +137,34 @@ lines; any failure raises and exits non-zero:
    beside its plain version and bound at those shapes, with cuSPARSE CSR f32
    for P5's whole SpMV and for P1/P2's 27-diagonal product, and K1 at 200^3
    from phase 5 beside P1/P2;
+3h. the fused CG body K13 against its plain stages (``ops/cg_body.py``)
+   at 100^3 and 200^3 in f32 and f64 (DIA): one body stage by stage on
+   the state 5 bodies into a solve, the flags, k, rtrans, normr, done and
+   the history entry exactly, p, x and r bit for bit against the plain
+   stage's formula on the kernels' own scalars, r.r and p.Ap (through
+   alpha) against their exact value to the kernels' summation bound; then
+   whole 150-iteration solves, k equal and the history to the ROADMAP
+   parity floors (f32 rtol 1e-4 above 1e-4 of the start, f64 1e-9 above
+   1e-10);
+5h. K13's device time a body at 100^3 and 200^3, f32 (torch.profiler over
+   the 149 bodies of a solve; A, B and C apart) beside the plain body's
+   vector operations over the same bodies and the bound of 11 passes;
+   then CG x150 seconds through the fused and through the plain body on
+   DIA, the stencil, bslab and bsell at 100^3 and 200^3 and on CSR and
+   SELL at 100^3, their histories held to each other;
 6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
    a subprocess: rc 0 and a final JSON line of at most 1500 characters with
    a positive value, stream_read_GBps, dma_read_GBps, cg200_seconds and
    cg200_vmem_seconds; then ``python -m sparsebench_tpu_torch.bench spmv
    200 dia,bslab,bsell``, rc 0.
 
-The phases run in the order 3-3g, 4-4f, 5-5g, 6. A bound is the larger of the bytes a call must
-move (each input read once, each output written once) over 3.35 TB/s and
-its operations over 67 TFLOP/s (f32), the H100 SXM's published rates at
-700 W. The last three
-lines are the card's name and power limit, a JSON object of the kernels and
-the result line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
-a checkout, the script exits non-zero before printing any result.
+The phases run in the order 3-3h, 4-4f, 5-5h, 6. A bound is the larger of
+the bytes a call must move (each input read once, each output written
+once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32), the H100
+SXM's published rates at 700 W. The last three lines are the card's name
+and power limit, a JSON object of the kernels and the result line
+``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
+the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -2177,6 +2195,316 @@ def phase5f_times(dev, gpu, against=None):
     return out
 
 
+# -- K13: the fused body of standard CG ---------------------------------------
+K13_SIZES = (100, 200)
+# passes of n elements a fused body moves: A reads r and p and writes p, B
+# reads p and Ap, C reads x, p, r and Ap and writes x and r
+K13_PASSES = 11
+# operations an element a body: A 2, B 2, C 6
+K13_FLOPS = 10
+
+
+def k13_wrappers():
+    from sparsebench_tpu_torch.ops import cg_body
+
+    return (cg_body.body_rr, cg_body.body_p, cg_body.body_pap,
+            cg_body.body_xr)
+
+
+def k13_problem(n: int, dt: str, dev):
+    """The 27-point stencil at n^3 in DIA for ``dt`` vectors (K1 as its
+    SpMV), b = A x* for x* uniform in [0, 1) (seeded), and the state of CG
+    from x = 0 for 150 iterations."""
+    import torch
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.solvers import cg
+
+    A, _ = DiaMatrix.from_stencil(n, n, n, device=dev,
+                                  policy=DTypePolicy.from_names(dt),
+                                  impl="kernel")
+    vdt = {"f32": torch.float32, "f64": torch.float64}[dt]
+    g = torch.Generator().manual_seed(n)
+    xs = torch.rand(A.nr, generator=g, dtype=torch.float64)
+    b = A.spmv(xs.to(device=dev, dtype=vdt))
+    return A, b, cg.cg_init(A, b, torch.zeros_like(b), 150)
+
+
+def plain_cg(A, b, itermax: int = 150):
+    """CG x itermax from x = 0 through A's own SpMV and the plain body
+    (``cg_body.plain_bodies``: the eager body, whatever the card), timed as
+    ``solve_cg`` times its solve (a warm-up solve, then the timed one
+    closed by a synchronize): (k, x, history[:k], seconds), x in the
+    original row order."""
+    import torch
+    from sparsebench_tpu_torch.ops import cg_body
+    from sparsebench_tpu_torch.solvers import cg
+
+    b = torch.as_tensor(b, device=A.device)
+    permuted = getattr(A, "permuted_output", False)
+    if permuted:
+        b = A.permute_vector(b)
+    sdt = cg.default_acc_dtype(b.dtype, None)
+    eps = torch.zeros((), dtype=sdt, device=b.device)
+    spmv = cg.matvec(A)
+
+    def solve():
+        state = cg.cg_init(A, b, torch.zeros_like(b), itermax)
+        return cg_body.plain_bodies(spmv, state, itermax - 1, itermax, eps,
+                                    sdt)
+
+    solve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = solve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k = int(state[0])
+    x = A.unpermute_vector(state[1]) if permuted else state[1]
+    return k, x.cpu().numpy(), state[6].cpu().numpy()[:k], seconds
+
+
+def history_rel(h_k, h_t, floor: float) -> tuple:
+    """(max relative difference, entries compared) of two residual
+    histories over the entries of ``h_t`` at or above floor * h_t[0]."""
+    sel = h_t >= floor * h_t[0]
+    if not sel.any():
+        return 0.0, 0
+    return float(np.max(np.abs(h_k[sel] - h_t[sel]) / h_t[sel])), int(
+        sel.sum())
+
+
+def phase3h_cg_body(dev, gpu):
+    """K13 against its plain stages on the card, at 100^3 and 200^3 in f32
+    and f64 (DIA, K1 as the SpMV): one body stage by stage on a state 5
+    bodies into a solve (beta != 0), each kernel held to the plain stage of
+    the same state (``body_p_torch``, ``body_pap_torch``,
+    ``body_xr_torch``): the flags, k, rtrans, normr, done and the history
+    entry exactly; p, x and r bit for bit against the plain stage's
+    formula on the kernel's own scalars; the dots (r.r at the start and
+    after C, p.Ap through alpha) against their exact value to the bound of
+    the kernels' summation. Then whole solves, fused against the plain
+    body: k equal and the history to the ROADMAP parity floors (f32: rtol
+    1e-4 above 1e-4 of the start; f64: 1e-9 above 1e-10). Returns the
+    largest elementwise difference from the plain stages."""
+    import torch
+    from sparsebench_tpu_torch.ops import cg_body
+    from sparsebench_tpu_torch.ops.blas1 import safe_div
+    from sparsebench_tpu_torch.solvers import cg
+
+    floors = {"f32": (1e-4, 1e-4), "f64": (NOISE_FLOOR, HIST_RTOL)}
+    err = 0.0
+    for n in K13_SIZES:
+        for dt in ("f32", "f64"):
+            A, b, state0 = k13_problem(n, dt, dev)
+            vdt = b.dtype
+            ueps = torch.finfo(vdt).eps
+            eps = torch.zeros((), dtype=vdt, device=dev)
+            spmv = cg.matvec(A)
+            state = cg_body.plain_bodies(spmv, state0, 5, 150, eps, vdt)
+            k, x, p, r, rtrans, normr, hist, done = state
+            steps = torch.arange(hist.numel(), device=dev)
+            line = []
+            tag = f"K13 {n}^3 {dt}"
+
+            def same(u, v):  # bit for bit, 0-d tensors too
+                return bits_equal(u.reshape(-1), v.reshape(-1))
+
+            def dot_ok(got, u, v, what):
+                # the products, rounded as K13 rounds them, summed exactly
+                e, tol, exact = dots_check(got, (u * v).double(), ueps)
+                line.append(f"{what} {e / abs(exact):.2e} (bound "
+                            f"{tol / abs(exact):.2e})")
+                check(e <= tol, f"{tag}: {what} off by {e} (bound {tol})")
+                return tol / abs(exact)
+
+            run = cg_body.Run(state, 150, eps)
+            cg_body.body_rr(run)
+            dot_ok(run.s[2], r, r, "r.r")
+            # A against body_p_torch on the same state
+            a_t = cg_body.body_p_torch(state, 150, eps, steps, vdt)
+            cg_body.body_p(run)
+            rt, normr_new, kk = run.s[3], run.s[4], int(k)
+            check(bool(run.flags[0]) and bool(a_t.active),
+                  f"{tag}: A's active flag")
+            check(same(rt, run.s[2]) and same(normr_new, torch.sqrt(rt)),
+                  f"{tag}: A's rt or normr")
+            beta = safe_div(run.s[2], rtrans).to(vdt)
+            check(same(run.p, r + beta * p),
+                  f"{tag}: A's p differs from r + beta p")
+            check(same(run.hist[:kk], hist[:kk])
+                  and same(run.hist[kk], normr_new)
+                  and bool(run.hist[kk + 1:].isnan().all()),
+                  f"{tag}: A's history")
+            err = max(err, float((run.p - a_t.p_new).abs().max()))
+            # B against body_pap_torch on A's output
+            ap = spmv(run.p)
+            a_k = cg_body.PStage(a_t.active, rt.clone(), run.p.clone(),
+                                 normr_new.clone(), run.hist.clone())
+            breakdown, alpha_t = cg_body.body_pap_torch(a_k, ap, vdt)
+            cg_body.body_pap(run, ap)
+            check(not bool(breakdown) and not bool(run.done)
+                  and int(run.k) == kk + 1 and same(run.s[0], rt)
+                  and same(run.s[1], normr_new),
+                  f"{tag}: B's commit of k, rtrans, normr or done")
+            # alpha = rt / p.Ap: p.Ap to its summation bound, one division
+            _e, tol, pap = dots_check(0.0, (run.p * ap).double(), ueps)
+            rel_alpha = abs(float(run.s[5]) * pap / float(rt) - 1)
+            bound_alpha = tol / abs(pap) + 2 * ueps
+            line.append(f"alpha {rel_alpha:.2e} (bound {bound_alpha:.2e}), "
+                        f"{abs(float(run.s[5]) / float(alpha_t) - 1):.2e} "
+                        "from the plain stage's")
+            check(rel_alpha <= bound_alpha, f"{tag}: B's alpha")
+            # C against body_xr_torch with B's alpha
+            want = cg_body.body_xr_torch(
+                (k, x, p, r, rtrans, normr, hist, done), a_k, ap,
+                (breakdown, run.s[5].clone()))
+            cg_body.body_xr(run, ap)
+            check(same(run.x, want[1]) and same(run.r, want[3]),
+                  f"{tag}: C's x or r differs from the plain stage")
+            dot_ok(run.s[2], run.r, run.r, "r.r after C")
+            err = max(err, float((run.r - want[3]).abs().max()))
+            print(f"[3h K13] {n}^3 {dt} one body: A, B, C against the plain "
+                  f"stages; p, x, r bit for bit on the kernels' scalars; "
+                  f"{'; '.join(line)} | {gpu}")
+            del run, a_t, a_k, want, ap
+            # whole solves: fused against plain
+            fused = cg.cg_run(A, state0, 150, eps)
+            plain = cg_body.plain_bodies(spmv, state0, 149, 150, eps, vdt)
+            check(int(fused[0]) == int(plain[0]) == 150
+                  and not bool(fused[7]) and not bool(plain[7]),
+                  f"K13 {n}^3 {dt}: k {int(fused[0])} against {int(plain[0])}")
+            floor, rtol = floors[dt]
+            rel, m = history_rel(fused[6].cpu().numpy(),
+                                 plain[6].cpu().numpy(), floor)
+            print(f"[3h K13] {n}^3 {dt} x150 fused against plain: k=150, "
+                  f"{m} entries above {floor} of the start, max rel diff "
+                  f"{rel:.3e} (rtol {rtol}) | {gpu}")
+            check(m >= 2 and rel <= rtol, f"K13 {n}^3 {dt}: history differs")
+            del A, b, state0, state, fused, plain
+            torch.cuda.empty_cache()
+    return err
+
+
+def k13_device_ms(fn, bodies: int) -> dict:
+    """Device milliseconds a body of ``fn()`` (which runs ``bodies``
+    bodies) spends in each kernel name other than K1's, from a
+    torch.profiler trace: {name: ms}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparsebench_tpu_torch.profiler import device_name
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = device_name(e.name)
+        if name != "dia_spmv_kernel":
+            out[name] = out.get(name, 0.0) + e.device_time * 1e-3 / bodies
+    return out
+
+
+def phase5h_cg_body(dev, gpu):
+    """Times of K13 a body at 100^3 and 200^3, f32 (the main path): each
+    kernel's device time over 149 bodies of a solve (torch.profiler), with
+    the plain body's vector operations over the same bodies beside them
+    and the bound of 11 passes; then CG x150 seconds through the fused
+    body and through the plain body, on each format at 100^3 and on DIA,
+    the stencil, bslab and bsell at 200^3, their histories held to each
+    other (k equal, rtol 1e-4 above 1e-4 of the start). Returns {n: the
+    K13 row's numbers}."""
+    import torch
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats import from_csr
+    from sparsebench_tpu_torch.formats.bsell import BsellMatrix
+    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.formats.stencil import StencilOperator
+    from sparsebench_tpu_torch.host import generate_stencil
+    from sparsebench_tpu_torch.ops import cg_body
+    from sparsebench_tpu_torch.solvers import cg
+    from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
+
+    out = {}
+    names = {"A": "cg_body_p_kernel", "B": "cg_body_pap_kernel",
+             "C": "cg_body_xr_kernel"}
+    for n in K13_SIZES:
+        A, b, state0 = k13_problem(n, "f32", dev)
+        eps = torch.zeros((), dtype=b.dtype, device=dev)
+        spmv = cg.matvec(A)
+        bodies = 149
+
+        def fused():
+            run = cg_body.Run(state0, 150, eps)
+            cg_body.body_rr(run)
+            torch.cuda.synchronize()
+            return run
+
+        def fused_bodies(run):
+            for _ in range(bodies):
+                cg_body.body_p(run)
+                ap = spmv(run.p)
+                cg_body.body_pap(run, ap)
+                cg_body.body_xr(run, ap)
+
+        fused_bodies(fused())  # warm-up
+        run = fused()
+        k13 = k13_device_ms(lambda: fused_bodies(run), bodies)
+        check(int(run.k) == 150, f"K13 {n}^3: k {int(run.k)} after a solve")
+        plain = k13_device_ms(lambda: cg_body.plain_bodies(
+            spmv, state0, bodies, 150, eps, b.dtype), bodies)
+        parts = {key: k13.get(name, 0.0) for key, name in names.items()}
+        ms = sum(k13.values())
+        plain_ms = sum(plain.values())
+        b_ms, b_by = bound(K13_PASSES * A.nr * 4, K13_FLOPS * A.nr)
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      **{f"{key}_ms": v for key, v in parts.items()})
+        print(f"[5h K13] {n}^3 f32 a body (device time over {bodies} "
+              f"bodies of a solve): kernels {ms:.6f} ms (A {parts['A']:.6f}, "
+              f"B {parts['B']:.6f}, C {parts['C']:.6f}); plain body "
+              f"{plain_ms:.6f} ms in {len(plain)} kinds of torch kernel; "
+              f"bound {b_ms:.6f} ms ({b_by}, {K13_PASSES} passes), "
+              f"{b_ms / ms:.3f} of it | {gpu}")
+        del A, b, state0, run
+        torch.cuda.empty_cache()
+
+    f32 = DTypePolicy.from_names("f32")
+    builds = [(fmt, n) for n in K13_SIZES
+              for fmt in ("dia", "stencil", "bslab", "bsell")]
+    builds += [("crs", 100), ("sell", 100)]
+    for fmt, n in builds:
+        cls = {"dia": DiaMatrix, "stencil": StencilOperator,
+               "bslab": BslabMatrix, "bsell": BsellMatrix}.get(fmt)
+        if cls is not None:
+            A, counts = cls.from_stencil(n, n, n, device=dev, policy=f32)
+        else:
+            csr = generate_stencil(n, n, n)
+            counts = np.diff(csr.row_ptr)
+            A = from_csr(fmt, csr, f32, device=dev)
+            del csr
+        _x0, b, xexact = init_vectors(dtype=np.float32, row_lengths=counts)
+        res = solve_cg(A, b, itermax=150, verbose=False)
+        k_t, x_t, h_t, s_t = plain_cg(A, b)
+        rel, m = history_rel(res.residual_history, h_t, 1e-4)
+        diff = float(np.max(np.abs(res.x - xexact)))
+        print(f"[5h K13] {n}^3 f32 {fmt} (spmv {getattr(A, 'impl', '-')}) "
+              f"CG x150: fused body {res.solve_seconds:.6f} s, plain body "
+              f"{s_t:.6f} s ({s_t / res.solve_seconds:.2f} x); k "
+              f"{res.iterations}/{k_t}, history max rel diff {rel:.2e} over "
+              f"{m} entries, max|x-1| {diff:.3e} | {gpu}")
+        check(res.iterations == k_t == 150 and m >= 2 and rel <= 1e-4
+              and diff < F32_DIFF_BOUND,
+              f"{n}^3 {fmt}: fused and plain CG differ")
+        del A, b
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- P1-P5: the prototype kernels --------------------------------------------
 
 PROTO_MODULES = ("csr_twopass_proto", "dia_micro", "dia_shear", "slab_micro",
@@ -2674,48 +3002,61 @@ def main(argv=None) -> int:
     err_e = phase3e_memroof(dev)
     err_f = phase3f_bsell(dev)
     err_g = phase3g_protos(dev)
+    err_h = phase3h_cg_body(dev, gpu)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
     # -- phase 4: the main path through the CLI -----------------------------
     dia_spmv.launches = 0
+    k13 = k13_wrappers()
+    for w in k13:
+        w.launches = 0
     for argv in (["-t", "cg"], ["-f", str(REPO / "hpcg.par"), "-t", "cg"]):
         before = dia_spmv.launches
+        before13 = [w.launches for w in k13]
         k, diff = parse_cg(run_cli(cli.main, argv))
         n = dia_spmv.launches - before
+        rr, pa, pap, xr = (w.launches - c for w, c in zip(k13, before13))
         print(f"[4 main] {' '.join(argv)}: k={k} difference={diff} "
-              f"kernel launches={n} | {gpu}")
+              f"kernel launches={n}, K13 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | "
+              f"{gpu}")
         check(k == 150, f"{argv}: k={k}, expected 150")
         check(diff < F32_DIFF_BOUND,
               f"{argv}: difference {diff} >= {F32_DIFF_BOUND}")
         # warm-up + timed solve, each 1 + 149 SpMVs
         check(n >= 2 * 150, f"{argv}: only {n} kernel launches")
+        # each solve: one r.r at its start, then A, B and C a body
+        check(rr >= 2 and pa == pap == xr == 149 * rr,
+              f"{argv}: K13 launches r.r/A/B/C {rr}/{pa}/{pap}/{xr}")
+    launches_k13 = sum(w.launches for w in k13)
     before = dia_spmv.launches
     text = run_cli(cli.main, ["-t", "spmv"])
     n = dia_spmv.launches - before
     m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
     check(m is not None, "spmv output missing")
     check(n >= 150, f"-t spmv: only {n} kernel launches")
+    check(sum(w.launches for w in k13) == launches_k13,
+          "-t spmv launched K13")
     print(f"[4 main] -t spmv: kernel launches={n}, reported per-SpMV time "
           f"{m.group(1)} ms | {gpu}")
     launches_main = dia_spmv.launches
-    print(f"[4 main] kernel launches over the main path: {launches_main}")
+    print(f"[4 main] kernel launches over the main path: K1 {launches_main}, "
+          f"K13 {launches_k13}")
 
-    # f64 history at 100^3: kernel vs plain version
+    # f64 history at 100^3: the kernels (K1 and K13) vs the plain version
+    # (the plain SpMV and the plain body)
     A_k, counts = DiaMatrix.from_stencil(100, 100, 100, device=dev,
                                          policy=f64, impl="kernel")
     A_t, _ = DiaMatrix.from_stencil(100, 100, 100, device=dev, policy=f64,
                                     impl="torch")
     _x0, b, xexact = init_vectors(dtype=np.float64, row_lengths=counts)
     r_k = solve_cg(A_k, b, itermax=150, verbose=False)
-    r_t = solve_cg(A_t, b, itermax=150, verbose=False)
-    check(r_k.iterations == r_t.iterations, "f64 k differs")
-    h_k, h_t = r_k.residual_history, r_t.residual_history
-    sel = h_t >= NOISE_FLOOR * h_t[0]
-    rel = float(np.max(np.abs(h_k[sel] - h_t[sel]) / h_t[sel]))
-    print(f"[4 main] f64 100^3 history kernel vs plain: k={r_k.iterations}, "
-          f"{int(sel.sum())} entries above the noise floor, max rel diff "
-          f"{rel:.3e} (rtol {HIST_RTOL})")
+    k_t, _x_t, h_t, _s = plain_cg(A_t, b)
+    check(r_k.iterations == k_t, "f64 k differs")
+    rel, m = history_rel(r_k.residual_history, h_t, NOISE_FLOOR)
+    print(f"[4 main] f64 100^3 history kernels (K1, K13) vs plain (SpMV and "
+          f"body): k={r_k.iterations}, {m} entries above the noise floor, "
+          f"max rel diff {rel:.3e} (rtol {HIST_RTOL})")
     check(rel <= HIST_RTOL, "f64 residual history differs")
     x_err = float(np.max(np.abs(r_k.x - xexact)))
     print(f"[4 main] f64 100^3 max|x-1| through the kernel: {x_err:.3e}")
@@ -2764,8 +3105,9 @@ def main(argv=None) -> int:
         lib_ms = min(time_graph(lambda: csr @ x) for _ in range(2))
         del csr
         _x0, b, _xe = init_vectors(dtype=np.float32, row_lengths=counts)
-        solve = {w: solve_cg(A, b, itermax=150, verbose=False).solve_seconds
-                 for w, A in (("kernel", A_k), ("plain", A_t))}
+        solve = {"kernel": solve_cg(A_k, b, itermax=150,
+                                    verbose=False).solve_seconds,
+                 "plain": plain_cg(A_t, b)[3]}
         b_ms, b_by = bound(phys, 2 * A_k.nnz)
         timing[n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, eager_ms=eager)
@@ -2776,8 +3118,9 @@ def main(argv=None) -> int:
               f"plain {phys / (p_ms * 1e-3) / 1e9:.1f} GB/s; bound "
               f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
               f"(max|csr - kernel| {lib_err:.3e}) | {gpu}")
-        print(f"[5 times] {n}^3 f32 CG x150 solve: kernel "
-              f"{solve['kernel']:.6f} s, plain {solve['plain']:.6f} s | {gpu}")
+        print(f"[5 times] {n}^3 f32 CG x150 solve: kernels (K1, K13) "
+              f"{solve['kernel']:.6f} s, plain (SpMV and body) "
+              f"{solve['plain']:.6f} s | {gpu}")
         del A_k, A_t, x
 
     # -- phase 5b: times of K2-K5 and the stencil variants -------------------
@@ -2798,6 +3141,9 @@ def main(argv=None) -> int:
 
     # -- phase 5g: the prototype modules (P1-P5) and their kernels' times ---
     launches_g, times_g = phase5g_protos(dev, gpu, tmpdir, timing[200])
+
+    # -- phase 5h: times of K13 and CG through the fused and plain body -----
+    times_h = phase5h_cg_body(dev, gpu)
 
     # -- phase 6: the bench suite -------------------------------------------
     phase6_bench(gpu, tmpdir)
@@ -2829,6 +3175,9 @@ def main(argv=None) -> int:
         row("stencil_cg_vmem", "stencil_cg_vmem.cu",
             "sparsebench_tpu/ops/stencil_cg_vmem.py:274", launches_b["K5"],
             err_b["K5"], times_b["K5"][100], times_b["K5"][200]),
+        # no Pallas counterpart: XLA fuses the JAX package's body
+        row("cg_body", "cg_body.cu", "sparsebench_tpu/solvers/cg.py:157",
+            launches_k13, err_h, times_h[100], times_h[200]),
     ]
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):

@@ -18,6 +18,11 @@ def waxpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
     return alpha * x + beta * y
 
 
+def safe_div(num, den):
+    """num/den with 0 where den == 0 (exact-convergence guard)."""
+    return torch.where(den != 0, num / torch.where(den != 0, den, 1), 0)
+
+
 def ddot(x: torch.Tensor, y: torch.Tensor, *,
          acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Local dot product (reference src/solver.c:41-59, minus the

@@ -27,7 +27,7 @@ span is one check and records nothing, and a solver loop reads the switch
 once a solve.
 
 The kernel registry (``Kernel``, ``kernels``, ``kernels_named``): each
-ops module declares its kernels beside their wrappers, by id (K1-K12,
+ops module declares its kernels beside their wrappers, by id (K1-K13,
 P1-P5), the names their device events carry, their layer and the
 wrappers whose ``launches`` count them; ``kernels`` gathers them.
 """
@@ -367,12 +367,12 @@ LAYERS = ("SpMV kernels", "solver loops", "device", "prototypes")
 # the ops modules that declare kernels (``KERNELS`` beside their wrappers)
 KERNEL_MODULES = ("dia_spmv", "stencil", "cg_fused", "stencil_cg_vmem",
                   "bslab_spmv", "dia_spmm", "bsell_spmv", "memroof",
-                  "dia_window", "slab_slices", "csr_twopass")
+                  "dia_window", "slab_slices", "csr_twopass", "cg_body")
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    """A hand-written kernel: its ``id`` (K1-K12, P1-P5), the ``names`` of
+    """A hand-written kernel: its ``id`` (K1-K13, P1-P5), the ``names`` of
     the ``__global__`` functions its device events carry, its ``layer``
     (one of ``LAYERS``) and the ``wrappers`` whose ``launches`` count its
     launches."""

@@ -28,7 +28,10 @@ here the host issues a fixed ``itermax - 1`` bodies and a device-side
 updates (alpha = 0, history written and k advanced only while active). So
 ``k``, the history and x come out as JAX's without reading ``normr`` back
 each iteration; the price is that a solve ending early (eps > 0 or
-breakdown) still runs the remaining bodies, masked.
+breakdown) still runs the remaining bodies, masked. On a card, f32 or f64
+and unpreconditioned, a body is three kernels around the SpMV that carry
+the masks and scalars on the device (``ops/cg_body.py``, K13); elsewhere
+it is the same three stages in plain torch.
 
 The variants ``cs`` (single-reduction CG, ``cg_cs_loop``), ``fused``
 (p-update, apply and p.Ap in one kernel, ``cg_fused_loop``) and ``vmem``
@@ -42,8 +45,9 @@ precondition ``standard``, ``cs`` and ``pipe``; ``sstep`` takes Jacobi.
 While the program's recorder records (``profiler.py``), each solve of a
 loop of ``CG_LOOPS`` is a span ``cg.solve`` (``variant``, ``itermax``,
 ``n``) holding a span ``cg.init`` and, in the eager loops, one span
-``cg.body`` a body; ``cg.bodies`` counts the bodies issued. The loops read
-the recorder's switch once a solve.
+``cg.body`` a body; ``cg.bodies`` counts the bodies run, and
+``cg.kernel_bodies`` those of them fused (``cg_run``). The loops read the
+recorder's switch once a solve.
 """
 
 from __future__ import annotations
@@ -59,18 +63,14 @@ import torch
 
 from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
-from sparsebench_tpu_torch.ops.blas1 import ddot
+from sparsebench_tpu_torch.ops import cg_body
+from sparsebench_tpu_torch.ops.blas1 import ddot, safe_div
 from sparsebench_tpu_torch.ops.cg_fused import cs_update
 from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
     stencil_cg_vmem,
     stencil_cg_vmem_torch,
 )
 from sparsebench_tpu_torch.solvers.precond import resolve_apply_m
-
-
-def safe_div(num, den):
-    """num/den with 0 where den == 0 (exact-convergence guard)."""
-    return torch.where(den != 0, num / torch.where(den != 0, den, 1), 0)
 
 
 def default_acc_dtype(vdt: torch.dtype, acc_dtype: Optional[torch.dtype]):
@@ -150,51 +150,56 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
     host (``k_start``, as the checkpointed solve does), else ``k_end - 1``
     (k >= 1 in any state, so that many always suffice). An inactive body
     changes no state entry, so two segments give the bits of one run.
-    ``inv_diag``/``precond`` as in ``cg_init``."""
-    k, x, p, r, rtrans, normr, hist, done = state
+    ``inv_diag``/``precond`` as in ``cg_init``.
+
+    A body is the three stages of ``ops/cg_body.py`` around the SpMV: its
+    kernels (K13) where ``cg_body.body_kind`` says so (f32/f32 or f64/f64,
+    unpreconditioned, on a card) and the SpMV's product is a vector they
+    read (``cg_body.Run.takes``), with the run's own copies of x, p and r
+    updated in place, else the plain stages. The kind is the attribute
+    ``body`` of the innermost open span (``cg.solve`` under ``cg_loop``);
+    ``cg.kernel_bodies`` counts the fused bodies beside ``cg.bodies``."""
+    r = state[3]
     vdt = r.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
     eps = _eps_tensor(eps, sdt, r.device)
-    steps = torch.arange(hist.numel(), device=r.device)
     spmv = matvec(A)
     apply_m = resolve_apply_m(precond, inv_diag, spmv, vdt)
     span = profiler.span_fn()
-    bodies = k_end - (1 if k_start is None else k_start)
-    for _ in range(bodies):
-        with span("cg.body"):
-            active = (k < k_end) & (normr > eps) & ~done
-            first = k == 1
-            if apply_m is None:
-                new_rtrans = ddot(r, r, acc_dtype=sdt)
-                rt = torch.where(first, rtrans, new_rtrans)
-                # first body: p = r (beta = 0; x0 is finite, so r + 0*p == r)
-                beta = torch.where(first, 0, safe_div(new_rtrans, rtrans)).to(vdt)
-                p_new = r + beta * p
-                normr_new = torch.sqrt(rt)
-            else:
-                # PCG: rtrans carries r.z; the history the true ||r||
-                z = apply_m(r)
-                rz = ddot(r, z, acc_dtype=sdt)
-                rt = torch.where(first, rtrans, rz)
-                beta = torch.where(first, 0, safe_div(rz, rtrans)).to(vdt)
-                p_new = z + beta * p
-                normr_new = torch.sqrt(ddot(r, r, acc_dtype=sdt))
-            hist = torch.where(active & (steps == k), normr_new, hist)
+    bodies = max(k_end - (1 if k_start is None else k_start), 0)
+    kind = cg_body.body_kind(r.device.type, vdt, sdt, apply_m is not None)
+    if kind == "kernel":
+        fused = _fused_bodies(spmv, state, bodies, k_end, eps, span)
+        if fused is None:
+            kind = "torch"
+        else:
+            state = fused
+            profiler.count("cg.kernel_bodies", bodies)
+    if kind == "torch":
+        state = cg_body.plain_bodies(spmv, state, bodies, k_end, eps, sdt,
+                                     apply_m, span)
+    profiler.annotate(body=kind)
+    profiler.count("cg.bodies", bodies)
+    return state
 
-            Ap = spmv(p_new)
-            pAp = ddot(p_new, Ap, acc_dtype=sdt)
-            breakdown = pAp <= rt * 1e-30
-            alpha = torch.where(breakdown | ~active, 0, safe_div(rt, pAp)).to(vdt)
-            x = x + alpha * p_new
-            r = r - alpha * Ap
 
-            p = torch.where(active, p_new, p)
-            rtrans = torch.where(active, rt, rtrans)
-            normr = torch.where(active, normr_new, normr)
-            done = done | (active & breakdown)
-            k = k + active.to(k.dtype)
-    profiler.count("cg.bodies", max(bodies, 0))
-    return k, x, p, r, rtrans, normr, hist, done
+def _fused_bodies(spmv, state, bodies: int, k_end: int, eps, span):
+    """``bodies`` fused bodies from ``state`` (K13 around the SpMV): the
+    state after them. None where the first body's SpMV gives a product the
+    kernels do not read (``Run.takes``); ``state`` is then as it was, for
+    the plain body to run from, which takes torch's type promotion."""
+    with torch.cuda.device(state[3].device):
+        run = cg_body.Run(state, k_end, eps)
+        cg_body.body_rr(run)
+        for _ in range(bodies):
+            with span("cg.body"):
+                cg_body.body_p(run)
+                ap = spmv(run.p)
+                if not run.takes(ap):
+                    return None
+                cg_body.body_pap(run, ap)
+                cg_body.body_xr(run, ap)
+    return run.state()
 
 
 def _solve_span(variant: str):

@@ -109,10 +109,35 @@ def test_a_solve_is_one_span_with_its_init_and_bodies(rec):
     cg_loop(A, b, torch.zeros_like(b), ITERMAX, 0.0)
     spans = rec.spans()
     check_solve(spans, "cg.solve", "cg.init", "cg.body", "dia.spmv",
-                {"variant": "standard", "itermax": ITERMAX, "n": A.nr})
+                {"variant": "standard", "itermax": ITERMAX, "n": A.nr,
+                 "body": "torch"})
     assert {s.attrs["kernel"] for s in spans if s.name == "dia.spmv"} == {
         "torch"}
+    # the CPU keeps the plain body: no fused body is counted
     assert rec.counts() == {"cg.bodies": ITERMAX - 1}
+
+
+@pytest.mark.parametrize("vectors,kw", [
+    ("f32", {}), ("f64", {}), ("bf16", {}),
+    ("f32", {"inv_diag": True}),
+])
+def test_the_solve_span_names_its_body(rec, vectors, kw):
+    """On the CPU every standard solve takes the plain body, preconditioned
+    or not, in every dtype: ``body`` is ``torch`` and ``cg.kernel_bodies``
+    is never counted."""
+    A, _ = DiaMatrix.from_stencil(8, 7, 6, device="cpu",
+                                  policy=DTypePolicy.from_names(vectors))
+    dt = {"f32": torch.float32, "f64": torch.float64,
+          "bf16": torch.bfloat16}[vectors]
+    b = torch.ones(A.nr, dtype=dt)
+    if kw:
+        kw = {"inv_diag": torch.full_like(b, 1 / 26)}
+    rec.set_mode("on")
+    cg_loop(A, b, torch.zeros_like(b), ITERMAX, 0.0, **kw)
+    solve = [s for s in rec.spans() if s.name == "cg.solve"]
+    assert [s.attrs["body"] for s in solve] == ["torch"]
+    assert rec.counts().get("cg.kernel_bodies", 0) == 0
+    assert rec.counts()["cg.bodies"] == ITERMAX - 1
 
 
 def test_a_blocked_solve_is_one_span_with_its_init_and_bodies(rec):
@@ -264,7 +289,7 @@ def test_registry_covers_every_kernel_in_csrc():
         assert k.layer in profiler.LAYERS, k
         assert k.wrappers and k.launches >= 0
     ids = sorted(kernels)
-    assert ids == sorted([f"K{i}" for i in range(1, 13)]
+    assert ids == sorted([f"K{i}" for i in range(1, 14)]
                          + [f"P{i}" for i in range(1, 6)])
 
 
@@ -348,3 +373,29 @@ def test_every_k1_launch_lies_inside_its_span(rec, cuda_device):
         t = launch.start_ns()
         assert any(s.start_ns <= t <= s.end_ns for s in spans), t
         assert t <= k.start_ns()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vectors,jacobi,body", [
+    ("f32", False, "kernel"), ("f64", False, "kernel"),
+    ("bf16", False, "torch"), ("f32", True, "torch"),
+])
+def test_card_solves_name_their_body(rec, cuda_device, vectors, jacobi, body):
+    """On the card: f32 and f64 solves take the fused body (K13) and count
+    each body in ``cg.kernel_bodies``; bf16 vectors and PCG keep the plain
+    body and count none."""
+    A, _ = DiaMatrix.from_stencil(16, 16, 16, device=cuda_device,
+                                  policy=DTypePolicy.from_names(vectors))
+    dt = {"f32": torch.float32, "f64": torch.float64,
+          "bf16": torch.bfloat16}[vectors]
+    b = torch.ones(A.nr, dtype=dt, device=cuda_device)
+    kw = {"inv_diag": torch.full_like(b, 1 / 26)} if jacobi else {}
+    rec.set_mode("on")
+    cg_loop(A, b, torch.zeros_like(b), ITERMAX, 0.0, **kw)
+    torch.cuda.synchronize()
+    solve = [s for s in rec.spans() if s.name == "cg.solve"]
+    assert [s.attrs["body"] for s in solve] == [body]
+    counts = rec.counts()
+    assert counts["cg.bodies"] == ITERMAX - 1
+    assert counts.get("cg.kernel_bodies", 0) == (
+        ITERMAX - 1 if body == "kernel" else 0)
