@@ -146,19 +146,33 @@ lines; any failure raises and exits non-zero:
    whole 150-iteration solves, k equal and the history to the ROADMAP
    parity floors (f32 rtol 1e-4 above 1e-4 of the start, f64 1e-9 above
    1e-10);
+3i. the CRS SpMV K14 against its plain version (``crs_spmv_torch``) in
+   f32 and f64, to the bound of a row's sum (2 len_i u (|A| |x|)_i): random
+   CSRs of 1 and 1001 rows, one with every third row empty, rows longer
+   than a staged chunk, the test matrices and the stencil at 100^3 and
+   200^3 built on the device (the ``kernels`` line's K14 row: the largest
+   |K14 - plain| as ``max_abs_err``, the largest gap over the bound as
+   ``max_gap_over_bound``); the device build at 100^3 equal to the host
+   build element for element; bf16 and mixed dtypes taking the plain
+   version; then ``-t cg --fmt crs`` through the CLI at 100^3 with the K14
+   and K13 counts set to 0 before and read after;
 5h. K13's device time a body at 100^3 and 200^3, f32 (torch.profiler over
    the 149 bodies of a solve; A, B and C apart) beside the plain body's
    vector operations over the same bodies and the bound of 11 passes;
    then CG x150 seconds through the fused and through the plain body on
-   DIA, the stencil, bslab and bsell at 100^3 and 200^3 and on CSR and
-   SELL at 100^3, their histories held to each other;
+   DIA, the stencil, bslab, bsell and CRS at 100^3 and 200^3 and on SELL
+   at 100^3, their histories held to each other;
+5i. K14's time at 100^3 and 200^3, f32 (CUDA-graph replay), in turns
+   with the plain version and cuSPARSE CSR (``torch.sparse_csr_tensor``
+   of the same arrays @ x), beside its bound (values and columns, the row
+   pointers, x and y once);
 6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
    a subprocess: rc 0 and a final JSON line of at most 1500 characters with
    a positive value, stream_read_GBps, dma_read_GBps, cg200_seconds and
    cg200_vmem_seconds; then ``python -m sparsebench_tpu_torch.bench spmv
    200 dia,bslab,bsell``, rc 0.
 
-The phases run in the order 3-3h, 4-4f, 5-5h, 6. A bound is the larger of
+The phases run in the order 3-3i, 4-4f, 5-5i, 6. A bound is the larger of
 the bytes a call must move (each input read once, each output written
 once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32), the H100
 SXM's published rates at 700 W. The last three lines are the card's name
@@ -2415,7 +2429,7 @@ def phase5h_cg_body(dev, gpu):
     the plain body's vector operations over the same bodies beside them
     and the bound of 11 passes; then CG x150 seconds through the fused
     body and through the plain body, on each format at 100^3 and on DIA,
-    the stencil, bslab and bsell at 200^3, their histories held to each
+    the stencil, bslab, bsell and CRS at 200^3, their histories held to each
     other (k equal, rtol 1e-4 above 1e-4 of the start). Returns {n: the
     K13 row's numbers}."""
     import torch
@@ -2423,6 +2437,7 @@ def phase5h_cg_body(dev, gpu):
     from sparsebench_tpu_torch.formats import from_csr
     from sparsebench_tpu_torch.formats.bsell import BsellMatrix
     from sparsebench_tpu_torch.formats.bslab import BslabMatrix
+    from sparsebench_tpu_torch.formats.crs import CRSMatrix
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.host import generate_stencil
@@ -2475,11 +2490,12 @@ def phase5h_cg_body(dev, gpu):
 
     f32 = DTypePolicy.from_names("f32")
     builds = [(fmt, n) for n in K13_SIZES
-              for fmt in ("dia", "stencil", "bslab", "bsell")]
-    builds += [("crs", 100), ("sell", 100)]
+              for fmt in ("dia", "stencil", "bslab", "bsell", "crs")]
+    builds += [("sell", 100)]
     for fmt, n in builds:
         cls = {"dia": DiaMatrix, "stencil": StencilOperator,
-               "bslab": BslabMatrix, "bsell": BsellMatrix}.get(fmt)
+               "bslab": BslabMatrix, "bsell": BsellMatrix,
+               "crs": CRSMatrix}.get(fmt)
         if cls is not None:
             A, counts = cls.from_stencil(n, n, n, device=dev, policy=f32)
         else:
@@ -2501,6 +2517,169 @@ def phase5h_cg_body(dev, gpu):
               and diff < F32_DIFF_BOUND,
               f"{n}^3 {fmt}: fused and plain CG differ")
         del A, b
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- K14: the CRS SpMV ---------------------------------------------------------
+
+CRS_SIZES = (100, 200)
+UNIT_ROUNDOFF = {"f32": 2.0 ** -24, "f64": 2.0 ** -53}
+
+
+def random_crs(nr: int, nc: int, density: float, seed: int,
+               empty_every: int = 0):
+    """A host CSR with binomial row lengths, sorted columns and normal
+    values; every ``empty_every``-th row empty."""
+    from sparsebench_tpu_torch.host import HostCSR
+
+    rng = np.random.default_rng(seed)
+    lens = rng.binomial(nc, density, nr)
+    if empty_every:
+        lens[::empty_every] = 0
+    ptr = np.zeros(nr + 1, dtype=np.int64)
+    np.cumsum(lens, out=ptr[1:])
+    col = np.concatenate([np.sort(rng.choice(nc, k, replace=False))
+                          for k in lens] + [np.zeros(0, dtype=np.int64)])
+    return HostCSR(row_ptr=ptr, col=col.astype(np.int64),
+                   val=rng.standard_normal(int(ptr[-1])), nr=nr, nc=nc)
+
+
+def crs_sum_gap(A, x, dt: str) -> tuple[float, float]:
+    """K14 (A.spmv) against the plain version: (the largest gap over its
+    bound 2 len_i u (|A| |x|)_i, at most 1 where it holds; the largest
+    |K14 - plain|); raises on a launch count other than one."""
+    import torch
+    from sparsebench_tpu_torch.ops.crs_spmv import crs_spmv, crs_spmv_torch
+
+    before = crs_spmv.launches
+    y = A.spmv(x)
+    check(crs_spmv.launches - before == 1, "K14 did not launch once")
+    yt = crs_spmv_torch(A.val, A.col, A.row_ptr, x)
+    lens = (A.row_ptr[1:] - A.row_ptr[:-1]).double()
+    absy = crs_spmv_torch(A.val.double().abs(), A.col, A.row_ptr,
+                          x.double().abs())
+    bound = 2 * lens * UNIT_ROUNDOFF[dt] * absy
+    gap = (y.double() - yt.double()).abs()
+    ratio = torch.where(bound > 0, gap / bound, gap * float("inf"))
+    ratio = torch.nan_to_num(ratio, nan=0.0)
+    if not ratio.numel():
+        return 0.0, 0.0
+    return float(ratio.max()), float(gap.max())
+
+
+def phase3i_crs(dev, gpu, cli):
+    """K14 against its plain version on the card (module docstring, 3i).
+    Returns (largest gap over its bound, largest |K14 - plain|, K14
+    launches of the CLI run)."""
+    import torch
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats import from_csr
+    from sparsebench_tpu_torch.formats.crs import CRSMatrix
+    from sparsebench_tpu_torch.host import generate_stencil, read_mm
+    from sparsebench_tpu_torch.ops.crs_spmv import crs_spmv, crs_spmv_torch
+
+    worst = worst_abs = 0.0
+    for dt in ("f32", "f64"):
+        policy = DTypePolicy.from_names(dt)
+        cases = [("1 row", random_crs(1, 1, 1.0, 1)),
+                 ("1001 rows", random_crs(1001, 1001, 0.02, 2)),
+                 ("every third row empty", random_crs(3000, 2000, 0.005, 3,
+                                                      empty_every=3)),
+                 ("rows beyond a chunk", random_crs(40, 100000, 0.2, 4))]
+        cases += [(p.name, read_mm(str(p))) for p in sorted(
+            (REPO / "tests" / "data" / "testMatrices").glob("*.mtx"))]
+        for name, csr in cases:
+            A = from_csr("crs", csr, policy, device=dev)
+            x = torch.from_numpy(np.random.default_rng(csr.nr)
+                                 .standard_normal(csr.nc)).to(dev, policy.value)
+            gap, err = crs_sum_gap(A, x, dt)
+            worst, worst_abs = max(worst, gap), max(worst_abs, err)
+            check(gap <= 1.0, f"K14 {dt} {name}: gap {gap} over its bound")
+        for n in CRS_SIZES:
+            A, _ = CRSMatrix.from_stencil(n, n, n, device=dev, policy=policy)
+            x = torch.rand(A.nc, dtype=policy.value, device=dev)
+            gap, err = crs_sum_gap(A, x, dt)
+            worst, worst_abs = max(worst, gap), max(worst_abs, err)
+            check(gap <= 1.0, f"K14 {dt} {n}^3: gap {gap} over its bound")
+            print(f"[3i K14] {dt} {n}^3 ({A.nnz} entries) and {len(cases)} "
+                  f"CSRs against the plain version: largest gap {gap:.3f} of "
+                  f"the bound 2 len u |A||x| | {gpu}")
+            del A, x
+    f32 = DTypePolicy.from_names("f32")
+    A, counts = CRSMatrix.from_stencil(100, 100, 100, device=dev, policy=f32)
+    h = generate_stencil(100, 100, 100)
+    for name in ("row_ptr", "col", "val"):
+        want = torch.from_numpy(getattr(h, name)).to(getattr(A, name).dtype)
+        check(torch.equal(getattr(A, name).cpu(), want),
+              f"CRS device build 100^3: {name} differs from the host build")
+    check(bool((counts == h.row_lengths).all()), "CRS row counts differ")
+    print(f"[3i K14] CRS device build at 100^3 equals the host build "
+          f"(row_ptr, col, val) | {gpu}")
+    for value, vectors in (("bf16", "bf16"), ("f32", "f64"), ("bf16", "f32")):
+        B, _ = CRSMatrix.from_stencil(9, 8, 7, device=dev,
+                                      policy=DTypePolicy.from_names(value))
+        x = torch.rand(B.nc, device=dev,
+                       dtype=DTypePolicy.from_names(vectors).value)
+        before = crs_spmv.launches
+        check(torch.equal(B.spmv(x), crs_spmv_torch(B.val, B.col, B.row_ptr,
+                                                     x))
+              and crs_spmv.launches == before,
+              f"CRS {value} values under {vectors} vectors left the plain "
+              "version")
+    del A, h
+    k13 = k13_wrappers()
+    crs_spmv.launches = 0
+    for w in k13:
+        w.launches = 0
+    k, diff = parse_cg(run_cli(cli.main, ["-t", "cg", "--fmt", "crs"]))
+    rr, pa, pap, xr = (w.launches for w in k13)
+    launches = crs_spmv.launches
+    print(f"[3i K14] -t cg --fmt crs: k={k} difference={diff} K14 launches="
+          f"{launches}, K13 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | {gpu}")
+    check(k == 150 and diff < F32_DIFF_BOUND, "--fmt crs CG differs")
+    # warm-up and timed solve: each one K14 and one r.r, then A, K14, B
+    # and C a body
+    check(rr >= 2 and pa == pap == xr == 149 * rr and launches == 150 * rr,
+          "--fmt crs did not run K14 and K13 on every body")
+    return worst, worst_abs, launches
+
+
+def phase5i_crs_times(dev, gpu):
+    """K14's time at 100^3 and 200^3, f32, in turns with the plain version
+    and cuSPARSE (module docstring, 5i). Returns {n: the K14 row's
+    numbers}."""
+    import torch
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.crs import CRSMatrix
+    from sparsebench_tpu_torch.ops.crs_spmv import crs_spmv_torch
+
+    out = {}
+    for n in CRS_SIZES:
+        A, _ = CRSMatrix.from_stencil(n, n, n, device=dev,
+                                      policy=DTypePolicy.from_names("f32"))
+        x = torch.rand(A.nc, dtype=torch.float32, device=dev)
+        csr = torch.sparse_csr_tensor(A.row_ptr, A.col, A.val,
+                                      size=(A.nr, A.nc))
+        lib_err = float((csr @ x - A.spmv(x)).abs().max())
+        calls = {"plain": lambda: crs_spmv_torch(A.val, A.col, A.row_ptr, x),
+                 "kernel": lambda: A.spmv(x), "library": lambda: csr @ x}
+        ms = {k: [] for k in calls}
+        for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            ms[k].append(time_graph(calls[k]))
+        best = {k: min(v) for k, v in ms.items()}
+        nbytes = A.nnz * 8 + (A.nr + 1) * 4 + 2 * A.nr * 4
+        b_ms, b_by = bound(nbytes, 2 * A.nnz)
+        out[n] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                      bound_ms=b_ms, bound_by=b_by,
+                      library_ms=best["library"])
+        print(f"[5i K14] {n}^3 f32 SpMV (in turns, graph replay): K14 "
+              f"{ms['kernel']} ms, plain {ms['plain']} ms, cuSPARSE CSR "
+              f"{ms['library']} ms (max|csr - K14| {lib_err:.3e}); bound "
+              f"{b_ms:.6f} ms ({b_by}, {nbytes} B): K14 at "
+              f"{b_ms / best['kernel']:.3f} of it, cuSPARSE at "
+              f"{b_ms / best['library']:.3f} | {gpu}")
+        del A, x, csr
         torch.cuda.empty_cache()
     return out
 
@@ -3003,6 +3182,7 @@ def main(argv=None) -> int:
     err_f = phase3f_bsell(dev)
     err_g = phase3g_protos(dev)
     err_h = phase3h_cg_body(dev, gpu)
+    gap_i, err_i, launches_i = phase3i_crs(dev, gpu, cli)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -3145,6 +3325,9 @@ def main(argv=None) -> int:
     # -- phase 5h: times of K13 and CG through the fused and plain body -----
     times_h = phase5h_cg_body(dev, gpu)
 
+    # -- phase 5i: times of K14 -----------------------------------------------
+    times_i = phase5i_crs_times(dev, gpu)
+
     # -- phase 6: the bench suite -------------------------------------------
     phase6_bench(gpu, tmpdir)
 
@@ -3178,6 +3361,10 @@ def main(argv=None) -> int:
         # no Pallas counterpart: XLA fuses the JAX package's body
         row("cg_body", "cg_body.cu", "sparsebench_tpu/solvers/cg.py:157",
             launches_k13, err_h, times_h[100], times_h[200]),
+        # no Pallas counterpart: XLA's gather and segment sum
+        dict(row("crs_spmv", "crs_spmv.cu",
+                 "sparsebench_tpu/formats/crs.py:70", launches_i, err_i,
+                 times_i[100], times_i[200]), max_gap_over_bound=gap_i),
     ]
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):

@@ -21,7 +21,8 @@ whole-solve kernel (``ops/stencil_cg_vmem.py`` +
 + ``csrc/bslab_spmv.cu``), the RGL matrix built on the device in bslab
 layout (``formats/rgl_build.py``), SELL-C-sigma and ELLPACK
 (``formats/sell.py``, ``formats/scs_host.py``), CRS and CCRS
-(``formats/crs.py``), and the RCM reordering (``host.py``).
+(``formats/crs.py``) with their SpMV kernel K14 (``ops/crs_spmv.py`` +
+``csrc/crs_spmv.cu``), and the RCM reordering (``host.py``).
 
 The package imports ``torch`` and nothing of JAX or of the JAX package:
 importing ``sparsebench_tpu`` would run its allocator set-up in the

@@ -17,10 +17,10 @@ CLI's wording. The matrix is one of:
 
 * ``-m generateRGL``: the irregular random-graph Laplacian built on the
   device straight into bslab (formats/rgl_build.py), n = x*y*z;
-* the generated stencil built on the device into DIA (``auto``), bslab, or
-  the matrix-free ``stencil`` operator; ``--fmt sell`` runs the bslab build
-  (the JAX CLI's bridge), and bsell, crs, ccrs and ell go through the host
-  CSR;
+* the generated stencil built on the device into DIA (``auto``), bslab,
+  CRS (``crs``, ``ccrs``) or the matrix-free ``stencil`` operator; ``--fmt
+  sell`` runs the bslab build (the JAX CLI's bridge), and bsell and ell go
+  through the host CSR;
 * a .mtx/.bmx file through the host CSR (``--rcm`` reorders it first) into
   the format asked for; ``auto`` takes DIA and falls back to bslab where
   the matrix has too many diagonals.
@@ -244,10 +244,8 @@ def build_matrix(param: Parameter, args: argparse.Namespace,
     generateRGL, the generated stencil, the host CSR). Returns (A, csr or
     None, row counts or None, total rows, the reference model's nnz) and
     sets ``param.fmt`` to the format built."""
-    from sparsebench_tpu_torch.formats import from_csr
-    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
-    from sparsebench_tpu_torch.formats.dia import DiaMatrix, DiaUnsuitableError
-    from sparsebench_tpu_torch.formats.stencil import StencilOperator
+    from sparsebench_tpu_torch.formats import from_csr, get_format
+    from sparsebench_tpu_torch.formats.dia import DiaUnsuitableError
 
     sub = {"sub": args.sub} if args.sub else {}
     generated = param.filename in ("generate", "generate7P")
@@ -270,16 +268,15 @@ def build_matrix(param: Parameter, args: argparse.Namespace,
         print(f"RGL: n={n} band={param.band} deg~{param.deg} seed="
               f"{param.seed} nnz={nnz} padding={A.padding_ratio:.2f}")
         return A, None, None, n, nnz
-    if generated and param.fmt in ("dia", "stencil", "bslab", "sell"):
+    if generated and param.fmt in ("dia", "stencil", "bslab", "sell", "crs",
+                                   "ccrs"):
         # analytic on-device build, no CSR
         pick = param.fmt
         if pick == "sell":
             print("sell: generated problem bridged to the bslab device "
                   "build (SELL layout remains the ingest/golden format)")
             pick = "bslab"
-        build = {"dia": DiaMatrix, "stencil": StencilOperator,
-                 "bslab": BslabMatrix}[pick]
-        A, row_counts = build.from_stencil(
+        A, row_counts = get_format(pick).from_stencil(
             param.nx, param.ny, param.nz, device=device, use_7pt=use_7pt,
             policy=policy, impl=args.impl, **(sub if pick == "bslab" else {}))
         param.fmt = pick
@@ -403,6 +400,8 @@ def _format_opts(param: Parameter, args: argparse.Namespace) -> dict:
     """``from_csr`` keywords of ``param.fmt`` from the CLI's flags."""
     sub = {"sub": args.sub} if args.sub else {}
     return {"dia": {"impl": args.impl},
+            "crs": {"impl": args.impl},
+            "ccrs": {"impl": args.impl},
             "bsell": {"impl": args.impl},
             "bslab": {"impl": args.impl, **sub},
             "sell": {"impl": args.impl, "C": param.chunk_height,
@@ -415,9 +414,7 @@ def build_lo_matrix(param: Parameter, args: argparse.Namespace, A, csr,
     layout and row order, one value dtype down (the JAX CLI's
     ``build_lo_matrix``, sparsebench_tpu/cli.py:576-618). The matrix-free
     stencil adopts the vectors' dtype and is its own twin."""
-    from sparsebench_tpu_torch.formats import from_csr
-    from sparsebench_tpu_torch.formats.bslab import BslabMatrix
-    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+    from sparsebench_tpu_torch.formats import from_csr, get_format
     from sparsebench_tpu_torch.solvers.refine import refine_lo_policy
 
     lo, lo_name = refine_lo_policy(policy)
@@ -431,10 +428,9 @@ def build_lo_matrix(param: Parameter, args: argparse.Namespace, A, csr,
         return rgl_bslab(param.nx * param.ny * param.nz, band=param.band,
                          deg=param.deg, seed=param.seed, device=device,
                          policy=lo, impl=args.impl, **sub)[0]
-    if csr is None:  # the analytic on-device stencil build (dia / bslab)
+    if csr is None:  # the analytic on-device stencil build (dia, bslab, crs)
         bslab = param.fmt == "bslab"
-        build = BslabMatrix if bslab else DiaMatrix
-        return build.from_stencil(
+        return get_format(param.fmt).from_stencil(
             param.nx, param.ny, param.nz, device=device,
             use_7pt=param.filename == "generate7P", policy=lo,
             impl=args.impl, **(sub if bslab else {}))[0]

@@ -15,9 +15,9 @@ beside it, written as a Chrome trace.
 The program's own record (``span``, ``count``, ``spans``, ``counts``,
 ``export``): spans at the port's layer boundaries (a solve and its bodies
 in ``solvers/cg.py`` and ``solvers/cg_multi.py``, an SpMV in
-``formats/dia.py``, the matrix build, a kernel library's load in
-``ops/_build.py``) and counters beside them, kept in memory and handed out
-at the end. Spans are stamped with ``time.time_ns()``, the clock
+``formats/dia.py`` and ``formats/crs.py``, the matrix builds, a kernel
+library's load in ``ops/_build.py``) and counters beside them, kept in
+memory and handed out at the end. Spans are stamped with ``time.time_ns()``, the clock
 (CLOCK_REALTIME) on which ``torch.profiler`` puts its host and device
 events, so a span lines up with the device operations and the CUDA
 runtime calls of the same trace. The recorder records while it is
@@ -27,7 +27,7 @@ span is one check and records nothing, and a solver loop reads the switch
 once a solve.
 
 The kernel registry (``Kernel``, ``kernels``, ``kernels_named``): each
-ops module declares its kernels beside their wrappers, by id (K1-K13,
+ops module declares its kernels beside their wrappers, by id (K1-K14,
 P1-P5), the names their device events carry, their layer and the
 wrappers whose ``launches`` count them; ``kernels`` gathers them.
 """
@@ -367,12 +367,13 @@ LAYERS = ("SpMV kernels", "solver loops", "device", "prototypes")
 # the ops modules that declare kernels (``KERNELS`` beside their wrappers)
 KERNEL_MODULES = ("dia_spmv", "stencil", "cg_fused", "stencil_cg_vmem",
                   "bslab_spmv", "dia_spmm", "bsell_spmv", "memroof",
-                  "dia_window", "slab_slices", "csr_twopass", "cg_body")
+                  "dia_window", "slab_slices", "csr_twopass", "cg_body",
+                  "crs_spmv")
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    """A hand-written kernel: its ``id`` (K1-K13, P1-P5), the ``names`` of
+    """A hand-written kernel: its ``id`` (K1-K14, P1-P5), the ``names`` of
     the ``__global__`` functions its device events carry, its ``layer``
     (one of ``LAYERS``) and the ``wrappers`` whose ``launches`` count its
     launches."""

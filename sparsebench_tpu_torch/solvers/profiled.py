@@ -146,12 +146,13 @@ def bench_spmv(
     fused_reps: int = 0,
 ) -> float:
     """x = 1 and ``itermax - 1`` timed SpMVs (``A.spmv``: the DIA kernel K1,
-    K2's apply for ``--fmt stencil``, the bslab kernel K6 or K7, or the
-    plain gathers of SELL, ELL and CRS), each closed by a device
-    synchronise, into the SPMVM region. x has ``dtype``, the policy's value
-    dtype that CG's vectors have, so this times the SpMV that CG runs. (The
-    JAX package gives x the stored dtype, bf16 under the f32 policy, where
-    XLA fuses the casts; here each cast would be a kernel of its own.)
+    K2's apply for ``--fmt stencil``, the bslab kernel K6 or K7, the CRS
+    kernel K14, or the plain gathers of SELL, ELL and CRS), each closed by
+    a device synchronise, into the SPMVM region. x has ``dtype``, the
+    policy's value dtype that CG's vectors have, so this times the SpMV
+    that CG runs. (The JAX package gives x the stored dtype, bf16 under
+    the f32 policy, where XLA fuses the casts; here each cast would be a
+    kernel of its own.)
 
     Returns the best per-iteration seconds. With ``fused_reps`` > 0 a run
     of that many chained SpMVs (y fed back as x), timed with CUDA events

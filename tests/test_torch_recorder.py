@@ -289,7 +289,7 @@ def test_registry_covers_every_kernel_in_csrc():
         assert k.layer in profiler.LAYERS, k
         assert k.wrappers and k.launches >= 0
     ids = sorted(kernels)
-    assert ids == sorted([f"K{i}" for i in range(1, 14)]
+    assert ids == sorted([f"K{i}" for i in range(1, 15)]
                          + [f"P{i}" for i in range(1, 6)])
 
 
