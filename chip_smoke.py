@@ -78,8 +78,10 @@ lines; any failure raises and exits non-zero:
    and klein, the small ones also with a row stride not a multiple of 4
    and with X 4 B past a 16 B boundary; both forms of the gate must run;
 4d. the solver family through the CLI: ``-t cg --nrhs 8`` at 100^3 and
-   ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 count set to 0
-   before and read after (at least 150 launches a solve); ``-t gmres``,
+   ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 and K15 counts set
+   to 0 before and read after (at least 150 K8 launches a solve, A, B and
+   C of K15 149 times each; the ``kernels`` line's K15 launches are these);
+   ``-t gmres``,
    ``cheb``, ``bicgstab`` and ``minres``, ``-t cg --precond
    jacobi|cheb|cheb-jacobi``, ``--cg-variant sstep|pipe``, ``--refine`` and
    ``--checkpoint`` at 100^3 with the K1 count read; then the f64 history
@@ -166,13 +168,24 @@ lines; any failure raises and exits non-zero:
    with the plain version and cuSPARSE CSR (``torch.sparse_csr_tensor``
    of the same arrays @ x), beside its bound (values and columns, the row
    pointers, x and y once);
+3j. the fused blocked CG body K15 (``ops/cg_multi_body.py``) at 100^3 and
+   200^3 in f32 and f64, k = 8 (DIA): each column of a 150-iteration
+   blocked solve against ``cg_loop``'s K13 solve of that column bit for
+   bit (x, history, count), and the solve against the eager loop
+   (``cg_multi.plain_bodies``): counts equal, the history to the ROADMAP
+   parity floors, X within 10 rtol max|X_eager|;
+5j. K15's device time a body at 100^3 and 200^3, f32, k = 8 (torch.profiler
+   over the 149 bodies of a solve; A, B and C apart) in turns with the
+   eager loop's slab operations over the same bodies, beside the bound of
+   11 passes of the slab; then blocked CG x150 wall seconds through the
+   fused and the eager body, in turns;
 6. ``python -m sparsebench_tpu_torch.bench``, the port's full bench suite, as
    a subprocess: rc 0 and a final JSON line of at most 1500 characters with
    a positive value, stream_read_GBps, dma_read_GBps, cg200_seconds and
    cg200_vmem_seconds; then ``python -m sparsebench_tpu_torch.bench spmv
    200 dia,bslab,bsell``, rc 0.
 
-The phases run in the order 3-3i, 4-4f, 5-5i, 6. A bound is the larger of
+The phases run in the order 3-3j, 4-4f, 5-5j, 6. A bound is the larger of
 the bytes a call must move (each input read once, each output written
 once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32), the H100
 SXM's published rates at 700 W. The last three lines are the card's name
@@ -1452,8 +1465,9 @@ def parse_residuals(text: str):
 
 
 def phase4d_solvers(cli, gpu, tmpdir: Path):
-    """The solver family through the CLI; returns K8's launches over the
-    --nrhs 8 runs (the count set to 0 before them and read after)."""
+    """The solver family through the CLI; returns K8's launches and K15's
+    (A, B and C together) over the --nrhs 8 runs (the counts set to 0
+    before them and read after)."""
     import torch
 
     from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
@@ -1461,23 +1475,33 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
 
     hpcg = ["-f", str(REPO / "hpcg.par")]
     dia_spmm.launches = 0
+    k15 = k15_wrappers()
+    for w in k15:
+        w.launches = 0
     for size, argv in (("100^3", ["-t", "cg", "--nrhs", str(K_TIMED)]),
                        ("200^3", [*hpcg, "-t", "cg", "--nrhs",
                                   str(K_TIMED)])):
         before = dia_spmm.launches
+        before15 = [w.launches for w in k15]
         text = run_cli(cli.main, argv)
         n = dia_spmm.launches - before
+        pa, pap, xr = (w.launches - c for w, c in zip(k15, before15))
         k, diff = parse_cg(text)
         print(f"[4d solvers] {size} -t cg --nrhs {K_TIMED}: k={k} difference="
-              f"{diff} K8 launches={n} | {gpu}")
+              f"{diff} K8 launches={n}, K15 A/B/C {pa}/{pap}/{xr} | {gpu}")
         check(f"Blocked CG: {K_TIMED} right-hand sides" in text,
               "the blocked CG line is missing")
         check(k == 150 and diff < F32_DIFF_BOUND,
               f"--nrhs {K_TIMED} at {size}: k={k}, difference {diff}")
-        # warm-up and timed solve: each 1 + 149 products of the block
+        # warm-up and timed solve: each 1 + 149 products of the block and
+        # A, B and C of K15 a body
         check(n >= 2 * 150, f"--nrhs at {size}: only {n} K8 launches")
+        check(pa == pap == xr == 2 * 149,
+              f"--nrhs at {size}: K15 launches A/B/C {pa}/{pap}/{xr}")
     launches = dia_spmm.launches
-    print(f"[4d solvers] K8 launches over the --nrhs runs: {launches}")
+    launches15 = sum(w.launches for w in k15)
+    print(f"[4d solvers] launches over the --nrhs runs: K8 {launches}, K15 "
+          f"{launches15}")
     ck = tmpdir / "cg_checkpoint.npz"
     ck.unlink(missing_ok=True)
     runs = [
@@ -1553,7 +1577,7 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
           and torch.get_float32_matmul_precision() == "highest",
           "f32 matrix products would run in TF32")
     print("[4d solvers] f32 matmul: allow_tf32 False, precision highest")
-    return launches
+    return launches, launches15
 
 
 def phase5d_times(dev, gpu, against=None):
@@ -2400,10 +2424,10 @@ def phase3h_cg_body(dev, gpu):
     return err
 
 
-def k13_device_ms(fn, bodies: int) -> dict:
+def k13_device_ms(fn, bodies: int, spmv=("dia_spmv_kernel",)) -> dict:
     """Device milliseconds a body of ``fn()`` (which runs ``bodies``
-    bodies) spends in each kernel name other than K1's, from a
-    torch.profiler trace: {name: ms}."""
+    bodies) spends in each kernel name other than the SpMV's (``spmv``,
+    K1's by default), from a torch.profiler trace: {name: ms}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2418,7 +2442,7 @@ def k13_device_ms(fn, bodies: int) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         name = device_name(e.name)
-        if name != "dia_spmv_kernel":
+        if name not in spmv:
             out[name] = out.get(name, 0.0) + e.device_time * 1e-3 / bodies
     return out
 
@@ -2517,6 +2541,203 @@ def phase5h_cg_body(dev, gpu):
               and diff < F32_DIFF_BOUND,
               f"{n}^3 {fmt}: fused and plain CG differ")
         del A, b
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- K15: the fused body of simultaneous CG -----------------------------------
+K15_SIZES = (100, 200)
+
+
+def k15_wrappers():
+    from sparsebench_tpu_torch.ops import cg_multi_body
+
+    return (cg_multi_body.body_p, cg_multi_body.body_pap,
+            cg_multi_body.body_xr)
+
+
+def k15_problem(n: int, dt: str, dev, k: int = K_TIMED):
+    """The 27-point stencil at n^3 in DIA for ``dt`` vectors (K8 as its
+    blocked SpMV) and B (k, n) = A X* for X* uniform in [0, 1) (seeded)."""
+    import torch
+    from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.dia import DiaMatrix
+
+    A, _ = DiaMatrix.from_stencil(n, n, n, device=dev,
+                                  policy=DTypePolicy.from_names(dt),
+                                  impl="kernel")
+    vdt = {"f32": torch.float32, "f64": torch.float64}[dt]
+    g = torch.Generator().manual_seed(n + k)
+    xs = torch.rand((k, A.nr), generator=g, dtype=torch.float64)
+    return A, A.spmm_kn(xs.to(device=dev, dtype=vdt)).contiguous()
+
+
+def phase3j_cg_multi_body(dev, gpu):
+    """K15 on the card at 100^3 and 200^3 in f32 and f64, k = 8 (DIA, K8 as
+    the SpMV): a blocked solve of 150 iterations through
+    ``cg_multi_loop`` (3 K15 launches a body), each column's x, history
+    and count against ``cg_loop``'s K13 solve of that column bit for bit;
+    then against the eager loop (``plain_bodies`` from the same init): the
+    counts equal, the history to the ROADMAP parity floors (f32 rtol 1e-4
+    above 1e-4 of the start, f64 1e-9 above 1e-10) and X within 10 rtol
+    max|X_eager|. Returns the largest |X - X_eager|."""
+    import torch
+    from sparsebench_tpu_torch.solvers import cg
+    from sparsebench_tpu_torch.solvers.cg_multi import (
+        cg_multi_loop,
+        make_spmm_kn,
+        multi_init,
+        plain_bodies,
+    )
+
+    floors = {"f32": (1e-4, 1e-4), "f64": (NOISE_FLOOR, HIST_RTOL)}
+    wrappers = k15_wrappers()
+    err = 0.0
+    for n in K15_SIZES:
+        for dt in ("f32", "f64"):
+            A, B = k15_problem(n, dt, dev)
+            k = B.shape[0]
+            X0 = torch.zeros_like(B)
+            before = [w.launches for w in wrappers]
+            X, iters, hist = cg_multi_loop(A, B, X0, 150, 0.0)
+            ran = [w.launches - c for w, c in zip(wrappers, before)]
+            check(ran == [149] * 3, f"K15 {n}^3 {dt}: launches {ran}")
+            same = 0
+            for c in range(k):
+                b = B[c].clone()
+                x, kk, h = cg.cg_loop(A, b, torch.zeros_like(b), 150, 0.0)
+                check(int(iters[c]) == int(kk) == 150,
+                      f"K15 {n}^3 {dt}: column {c} count {int(iters[c])} "
+                      f"against K13's {int(kk)}")
+                check(bits_equal(X[c], x) and bits_equal(hist[:, c], h),
+                      f"K15 {n}^3 {dt}: column {c} differs from K13's solve")
+                same += 1
+                del b, x, h
+            spmm = make_spmm_kn(A)
+            _kind, state = multi_init(spmm, B, X0, 150, 0.0, B.dtype)
+            Xp, ip, hp = plain_bodies(spmm, B, *state, B.dtype)
+            check(torch.equal(iters, ip), f"K15 {n}^3 {dt}: counts differ "
+                  "from the eager loop's")
+            floor, rtol = floors[dt]
+            rel = max(history_rel(hist[:, c].cpu().numpy(),
+                                  hp[:, c].cpu().numpy(), floor)[0]
+                      for c in range(k))
+            d = float((X - Xp).abs().max())
+            err = max(err, d)
+            check(d <= 10 * rtol * float(Xp.abs().max()),
+                  f"K15 {n}^3 {dt}: max|X - X_eager| {d:.3e} beyond 10 rtol "
+                  "max|X_eager|")
+            print(f"[3j K15] {n}^3 {dt} k={k} x150: {same} columns bit for "
+                  f"bit K13's solves (x, history, count); against the eager "
+                  f"loop: counts equal, history max rel diff {rel:.3e} (rtol "
+                  f"{rtol}), max|X - X_eager| {d:.3e} | {gpu}")
+            check(rel <= rtol, f"K15 {n}^3 {dt}: history differs from the "
+                  "eager loop's")
+            del A, B, X0, X, hist, state, Xp, hp
+            torch.cuda.empty_cache()
+    return err
+
+
+def phase5j_cg_multi_body(dev, gpu):
+    """Times of K15 a body at 100^3 and 200^3, f32, k = 8 (the ``.nrhs8``
+    path): each kernel's device time over the 149 bodies of a solve
+    (torch.profiler) and the eager loop's slab operations over the same
+    bodies, in turns (eager, fused, fused, eager), beside the bound of 11
+    passes of the (k, n) slab; then blocked CG x150 wall seconds through
+    the fused and through the eager body, in turns, best of each. Returns
+    {n: the K15 row's numbers}."""
+    import torch
+    from sparsebench_tpu_torch.ops import cg_multi_body as k15
+    from sparsebench_tpu_torch.solvers.cg_multi import (
+        cg_multi_loop,
+        make_spmm_kn,
+        multi_init,
+        plain_bodies,
+    )
+
+    out = {}
+    names = {"A": "cg_multi_p_kernel", "B": "cg_multi_pap_kernel",
+             "C": "cg_multi_xr_kernel"}
+    k8 = ("dia_spmm_kernel", "dia_spmm_quad_kernel")
+    for n in K15_SIZES:
+        A, B = k15_problem(n, "f32", dev)
+        k = B.shape[0]
+        X0 = torch.zeros_like(B)
+        spmm = make_spmm_kn(A)
+        kind, state = multi_init(spmm, B, X0, 150, 0.0, B.dtype)
+        check(kind == "kernel", f"K15 {n}^3: the loop chose {kind}")
+        bodies = 149
+
+        def fused():
+            X0_, R, rtrans, normr, hist, eps = state
+            with torch.cuda.device(dev):
+                # a run takes R and the history as its own
+                run = k15.Run(X0_, R.clone(), rtrans, normr, hist.clone(),
+                              torch.broadcast_to(eps, rtrans.shape), 150)
+            torch.cuda.synchronize()
+            return run
+
+        def fused_bodies(run):
+            for _ in range(bodies):
+                k15.body_p(run)
+                ap = spmm(run.P)
+                k15.body_pap(run, ap)
+                k15.body_xr(run, ap)
+
+        def plain():
+            hist = state[4].clone()
+            return lambda: plain_bodies(spmm, B, *state[:4], hist, state[5],
+                                        B.dtype)
+
+        fused_bodies(fused())  # warm-up
+        plain()()
+        turns = []
+        for side in ("eager", "fused", "fused", "eager"):
+            if side == "fused":
+                run = fused()
+                ms = k13_device_ms(lambda: fused_bodies(run), bodies, k8)
+                check(run.iters.tolist() == [150] * k,
+                      f"K15 {n}^3: counts {run.iters.tolist()} after a solve")
+            else:
+                ms = k13_device_ms(plain(), bodies, k8)
+            turns.append((side, ms))
+        k15_runs = [sum(m.values()) for side, m in turns if side == "fused"]
+        plain_runs = [sum(m.values()) for side, m in turns if side == "eager"]
+        last = [m for side, m in turns if side == "fused"][-1]
+        parts = {key: last.get(name, 0.0) for key, name in names.items()}
+        ms, plain_ms = min(k15_runs), min(plain_runs)
+        b_ms, b_by = bound(K13_PASSES * k * A.nr * 4, K13_FLOPS * k * A.nr)
+        walls = {"fused": [], "eager": []}
+        for side in ("eager", "fused", "fused", "eager"):
+            if side == "fused":
+                fn = lambda: cg_multi_loop(A, B, X0, 150, 0.0)  # noqa: E731
+            else:
+                def fn():
+                    _k, st = multi_init(spmm, B, X0, 150, 0.0, B.dtype)
+                    return plain_bodies(spmm, B, *st, B.dtype)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[side].append(time.perf_counter() - t0)
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      cg_fused_s=min(walls["fused"]),
+                      cg_eager_s=min(walls["eager"]),
+                      **{f"{key}_ms": v for key, v in parts.items()})
+        print(f"[5j K15] {n}^3 f32 k={k} a body (device time over {bodies} "
+              f"bodies of a solve, in turns eager/fused/fused/eager): "
+              f"kernels {k15_runs[0]:.6f} / {k15_runs[1]:.6f} ms (A "
+              f"{parts['A']:.6f}, B {parts['B']:.6f}, C {parts['C']:.6f}); "
+              f"eager slab ops {plain_runs[0]:.6f} / {plain_runs[1]:.6f} ms "
+              f"in {len(turns[0][1])} kinds of torch kernel; bound "
+              f"{b_ms:.6f} ms ({b_by}, {K13_PASSES} passes of the slab), "
+              f"{b_ms / ms:.3f} of it | {gpu}")
+        print(f"[5j K15] {n}^3 f32 CG x150 --nrhs {k} (K8 in both), in "
+              f"turns: fused body {walls['fused'][0]:.6f} / "
+              f"{walls['fused'][1]:.6f} s, eager body "
+              f"{walls['eager'][0]:.6f} / {walls['eager'][1]:.6f} s | {gpu}")
+        del A, B, X0, state
         torch.cuda.empty_cache()
     return out
 
@@ -3183,6 +3404,7 @@ def main(argv=None) -> int:
     err_g = phase3g_protos(dev)
     err_h = phase3h_cg_body(dev, gpu)
     gap_i, err_i, launches_i = phase3i_crs(dev, gpu, cli)
+    err_j = phase3j_cg_multi_body(dev, gpu)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
@@ -3252,7 +3474,7 @@ def main(argv=None) -> int:
     launches_c = phase4c_bslab(cli, gpu, tmpdir, auto_kernel)
 
     # -- phase 4d: the solver family through the CLI -------------------------
-    launches_d = phase4d_solvers(cli, gpu, tmpdir)
+    launches_d, launches_k15 = phase4d_solvers(cli, gpu, tmpdir)
 
     # -- phase 4e: --profile and --banner through the CLI --------------------
     launches_e = phase4e_profile(cli, gpu)
@@ -3328,6 +3550,9 @@ def main(argv=None) -> int:
     # -- phase 5i: times of K14 -----------------------------------------------
     times_i = phase5i_crs_times(dev, gpu)
 
+    # -- phase 5j: times of K15 and blocked CG through the fused and eager body
+    times_j = phase5j_cg_multi_body(dev, gpu)
+
     # -- phase 6: the bench suite -------------------------------------------
     phase6_bench(gpu, tmpdir)
 
@@ -3365,6 +3590,10 @@ def main(argv=None) -> int:
         dict(row("crs_spmv", "crs_spmv.cu",
                  "sparsebench_tpu/formats/crs.py:70", launches_i, err_i,
                  times_i[100], times_i[200]), max_gap_over_bound=gap_i),
+        # no Pallas counterpart: XLA fuses the JAX package's blocked body
+        row("cg_multi_body", "cg_multi_body.cu",
+            "sparsebench_tpu/solvers/cg_multi.py:152",
+            launches_k15, err_j, times_j[100], times_j[200]),
     ]
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):

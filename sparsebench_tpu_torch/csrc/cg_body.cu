@@ -55,59 +55,19 @@ namespace {
 
 using sb::add_rn;
 using sb::block_sum;
-using sb::div_rn;
 using sb::kThreads;
+using sb::last_block;
 using sb::mul_rn;
+using sb::Pack;
+using sb::safe_div;
 using sb::sqrt_rn;
 using sb::sub_rn;
+using sb::sum_partials;
 
 // slots of the run's scalar buffer s (ops/cg_body.py SLOTS)
 enum Slot { kRtrans = 0, kNormr, kRr, kRt, kNormrNew, kAlpha };
 // words of the run's int buffer flags: the body's active flag, the ticket
 enum Flag { kActive = 0, kTicket };
-
-// 16 bytes of T, loaded and stored as one vector access
-template <typename T>
-struct alignas(16) Pack {
-  static constexpr int kLanes = 16 / sizeof(T);
-  T v[kLanes];
-};
-
-// torch's safe_div (ops/blas1.py): num / den, 0 where den == 0
-template <typename T>
-__device__ __forceinline__ T safe_div(T num, T den) {
-  return den != T(0) ? div_rn(num, den) : T(0);
-}
-
-// This block's partial goes to partials[blockIdx.x]; true in every thread
-// of the block that finishes last.
-template <typename T>
-__device__ __forceinline__ bool last_block(T part, T* partials,
-                                           unsigned* ticket) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = part;
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  return last;
-}
-
-// In the last block: the sum of all partials in a fixed order, valid in
-// every thread; the ticket is reset for the next launch.
-template <typename T>
-__device__ __forceinline__ T sum_partials(const T* partials, unsigned* ticket,
-                                          T* red) {
-  __threadfence();
-  T acc = T(0);
-  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
-    acc = add_rn(acc, __ldcg(partials + b));  // from L2: other blocks wrote it
-  }
-  const T total = block_sum(acc, red);
-  if (threadIdx.x == 0) *ticket = 0u;
-  return total;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -59,6 +59,52 @@ __device__ __forceinline__ C block_sum(C v, C* red) {
   return red[0];
 }
 
+// 16 bytes of T, the unit of the CG bodies' vector loads and stores
+template <typename T>
+struct alignas(16) Pack {
+  static constexpr int kLanes = 16 / sizeof(T);
+  T v[kLanes];
+};
+
+// torch's safe_div (ops/blas1.py): num / den, 0 where den == 0
+template <typename T>
+__device__ __forceinline__ T safe_div(T num, T den) {
+  return den != T(0) ? div_rn(num, den) : T(0);
+}
+
+// A sum over the blocks of a grid in a fixed order (the CG bodies' dots,
+// K13 and K15): this block's partial goes to partials[blockIdx.x]; true in
+// every thread of the block that finishes last (its ticket after a
+// __threadfence).
+template <typename T>
+__device__ __forceinline__ bool last_block(T part, T* partials,
+                                           unsigned* ticket) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = part;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// In the last block: the sum of the gridDim.x partials in index order as
+// thread strides and a block_sum, valid in every thread; the ticket is
+// reset for the next launch.
+template <typename T>
+__device__ __forceinline__ T sum_partials(const T* partials, unsigned* ticket,
+                                          T* red) {
+  __threadfence();
+  T acc = T(0);
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
+    acc = add_rn(acc, __ldcg(partials + b));  // from L2: other blocks wrote it
+  }
+  const T total = block_sum(acc, red);
+  if (threadIdx.x == 0) *ticket = 0u;
+  return total;
+}
+
 }  // namespace sb
 
 extern "C" const char* sb_cuda_error_string(int err) {

@@ -27,7 +27,7 @@ span is one check and records nothing, and a solver loop reads the switch
 once a solve.
 
 The kernel registry (``Kernel``, ``kernels``, ``kernels_named``): each
-ops module declares its kernels beside their wrappers, by id (K1-K14,
+ops module declares its kernels beside their wrappers, by id (K1-K15,
 P1-P5), the names their device events carry, their layer and the
 wrappers whose ``launches`` count them; ``kernels`` gathers them.
 """
@@ -368,12 +368,12 @@ LAYERS = ("SpMV kernels", "solver loops", "device", "prototypes")
 KERNEL_MODULES = ("dia_spmv", "stencil", "cg_fused", "stencil_cg_vmem",
                   "bslab_spmv", "dia_spmm", "bsell_spmv", "memroof",
                   "dia_window", "slab_slices", "csr_twopass", "cg_body",
-                  "crs_spmv")
+                  "crs_spmv", "cg_multi_body")
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    """A hand-written kernel: its ``id`` (K1-K14, P1-P5), the ``names`` of
+    """A hand-written kernel: its ``id`` (K1-K15, P1-P5), the ``names`` of
     the ``__global__`` functions its device events carry, its ``layer``
     (one of ``LAYERS``) and the ``wrappers`` whose ``launches`` count its
     launches."""

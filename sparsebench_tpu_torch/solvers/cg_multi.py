@@ -14,25 +14,41 @@ layout, and the one K8 reads coalesced).
 
 Each column runs the reference iteration (src/CGSolver.c:94-129) on its
 own, with (k,)-vectors of alpha, beta and the dots; it is not block CG
-with a shared Krylov space, so column c matches a single-RHS ``cg_loop``
-on that column to reduction order (bit for bit on DIA, where row c of K8
-is K1 on column c). A column that converges (normr <= eps) or breaks down
-freezes (alpha = 0) while the others go on.
+with a shared Krylov space. A column that converges (normr <= eps) or
+breaks down freezes (alpha = 0, P kept) while the others go on.
+
+Which body runs where (``cg_body.body_kind``, the rule of the single-RHS
+loop, and ``cg_multi_body.takes``): on a CUDA card, with f32 or f64
+vectors accumulated in the same dtype and an SpMV whose product is a
+contiguous (k, n) slab of that dtype, 16-byte aligned, a body is the three
+kernels K15 around the SpMV (``ops/cg_multi_body.py``), one launch a stage
+for all k columns, each column's masks and scalars on the card. Their dots
+sum each column in K13's order and the run starts from each column's r.r
+as ``cg_init`` takes it, so on the card column c equals the single-RHS
+``cg_loop`` on that column bit for bit (x, history, count) wherever row c
+of the blocked product is the single-vector product of column c: on DIA
+(row c of K8 is K1 on column c) and on every format that stacks its
+single-vector products. Everywhere else (the CPU, bf16 vectors, mixed
+dtypes, another product) the body is the eager loop (``plain_bodies``),
+whose dots sum a (k, n) product along its rows (``torch.sum(..., dim=1)``):
+column c then matches the single-RHS loop to reduction order only.
 
 Masked fixed trip like ``solvers/cg.py``: the host issues ``itermax - 1``
-bodies. Every body keeps its frozen columns exactly (P held with
-``where``, alpha 0), so the bodies after the JAX loop's exit (all columns
-frozen) change nothing, and the history, the per-column counts and X come
-out as the JAX ``while_loop``'s. The body index is the iteration index,
-known on the host.
+bodies. Every body keeps its frozen columns exactly (P held, alpha 0), so
+the bodies after the JAX loop's exit (all columns frozen) change nothing,
+and the history, the per-column counts and X come out as the JAX
+``while_loop``'s. The body index is the iteration index, known on the host.
 
 While the program's recorder records (``profiler.py``), a solve is a span
-``cg_multi.solve`` (``rhs``, ``itermax``, ``n``) holding ``cg_multi.init``
-and one ``cg_multi.body`` a body; ``cg_multi.bodies`` counts the bodies.
+``cg_multi.solve`` (``rhs``, ``itermax``, ``n``; ``body``: ``kernel`` or
+``torch``) holding ``cg_multi.init`` and one ``cg_multi.body`` a body;
+``cg_multi.bodies`` counts the bodies and ``cg_multi.kernel_bodies`` those
+of them run as K15.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
@@ -41,6 +57,8 @@ import torch
 
 from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
+from sparsebench_tpu_torch.ops import cg_body, cg_multi_body
+from sparsebench_tpu_torch.ops.blas1 import ddot
 from sparsebench_tpu_torch.solvers.cg import (
     CGResult,
     default_acc_dtype,
@@ -71,56 +89,106 @@ def cg_multi_loop(A, B: torch.Tensor, X0: torch.Tensor, itermax: int, eps,
                   acc_dtype: Optional[torch.dtype] = None):
     """Simultaneous CG over the rows of ``B`` (k, nr), in the format's row
     order. Returns (X (k, nr), iters (k,) per-column iteration counts,
-    hist (itermax, k), NaN where a column had stopped)."""
-    k_rhs = B.shape[0]
-    vdt = B.dtype
-    sdt = default_acc_dtype(vdt, acc_dtype)
-    device = B.device
+    hist (itermax, k), NaN where a column had stopped). ``eps`` is one
+    value or one a column."""
+    sdt = default_acc_dtype(B.dtype, acc_dtype)
     spmm = make_spmm_kn(A)
-
-    def dots(U, V):
-        # one sum per column, at the accumulation dtype
-        return torch.sum(U.to(sdt) * V.to(sdt), dim=1)
-
     span = profiler.span_fn()
-    with span("cg_multi.solve", rhs=k_rhs, itermax=itermax,
+    with span("cg_multi.solve", rhs=B.shape[0], itermax=itermax,
               n=B.shape[1]):
         with span("cg_multi.init"):
-            eps = torch.as_tensor(eps, device=device).to(sdt)
-            X = X0
-            R = B - spmm(X0)
-            rtrans = dots(R, R)
-            normr = torch.sqrt(rtrans)
-            hist = torch.full((itermax, k_rhs), float("nan"), dtype=sdt,
-                              device=device)
-            hist[0] = normr
-            active = normr > eps
-            P = torch.zeros_like(B)
-            iters = torch.ones(k_rhs, dtype=torch.int32, device=device)
-        for it in range(1, itermax):
-            with span("cg_multi.body"):
-                if it == 1:
-                    new_rtrans = rtrans
-                    beta = torch.zeros_like(rtrans)
-                else:
-                    new_rtrans = dots(R, R)
-                    beta = safe_div(new_rtrans, rtrans)
-                P = torch.where(active[:, None], R + beta[:, None].to(vdt) * P, P)
-                normr_k = torch.sqrt(new_rtrans)
-                hist[it] = torch.where(active, normr_k, float("nan"))
-                AP = spmm(P)
-                pAp = dots(P, AP)
-                # per-column breakdown guard (cg_run's): freeze that column
-                breakdown = pAp <= new_rtrans * 1e-30
-                step = active & ~breakdown
-                alpha = torch.where(step, safe_div(new_rtrans, pAp), 0).to(vdt)
-                X = X + alpha[:, None] * P
-                R = R - alpha[:, None] * AP
-                iters = iters + active.to(torch.int32)
-                active = step & (normr_k > eps)
-                rtrans = new_rtrans
+            kind, state = multi_init(spmm, B, X0, itermax, eps, sdt)
+        profiler.annotate(body=kind)
+        if kind == "kernel":
+            X, iters, hist = kernel_bodies(spmm, *state, span=span)
+            profiler.count("cg_multi.kernel_bodies", max(itermax - 1, 0))
+        else:
+            X, iters, hist = plain_bodies(spmm, B, *state, sdt, span=span)
     profiler.count("cg_multi.bodies", max(itermax - 1, 0))
     return X, iters, hist
+
+
+def _dots(U, V, sdt):
+    # one sum per column, at the accumulation dtype
+    return torch.sum(U.to(sdt) * V.to(sdt), dim=1)
+
+
+def multi_init(spmm, B, X0, itermax: int, eps, sdt):
+    """The loop's init and its choice of body: (kind, (X0, R, rtrans,
+    normr, hist, eps)), ``kind`` ``"kernel"`` where K15 runs the bodies
+    (``cg_body.body_kind`` and ``cg_multi_body.takes`` of the first
+    product), else ``"torch"``. The kernels start from each column's r.r
+    as ``cg_init`` takes it, the eager loop from its row sums."""
+    device = B.device
+    kind = cg_body.body_kind(device.type, B.dtype, sdt, False)
+    eps = torch.as_tensor(eps, device=device).to(sdt)
+    AX = spmm(X0)
+    if kind == "kernel" and not cg_multi_body.takes(AX, B.dtype,
+                                                    tuple(B.shape)):
+        kind = "torch"
+    R = B - AX
+    if kind == "kernel":
+        rtrans = torch.stack([ddot(r, r, acc_dtype=sdt) for r in R])
+    else:
+        rtrans = _dots(R, R, sdt)
+    normr = torch.sqrt(rtrans)
+    hist = torch.full((itermax, B.shape[0]), float("nan"), dtype=sdt,
+                      device=device)
+    hist[0] = normr
+    return kind, (X0, R, rtrans, normr, hist, eps)
+
+
+def plain_bodies(spmm, B, X0, R, rtrans, normr, hist, eps, sdt,
+                 span=contextlib.nullcontext):
+    """The eager loop (the plain version of K15): ``len(hist) - 1`` bodies
+    from ``multi_init``'s state, each in ``span("cg_multi.body")``;
+    (X, iters, hist) after them."""
+    vdt = B.dtype
+    X = X0
+    active = normr > eps
+    P = torch.zeros_like(B)
+    iters = torch.ones(B.shape[0], dtype=torch.int32, device=B.device)
+    for it in range(1, hist.shape[0]):
+        with span("cg_multi.body"):
+            if it == 1:
+                new_rtrans = rtrans
+                beta = torch.zeros_like(rtrans)
+            else:
+                new_rtrans = _dots(R, R, sdt)
+                beta = safe_div(new_rtrans, rtrans)
+            P = torch.where(active[:, None], R + beta[:, None].to(vdt) * P, P)
+            normr_k = torch.sqrt(new_rtrans)
+            hist[it] = torch.where(active, normr_k, float("nan"))
+            AP = spmm(P)
+            pAp = _dots(P, AP, sdt)
+            # per-column breakdown guard (cg_run's): freeze that column
+            breakdown = pAp <= new_rtrans * 1e-30
+            step = active & ~breakdown
+            alpha = torch.where(step, safe_div(new_rtrans, pAp), 0).to(vdt)
+            X = X + alpha[:, None] * P
+            R = R - alpha[:, None] * AP
+            iters = iters + active.to(torch.int32)
+            active = step & (normr_k > eps)
+            rtrans = new_rtrans
+    return X, iters, hist
+
+
+def kernel_bodies(spmm, X0, R, rtrans, normr, hist, eps,
+                  span=contextlib.nullcontext):
+    """``len(hist) - 1`` bodies of K15 around ``spmm`` from
+    ``multi_init``'s state, each in ``span("cg_multi.body")``; (X, iters,
+    hist) after them, the run's own tensors."""
+    with torch.cuda.device(R.device):
+        run = cg_multi_body.Run(X0, R, rtrans, normr, hist,
+                                torch.broadcast_to(eps, rtrans.shape),
+                                hist.shape[0])
+        for _ in range(1, hist.shape[0]):
+            with span("cg_multi.body"):
+                cg_multi_body.body_p(run)
+                AP = spmm(run.P)
+                cg_multi_body.body_pap(run, AP)
+                cg_multi_body.body_xr(run, AP)
+    return run.X, run.iters, run.hist
 
 
 def solve_cg_multi(A, B, *, itermax: int = 150, eps: float = 0.0,

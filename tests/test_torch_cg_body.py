@@ -29,7 +29,7 @@ from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
 from sparsebench_tpu_torch.host import HostCSR, generate_stencil
-from sparsebench_tpu_torch.ops import cg_body
+from sparsebench_tpu_torch.ops import _build, cg_body
 from sparsebench_tpu_torch.ops.blas1 import ddot, safe_div
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
 from sparsebench_tpu_torch.solvers import cg, checkpoint
@@ -373,7 +373,10 @@ def test_fused_solves_repeat_bit_for_bit_and_keep_their_inputs(dt,
 
 
 def device_ops(fn):
-    """{device name: count} of the device operations of ``fn()``."""
+    """{device name: count} of the device operations of ``fn()``. Every
+    kernel library is built first: a session opened after nvcc ran in the
+    process can miss device events."""
+    _build.build()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
