@@ -6,8 +6,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
     python3 chip_smoke.py [--against DIR]
 
 (``--against``: phases 5b, 5d and 5f also time another tree's K2, K3 and
-K5, K8, K9 and K10 in turns with this one's; without it the script needs
-no other tree.) Phases, each printing its own
+K5, K8, K9 and K10 in turns with this one's, and where that tree has a
+single-RHS fused CG body of its own (K13, ``csrc/cg_body.cu``), phases 3h
+and 3j hold this tree's solves to it bit for bit and 5h times it in turns
+with K15 at k = 1; without it the script needs no other tree.) Phases,
+each printing its own
 lines; any failure raises and exits non-zero:
 
 1. fingerprint: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
@@ -37,10 +40,10 @@ lines; any failure raises and exits non-zero:
    wide pool and with grouped pools; K7 again with a forced cluster of 2
    wherever one block would do;
 4. main path: the CLI as a user runs it (``-t cg`` at 100^3, ``-f hpcg.par
-   -t cg`` at 200^3, ``-t spmv``), with the launch counts of K1 and K13
-   set to 0 before and read after those runs (each solve one K13 r.r, then
-   A, B and C a body; none in ``-t spmv``); then the f64 residual history
-   at 100^3 through the kernels (K1, K13) against the plain version (the
+   -t cg`` at 200^3, ``-t spmv``), with the launch counts of K1 and K15
+   read before and after those runs (each solve one K15 r.r, then A, B and
+   C a body; none in ``-t spmv``); then the f64 residual history at 100^3
+   through the kernels (K1, K15 at k = 1) against the plain version (the
    plain SpMV and the plain body, ``cg_body.plain_bodies``);
 4b. the stencil path: ``--fmt stencil -t cg`` with each CG variant at 100^3
    and 200^3, ``cs`` with SB_FUSED_CS=1, and ``-t spmv --fmt stencil``,
@@ -54,7 +57,7 @@ lines; any failure raises and exits non-zero:
    cluster), and ``-m <file> -t cg`` on a host RGL matrix
    of 100k rows written as .mtx (DIA refuses it, auto falls back to
    bslab), with the K6 and K7 counts set to 0 before and read after;
-5. times: CG solve seconds (K1 and K13 against the plain SpMV and body)
+5. times: CG solve seconds (K1 and K15 against the plain SpMV and body)
    and per-SpMV milliseconds of K1 and its plain version at 100^3 and
    200^3, with physical GB/s, beside the same product as a cuSPARSE CSR
    SpMV (torch.sparse_csr_tensor @ x);
@@ -78,9 +81,10 @@ lines; any failure raises and exits non-zero:
    and klein, the small ones also with a row stride not a multiple of 4
    and with X 4 B past a 16 B boundary; both forms of the gate must run;
 4d. the solver family through the CLI: ``-t cg --nrhs 8`` at 100^3 and
-   ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 and K15 counts set
-   to 0 before and read after (at least 150 K8 launches a solve, A, B and
-   C of K15 149 times each; the ``kernels`` line's K15 launches are these);
+   ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 and K15 counts read
+   before and after (at least 150 K8 launches a solve, A, B and C of K15
+   149 times each and no start r.r; the ``kernels`` line's K15 launches
+   are these);
    ``-t gmres``,
    ``cheb``, ``bicgstab`` and ``minres``, ``-t cg --precond
    jacobi|cheb|cheb-jacobi``, ``--cg-variant sstep|pipe``, ``--refine`` and
@@ -139,15 +143,18 @@ lines; any failure raises and exits non-zero:
    beside its plain version and bound at those shapes, with cuSPARSE CSR f32
    for P5's whole SpMV and for P1/P2's 27-diagonal product, and K1 at 200^3
    from phase 5 beside P1/P2;
-3h. the fused CG body K13 against its plain stages (``ops/cg_body.py``)
-   at 100^3 and 200^3 in f32 and f64 (DIA): one body stage by stage on
-   the state 5 bodies into a solve, the flags, k, rtrans, normr, done and
-   the history entry exactly, p, x and r bit for bit against the plain
-   stage's formula on the kernels' own scalars, r.r and p.Ap (through
-   alpha) against their exact value to the kernels' summation bound; then
-   whole 150-iteration solves, k equal and the history to the ROADMAP
-   parity floors (f32 rtol 1e-4 above 1e-4 of the start, f64 1e-9 above
-   1e-10);
+3h. ``cg_run``'s fused run, K15 at k = 1 (``ops/cg_multi_body.py``),
+   against the plain stages (``ops/cg_body.py``) at 100^3 and 200^3 in f32
+   and f64: on DIA one body stage by stage on the state 5 bodies into a
+   solve, the flags, k, rtrans, normr, done and the history entry exactly,
+   p, x and r bit for bit against the plain stage's formula on the
+   kernels' own scalars, r.r and p.Ap (through alpha) against their exact
+   value to the kernels' summation bound; then whole 150-iteration solves
+   on DIA and CRS (one start r.r and 149 launches each of A, B and C), k
+   equal and the history to the ROADMAP parity floors (f32 rtol 1e-4
+   above 1e-4 of the start, f64 1e-9 above 1e-10), two segments equal to
+   one run bit for bit and, with ``--against``, the run equal bit for bit
+   (x, k, history) to the other tree's K13 solve, after both grids;
 3i. the CRS SpMV K14 against its plain version (``crs_spmv_torch``) in
    f32 and f64, to the bound of a row's sum (2 len_i u (|A| |x|)_i): random
    CSRs of 1 and 1001 rows, one with every third row empty, rows longer
@@ -157,10 +164,11 @@ lines; any failure raises and exits non-zero:
    ``max_gap_over_bound``); the device build at 100^3 equal to the host
    build element for element; bf16 and mixed dtypes taking the plain
    version; then ``-t cg --fmt crs`` through the CLI at 100^3 with the K14
-   and K13 counts set to 0 before and read after;
-5h. K13's device time a body at 100^3 and 200^3, f32 (torch.profiler over
-   the 149 bodies of a solve; A, B and C apart) beside the plain body's
-   vector operations over the same bodies and the bound of 11 passes;
+   and K15 counts read before and after;
+5h. K15's device time a body at k = 1, 100^3 and 200^3, f32 (torch.profiler
+   over the 149 bodies of a solve; A, B and C apart; with ``--against`` in
+   turns with the other tree's K13) beside the plain body's vector
+   operations over the same bodies and the bound of 11 passes;
    then CG x150 seconds through the fused and through the plain body on
    DIA, the stencil, bslab, bsell and CRS at 100^3 and 200^3 and on SELL
    at 100^3, their histories held to each other;
@@ -170,8 +178,9 @@ lines; any failure raises and exits non-zero:
    pointers, x and y once);
 3j. the fused blocked CG body K15 (``ops/cg_multi_body.py``) at 100^3 and
    200^3 in f32 and f64, k = 8 (DIA): each column of a 150-iteration
-   blocked solve against ``cg_loop``'s K13 solve of that column bit for
-   bit (x, history, count), and the solve against the eager loop
+   blocked solve against ``cg_loop``'s solve of that column (K15 at k = 1;
+   with ``--against`` also the other tree's K13 solve) bit for bit (x,
+   history, count), and the solve against the eager loop
    (``cg_multi.plain_bodies``): counts equal, the history to the ROADMAP
    parity floors, X within 10 rtol max|X_eager|;
 5j. K15's device time a body at 100^3 and 200^3, f32, k = 8 (torch.profiler
@@ -1466,8 +1475,7 @@ def parse_residuals(text: str):
 
 def phase4d_solvers(cli, gpu, tmpdir: Path):
     """The solver family through the CLI; returns K8's launches and K15's
-    (A, B and C together) over the --nrhs 8 runs (the counts set to 0
-    before them and read after)."""
+    (A, B and C together; no start r.r) over the --nrhs 8 runs."""
     import torch
 
     from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
@@ -1475,9 +1483,8 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
 
     hpcg = ["-f", str(REPO / "hpcg.par")]
     dia_spmm.launches = 0
-    k15 = k15_wrappers()
-    for w in k15:
-        w.launches = 0
+    k15 = body_wrappers()
+    start = [w.launches for w in k15]
     for size, argv in (("100^3", ["-t", "cg", "--nrhs", str(K_TIMED)]),
                        ("200^3", [*hpcg, "-t", "cg", "--nrhs",
                                   str(K_TIMED)])):
@@ -1485,10 +1492,11 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
         before15 = [w.launches for w in k15]
         text = run_cli(cli.main, argv)
         n = dia_spmm.launches - before
-        pa, pap, xr = (w.launches - c for w, c in zip(k15, before15))
+        rr, pa, pap, xr = (w.launches - c for w, c in zip(k15, before15))
         k, diff = parse_cg(text)
         print(f"[4d solvers] {size} -t cg --nrhs {K_TIMED}: k={k} difference="
-              f"{diff} K8 launches={n}, K15 A/B/C {pa}/{pap}/{xr} | {gpu}")
+              f"{diff} K8 launches={n}, K15 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | "
+              f"{gpu}")
         check(f"Blocked CG: {K_TIMED} right-hand sides" in text,
               "the blocked CG line is missing")
         check(k == 150 and diff < F32_DIFF_BOUND,
@@ -1496,10 +1504,11 @@ def phase4d_solvers(cli, gpu, tmpdir: Path):
         # warm-up and timed solve: each 1 + 149 products of the block and
         # A, B and C of K15 a body
         check(n >= 2 * 150, f"--nrhs at {size}: only {n} K8 launches")
-        check(pa == pap == xr == 2 * 149,
-              f"--nrhs at {size}: K15 launches A/B/C {pa}/{pap}/{xr}")
+        check(rr == 0 and pa == pap == xr == 2 * 149,
+              f"--nrhs at {size}: K15 launches r.r/A/B/C "
+              f"{rr}/{pa}/{pap}/{xr}")
     launches = dia_spmm.launches
-    launches15 = sum(w.launches for w in k15)
+    launches15 = sum(w.launches - c for w, c in zip(k15, start))
     print(f"[4d solvers] launches over the --nrhs runs: K8 {launches}, K15 "
           f"{launches15}")
     ck = tmpdir / "cg_checkpoint.npz"
@@ -2233,39 +2242,156 @@ def phase5f_times(dev, gpu, against=None):
     return out
 
 
-# -- K13: the fused body of standard CG ---------------------------------------
-K13_SIZES = (100, 200)
-# passes of n elements a fused body moves: A reads r and p and writes p, B
-# reads p and Ap, C reads x, p, r and Ap and writes x and r
-K13_PASSES = 11
+# -- K15 at k = 1: the fused body of standard CG ------------------------------
+BODY_SIZES = (100, 200)
+# passes of n elements a fused body moves a column: A reads r and p and
+# writes p, B reads p and Ap, C reads x, p, r and Ap and writes x and r
+BODY_PASSES = 11
 # operations an element a body: A 2, B 2, C 6
-K13_FLOPS = 10
+BODY_FLOPS = 10
 
 
-def k13_wrappers():
-    from sparsebench_tpu_torch.ops import cg_body
+def body_wrappers():
+    """K15's wrappers: the start r.r, A, B and C."""
+    from sparsebench_tpu_torch.ops import cg_multi_body
 
-    return (cg_body.body_rr, cg_body.body_p, cg_body.body_pap,
-            cg_body.body_xr)
+    return (cg_multi_body.body_rr, cg_multi_body.body_p,
+            cg_multi_body.body_pap, cg_multi_body.body_xr)
 
 
-def k13_problem(n: int, dt: str, dev):
-    """The 27-point stencil at n^3 in DIA for ``dt`` vectors (K1 as its
-    SpMV), b = A x* for x* uniform in [0, 1) (seeded), and the state of CG
-    from x = 0 for 150 iterations."""
+def cg_problem(n: int, dt: str, dev, fmt: str = "dia"):
+    """The 27-point stencil at n^3 in DIA (K1 as its SpMV) or CRS (K14)
+    for ``dt`` vectors, b = A x* for x* uniform in [0, 1) (seeded), and the
+    state of CG from x = 0 for 150 iterations."""
     import torch
     from sparsebench_tpu_torch.config import DTypePolicy
+    from sparsebench_tpu_torch.formats.crs import CRSMatrix
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.solvers import cg
 
-    A, _ = DiaMatrix.from_stencil(n, n, n, device=dev,
-                                  policy=DTypePolicy.from_names(dt),
-                                  impl="kernel")
+    policy = DTypePolicy.from_names(dt)
+    if fmt == "dia":
+        A, _ = DiaMatrix.from_stencil(n, n, n, device=dev, policy=policy,
+                                      impl="kernel")
+    else:
+        A, _ = CRSMatrix.from_stencil(n, n, n, device=dev, policy=policy)
     vdt = {"f32": torch.float32, "f64": torch.float64}[dt]
     g = torch.Generator().manual_seed(n)
     xs = torch.rand(A.nr, generator=g, dtype=torch.float64)
     b = A.spmv(xs.to(device=dev, dtype=vdt))
     return A, b, cg.cg_init(A, b, torch.zeros_like(b), 150)
+
+
+class ParentBody:
+    """The single-RHS fused body of another tree (the parent, where it
+    still has one: K13, its ``csrc/cg_body.cu``, built with this tree's
+    flags), driven as that tree's ``cg_run`` drove it, through the
+    interface its source declares: a run on its own copies of a CG state,
+    the r.r of its start, then A, the SpMV, B and C a body."""
+
+    def __init__(self, tree: Path):
+        import ctypes
+
+        from sparsebench_tpu_torch.ops import _build
+
+        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        out = REPO / "build" / "chip_smoke" / "libparent_cg_body.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                        str(csrc), "-o", str(out), str(csrc / "cg_body.cu")],
+                       capture_output=True, check=True,
+                       timeout=_build.NVCC_TIMEOUT_S)
+        lib = ctypes.CDLL(str(out))
+        lib.sb_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sb_cuda_error_string.restype = ctypes.c_char_p
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for sfx in ("f32", "f64"):
+            for stage, args in (
+                    ("blocks", [i64, ctypes.POINTER(i32)]),
+                    ("p", [p] * 7 + [i64, p, i64, i64, i32, p]),
+                    ("pap", [p] * 7 + [i64, i32, p]),
+                    ("xr", [p] * 7 + [i64, i32, i32, p])):
+                fn = getattr(lib, f"sb_cg_body_{stage}_{sfx}")
+                fn.argtypes = args
+                fn.restype = i32
+        self.lib = lib
+
+    def grid(self, n: int, sfx: str) -> int:
+        """The blocks of every launch of a run of n elements."""
+        import ctypes
+
+        from sparsebench_tpu_torch.ops import _build
+
+        g = ctypes.c_int(0)
+        _build.check(self.lib, getattr(self.lib, f"sb_cg_body_blocks_{sfx}")(
+            n, ctypes.byref(g)), "parent cg_body grid")
+        return g.value
+
+    @contextlib.contextmanager
+    def grid_for_this_tree(self):
+        """This tree's K15 launched on the parent's grid while the block is
+        open (``cg_multi_body._grid`` replaced), so that its dots sum in
+        the parent's order where the two grids differ."""
+        from sparsebench_tpu_torch.ops import cg_multi_body
+
+        own = cg_multi_body._grid
+        cg_multi_body._grid = lambda n, sfx, _device: self.grid(n, sfx)
+        try:
+            yield
+        finally:
+            cg_multi_body._grid = own
+
+    def run(self, state, k_end: int, eps):
+        """A run from ``state`` to ``k_end`` with its start r.r launched:
+        (``body(spmv)``, one body; ``state()``, the run's state)."""
+        import torch
+
+        from sparsebench_tpu_torch.ops import _build
+
+        k, x, p, r, rtrans, normr, hist, done = state
+        dt, dev, n = r.dtype, r.device, r.numel()
+        sfx = {torch.float32: "f32", torch.float64: "f64"}[dt]
+        lib = self.lib
+        same = torch.contiguous_format
+        x, p, r, hist = (v.clone(memory_format=same) for v in (x, p, r, hist))
+        k = k.reshape(()).to(torch.int64, copy=True)
+        done = done.reshape(()).to(torch.bool, copy=True)
+        s = torch.zeros(6, dtype=dt, device=dev)
+        s[0] = rtrans.reshape(())
+        s[1] = normr.reshape(())
+        eps = eps.to(device=dev, dtype=torch.float64).reshape(())
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        g = self.grid(n, sfx)
+        parts = torch.empty(g, dtype=dt, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn_p, fn_pap, fn_xr = (getattr(lib, f"sb_cg_body_{stage}_{sfx}")
+                               for stage in ("p", "pap", "xr"))
+        args_p = (r.data_ptr(), p.data_ptr(), s.data_ptr(), k.data_ptr(),
+                  done.data_ptr(), eps.data_ptr(), hist.data_ptr(),
+                  hist.numel(), flags.data_ptr(), k_end, n, g, stream)
+        args_pap = (p.data_ptr(), s.data_ptr(), k.data_ptr(),
+                    done.data_ptr(), flags.data_ptr(), parts.data_ptr(), n, g,
+                    stream)
+        args_xr = (x.data_ptr(), p.data_ptr(), r.data_ptr(), s.data_ptr(),
+                   flags.data_ptr(), parts.data_ptr(), n, g)
+        _build.check(lib, fn_xr(None, *args_xr, 0, stream), "parent rr")
+
+        def body(spmv):
+            _build.check(lib, fn_p(*args_p), "parent cg_body_p")
+            ap = spmv(p)
+            _build.check(lib, fn_pap(ap.data_ptr(), *args_pap),
+                         "parent cg_body_pap")
+            _build.check(lib, fn_xr(ap.data_ptr(), *args_xr, 1, stream),
+                         "parent cg_body_xr")
+
+        return body, lambda: (k, x, p, r, s[0], s[1], hist, done)
+
+    def solve(self, spmv, state, k_end: int, eps, bodies: int):
+        """The state after ``bodies`` bodies of a run from ``state``."""
+        body, after = self.run(state, k_end, eps)
+        for _ in range(bodies):
+            body(spmv)
+        return after()
 
 
 def plain_cg(A, b, itermax: int = 150):
@@ -2312,29 +2438,50 @@ def history_rel(h_k, h_t, floor: float) -> tuple:
         sel.sum())
 
 
-def phase3h_cg_body(dev, gpu):
-    """K13 against its plain stages on the card, at 100^3 and 200^3 in f32
-    and f64 (DIA, K1 as the SpMV): one body stage by stage on a state 5
-    bodies into a solve (beta != 0), each kernel held to the plain stage of
-    the same state (``body_p_torch``, ``body_pap_torch``,
-    ``body_xr_torch``): the flags, k, rtrans, normr, done and the history
-    entry exactly; p, x and r bit for bit against the plain stage's
-    formula on the kernel's own scalars; the dots (r.r at the start and
-    after C, p.Ap through alpha) against their exact value to the bound of
-    the kernels' summation. Then whole solves, fused against the plain
-    body: k equal and the history to the ROADMAP parity floors (f32: rtol
-    1e-4 above 1e-4 of the start; f64: 1e-9 above 1e-10). Returns the
-    largest elementwise difference from the plain stages."""
+def same_state(a, b) -> bool:
+    """Two CG states equal bit for bit, entry by entry (x, k, the history
+    and the rest), of the same dtypes and shapes."""
+    return all(bits_equal(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b))
+
+
+def phase3h_cg_body(dev, gpu, parent=None):
+    """``cg_run``'s fused run (K15 at k = 1) against its plain stages on
+    the card, at 100^3 and 200^3 in f32 and f64 (DIA, K1 as the SpMV): one
+    body stage by stage on a state 5 bodies into a solve (beta != 0), each
+    kernel held to the plain stage of the same state (``body_p_torch``,
+    ``body_pap_torch``, ``body_xr_torch``): the flags, k, rtrans, normr,
+    done and the history entry exactly; p, x and r bit for bit against the
+    plain stage's formula on the kernel's own scalars; the dots (r.r at the
+    start and after C, p.Ap through alpha) against their exact value to the
+    bound of the kernels' summation. Then whole solves on DIA and CRS (K14),
+    fused against the plain body: k equal and the history to the ROADMAP
+    parity floors (f32: rtol 1e-4 above 1e-4 of the start; f64: 1e-9 above
+    1e-10); two segments (k_start 1 to 60, then 60 to 150) equal to one
+    run bit for bit; and with ``parent`` (a ``ParentBody``) the run equal
+    to the parent's single-RHS fused solve bit for bit (x, k, history and
+    the rest of the state) on the parent's grid (where the grids differ,
+    the dots sum in another order), after the grids are printed side by
+    side.
+    Returns the largest elementwise difference from the plain stages."""
     import torch
-    from sparsebench_tpu_torch.ops import cg_body
+    from sparsebench_tpu_torch.ops import cg_body, cg_multi_body
     from sparsebench_tpu_torch.ops.blas1 import safe_div
     from sparsebench_tpu_torch.solvers import cg
 
+    if parent is not None:
+        for n in BODY_SIZES:
+            for sfx in ("f32", "f64"):
+                ours = cg_multi_body._grid(n ** 3, sfx, 0)
+                theirs = parent.grid(n ** 3, sfx)
+                print(f"[3h K15 k=1] {n}^3 {sfx} grid: {ours} blocks "
+                      f"(sb_cg_multi_blocks), the parent's K13 {theirs} "
+                      f"(sb_cg_body_blocks) | {gpu}")
     floors = {"f32": (1e-4, 1e-4), "f64": (NOISE_FLOOR, HIST_RTOL)}
+    wrappers = body_wrappers()
     err = 0.0
-    for n in K13_SIZES:
+    for n in BODY_SIZES:
         for dt in ("f32", "f64"):
-            A, b, state0 = k13_problem(n, dt, dev)
+            A, b, state0 = cg_problem(n, dt, dev)
             vdt = b.dtype
             ueps = torch.finfo(vdt).eps
             eps = torch.zeros((), dtype=vdt, device=dev)
@@ -2343,88 +2490,123 @@ def phase3h_cg_body(dev, gpu):
             k, x, p, r, rtrans, normr, hist, done = state
             steps = torch.arange(hist.numel(), device=dev)
             line = []
-            tag = f"K13 {n}^3 {dt}"
+            tag = f"K15 k=1 {n}^3 {dt}"
 
             def same(u, v):  # bit for bit, 0-d tensors too
                 return bits_equal(u.reshape(-1), v.reshape(-1))
 
             def dot_ok(got, u, v, what):
-                # the products, rounded as K13 rounds them, summed exactly
+                # the products, rounded as K15 rounds them, summed exactly
                 e, tol, exact = dots_check(got, (u * v).double(), ueps)
                 line.append(f"{what} {e / abs(exact):.2e} (bound "
                             f"{tol / abs(exact):.2e})")
                 check(e <= tol, f"{tag}: {what} off by {e} (bound {tol})")
                 return tol / abs(exact)
 
-            run = cg_body.Run(state, 150, eps)
-            cg_body.body_rr(run)
-            dot_ok(run.s[2], r, r, "r.r")
+            with torch.cuda.device(dev):
+                run = cg.kernel_run(state, 150, eps)
+            cg_multi_body.body_rr(run)
+            slot = {name: run.s[i, 0] for i, name in
+                    enumerate(cg_multi_body.SLOTS)}
+            dot_ok(slot["rr"], r, r, "r.r")
             # A against body_p_torch on the same state
             a_t = cg_body.body_p_torch(state, 150, eps, steps, vdt)
-            cg_body.body_p(run)
-            rt, normr_new, kk = run.s[3], run.s[4], int(k)
-            check(bool(run.flags[0]) and bool(a_t.active),
+            cg_multi_body.body_p(run)
+            rt, normr_new, kk = slot["rt"], slot["normr_new"], int(k)
+            run_p, run_hist = run.P[0], run.hist[:, 0]
+            check(bool(run.flags[0, 0]) and bool(a_t.active),
                   f"{tag}: A's active flag")
-            check(same(rt, run.s[2]) and same(normr_new, torch.sqrt(rt)),
+            check(same(rt, slot["rr"]) and same(normr_new, torch.sqrt(rt)),
                   f"{tag}: A's rt or normr")
-            beta = safe_div(run.s[2], rtrans).to(vdt)
-            check(same(run.p, r + beta * p),
+            beta = safe_div(slot["rr"], rtrans).to(vdt)
+            check(same(run_p, r + beta * p),
                   f"{tag}: A's p differs from r + beta p")
-            check(same(run.hist[:kk], hist[:kk])
-                  and same(run.hist[kk], normr_new)
-                  and bool(run.hist[kk + 1:].isnan().all()),
+            check(same(run_hist[:kk], hist[:kk])
+                  and same(run_hist[kk], normr_new)
+                  and bool(run_hist[kk + 1:].isnan().all()),
                   f"{tag}: A's history")
-            err = max(err, float((run.p - a_t.p_new).abs().max()))
+            err = max(err, float((run_p - a_t.p_new).abs().max()))
             # B against body_pap_torch on A's output
-            ap = spmv(run.p)
-            a_k = cg_body.PStage(a_t.active, rt.clone(), run.p.clone(),
-                                 normr_new.clone(), run.hist.clone())
+            ap = spmv(run_p)
+            a_k = cg_body.PStage(a_t.active, rt.clone(), run_p.clone(),
+                                 normr_new.clone(), run_hist.clone())
             breakdown, alpha_t = cg_body.body_pap_torch(a_k, ap, vdt)
-            cg_body.body_pap(run, ap)
-            check(not bool(breakdown) and not bool(run.done)
-                  and int(run.k) == kk + 1 and same(run.s[0], rt)
-                  and same(run.s[1], normr_new),
+            cg_multi_body.body_pap(run, ap.unsqueeze(0))
+            check(not bool(breakdown) and not bool(run.flags[2, 0])
+                  and int(run.count[0]) == kk + 1 and same(slot["rtrans"], rt)
+                  and same(slot["normr"], normr_new),
                   f"{tag}: B's commit of k, rtrans, normr or done")
             # alpha = rt / p.Ap: p.Ap to its summation bound, one division
-            _e, tol, pap = dots_check(0.0, (run.p * ap).double(), ueps)
-            rel_alpha = abs(float(run.s[5]) * pap / float(rt) - 1)
+            alpha = slot["alpha"]
+            _e, tol, pap = dots_check(0.0, (run_p * ap).double(), ueps)
+            rel_alpha = abs(float(alpha) * pap / float(rt) - 1)
             bound_alpha = tol / abs(pap) + 2 * ueps
             line.append(f"alpha {rel_alpha:.2e} (bound {bound_alpha:.2e}), "
-                        f"{abs(float(run.s[5]) / float(alpha_t) - 1):.2e} "
+                        f"{abs(float(alpha) / float(alpha_t) - 1):.2e} "
                         "from the plain stage's")
             check(rel_alpha <= bound_alpha, f"{tag}: B's alpha")
             # C against body_xr_torch with B's alpha
             want = cg_body.body_xr_torch(
                 (k, x, p, r, rtrans, normr, hist, done), a_k, ap,
-                (breakdown, run.s[5].clone()))
-            cg_body.body_xr(run, ap)
-            check(same(run.x, want[1]) and same(run.r, want[3]),
+                (breakdown, alpha.clone()))
+            cg_multi_body.body_xr(run, ap.unsqueeze(0))
+            check(same(run.X[0], want[1]) and same(run.R[0], want[3]),
                   f"{tag}: C's x or r differs from the plain stage")
-            dot_ok(run.s[2], run.r, run.r, "r.r after C")
-            err = max(err, float((run.r - want[3]).abs().max()))
-            print(f"[3h K13] {n}^3 {dt} one body: A, B, C against the plain "
-                  f"stages; p, x, r bit for bit on the kernels' scalars; "
-                  f"{'; '.join(line)} | {gpu}")
-            del run, a_t, a_k, want, ap
-            # whole solves: fused against plain
-            fused = cg.cg_run(A, state0, 150, eps)
-            plain = cg_body.plain_bodies(spmv, state0, 149, 150, eps, vdt)
-            check(int(fused[0]) == int(plain[0]) == 150
-                  and not bool(fused[7]) and not bool(plain[7]),
-                  f"K13 {n}^3 {dt}: k {int(fused[0])} against {int(plain[0])}")
-            floor, rtol = floors[dt]
-            rel, m = history_rel(fused[6].cpu().numpy(),
-                                 plain[6].cpu().numpy(), floor)
-            print(f"[3h K13] {n}^3 {dt} x150 fused against plain: k=150, "
-                  f"{m} entries above {floor} of the start, max rel diff "
-                  f"{rel:.3e} (rtol {rtol}) | {gpu}")
-            check(m >= 2 and rel <= rtol, f"K13 {n}^3 {dt}: history differs")
-            del A, b, state0, state, fused, plain
+            dot_ok(slot["rr"], run.R[0], run.R[0], "r.r after C")
+            err = max(err, float((run.R[0] - want[3]).abs().max()))
+            print(f"[3h K15 k=1] {n}^3 {dt} one body: A, B, C against the "
+                  f"plain stages; p, x, r bit for bit on the kernels' "
+                  f"scalars; {'; '.join(line)} | {gpu}")
+            del run, slot, a_t, a_k, want, ap, run_p, run_hist, state
+            for fmt in ("dia", "crs"):
+                if fmt == "crs":
+                    del A, b, state0
+                    torch.cuda.empty_cache()
+                    A, b, state0 = cg_problem(n, dt, dev, "crs")
+                    spmv = cg.matvec(A)
+                tag = f"K15 k=1 {n}^3 {dt} {fmt}"
+                # whole solves: fused against plain, segments, the parent
+                before = [w.launches for w in wrappers]
+                fused = cg.cg_run(A, state0, 150, eps)
+                ran = [w.launches - c for w, c in zip(wrappers, before)]
+                check(ran == [1, 149, 149, 149], f"{tag}: launches {ran}")
+                plain = cg_body.plain_bodies(spmv, state0, 149, 150, eps, vdt)
+                check(int(fused[0]) == int(plain[0]) == 150
+                      and not bool(fused[7]) and not bool(plain[7]),
+                      f"{tag}: k {int(fused[0])} against {int(plain[0])}")
+                floor, rtol = floors[dt]
+                rel, m = history_rel(fused[6].cpu().numpy(),
+                                     plain[6].cpu().numpy(), floor)
+                check(m >= 2 and rel <= rtol, f"{tag}: history differs")
+                del plain
+                half = cg.cg_run(A, state0, 60, eps, k_start=1)
+                check(int(half[0]) == 60, f"{tag}: a segment ended at "
+                      f"k {int(half[0])}")
+                check(same_state(cg.cg_run(A, half, 150, eps, k_start=60),
+                                 fused), f"{tag}: two segments differ from "
+                      "one run")
+                del half
+                vs = "no parent given"
+                if parent is not None:
+                    with parent.grid_for_this_tree():
+                        ours = cg.cg_run(A, state0, 150, eps)
+                    theirs = parent.solve(spmv, state0, 150, eps, 149)
+                    check(same_state(ours, theirs), f"{tag}: the run "
+                          "differs from the parent's solve")
+                    vs = ("the parent's K13 solve bit for bit on its grid (x, "
+                          "k, history)")
+                    del ours, theirs
+                print(f"[3h K15 k=1] {n}^3 {dt} {fmt} x150 fused against "
+                      f"plain: k=150, {m} entries above {floor} of the "
+                      f"start, max rel diff {rel:.3e} (rtol {rtol}); two "
+                      f"segments equal one run; against {vs} | {gpu}")
+                del fused
+            del A, b, state0
             torch.cuda.empty_cache()
     return err
 
 
-def k13_device_ms(fn, bodies: int, spmv=("dia_spmv_kernel",)) -> dict:
+def body_device_ms(fn, bodies: int, spmv=("dia_spmv_kernel",)) -> dict:
     """Device milliseconds a body of ``fn()`` (which runs ``bodies``
     bodies) spends in each kernel name other than the SpMV's (``spmv``,
     K1's by default), from a torch.profiler trace: {name: ms}."""
@@ -2447,15 +2629,17 @@ def k13_device_ms(fn, bodies: int, spmv=("dia_spmv_kernel",)) -> dict:
     return out
 
 
-def phase5h_cg_body(dev, gpu):
-    """Times of K13 a body at 100^3 and 200^3, f32 (the main path): each
-    kernel's device time over 149 bodies of a solve (torch.profiler), with
-    the plain body's vector operations over the same bodies beside them
-    and the bound of 11 passes; then CG x150 seconds through the fused
-    body and through the plain body, on each format at 100^3 and on DIA,
-    the stencil, bslab, bsell and CRS at 200^3, their histories held to each
-    other (k equal, rtol 1e-4 above 1e-4 of the start). Returns {n: the
-    K13 row's numbers}."""
+def phase5h_cg_body(dev, gpu, parent=None):
+    """Times of K15 at k = 1 a body at 100^3 and 200^3, f32 (the main
+    path): each kernel's device time over 149 bodies of a solve
+    (torch.profiler), in turns with the parent's K13 (``parent``, a
+    ``ParentBody``: parent, this, this, parent; without it this tree's
+    twice), with the plain body's vector operations over the same bodies
+    beside them and the bound of 11 passes; then CG x150 seconds through
+    the fused body and through the plain body, on each format at 100^3 and
+    on DIA, the stencil, bslab, bsell and CRS at 200^3, their histories
+    held to each other (k equal, rtol 1e-4 above 1e-4 of the start).
+    Returns {n: the k = 1 row's numbers}."""
     import torch
     from sparsebench_tpu_torch.config import DTypePolicy
     from sparsebench_tpu_torch.formats import from_csr
@@ -2465,55 +2649,81 @@ def phase5h_cg_body(dev, gpu):
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.formats.stencil import StencilOperator
     from sparsebench_tpu_torch.host import generate_stencil
-    from sparsebench_tpu_torch.ops import cg_body
+    from sparsebench_tpu_torch.ops import cg_body, cg_multi_body
     from sparsebench_tpu_torch.solvers import cg
     from sparsebench_tpu_torch.solvers.cg import init_vectors, solve_cg
 
     out = {}
-    names = {"A": "cg_body_p_kernel", "B": "cg_body_pap_kernel",
-             "C": "cg_body_xr_kernel"}
-    for n in K13_SIZES:
-        A, b, state0 = k13_problem(n, "f32", dev)
+    names = {"A": "cg_multi_p_kernel", "B": "cg_multi_pap_kernel",
+             "C": "cg_multi_xr_kernel"}
+    for n in BODY_SIZES:
+        A, b, state0 = cg_problem(n, "f32", dev)
         eps = torch.zeros((), dtype=b.dtype, device=dev)
         spmv = cg.matvec(A)
         bodies = 149
 
-        def fused():
-            run = cg_body.Run(state0, 150, eps)
-            cg_body.body_rr(run)
+        def ours():
+            with torch.cuda.device(dev):
+                run = cg.kernel_run(state0, 150, eps)
+            cg_multi_body.body_rr(run)
             torch.cuda.synchronize()
-            return run
 
-        def fused_bodies(run):
-            for _ in range(bodies):
-                cg_body.body_p(run)
-                ap = spmv(run.p)
-                cg_body.body_pap(run, ap)
-                cg_body.body_xr(run, ap)
+            def fused_bodies():
+                for _ in range(bodies):
+                    cg_multi_body.body_p(run)
+                    ap = spmv(run.P[0]).unsqueeze(0)
+                    cg_multi_body.body_pap(run, ap)
+                    cg_multi_body.body_xr(run, ap)
+            return run, fused_bodies
 
-        fused_bodies(fused())  # warm-up
-        run = fused()
-        k13 = k13_device_ms(lambda: fused_bodies(run), bodies)
-        check(int(run.k) == 150, f"K13 {n}^3: k {int(run.k)} after a solve")
-        plain = k13_device_ms(lambda: cg_body.plain_bodies(
+        def theirs():
+            body, after = parent.run(state0, 150, eps)
+            torch.cuda.synchronize()
+            return after, lambda: [body(spmv) for _ in range(bodies)]
+
+        ours()[1]()  # warm-up
+        turns = []
+        for side in ("parent", "this", "this", "parent"):
+            if side == "parent" and parent is None:
+                side = "this"
+            if side == "this":
+                run, fn = ours()
+                ms = body_device_ms(fn, bodies)
+                check(int(run.count[0]) == 150,
+                      f"K15 k=1 {n}^3: k {int(run.count[0])} after a solve")
+            else:
+                after, fn = theirs()
+                ms = body_device_ms(fn, bodies)
+                check(int(after()[0]) == 150, f"parent K13 {n}^3: k "
+                      f"{int(after()[0])} after a solve")
+            turns.append((side, ms))
+        this_runs = [sum(m.values()) for side, m in turns if side == "this"]
+        parent_runs = [sum(m.values()) for side, m in turns
+                       if side == "parent"]
+        last = [m for side, m in turns if side == "this"][-1]
+        parts = {key: last.get(name, 0.0) for key, name in names.items()}
+        ms = min(this_runs)
+        plain = body_device_ms(lambda: cg_body.plain_bodies(
             spmv, state0, bodies, 150, eps, b.dtype), bodies)
-        parts = {key: k13.get(name, 0.0) for key, name in names.items()}
-        ms = sum(k13.values())
         plain_ms = sum(plain.values())
-        b_ms, b_by = bound(K13_PASSES * A.nr * 4, K13_FLOPS * A.nr)
+        b_ms, b_by = bound(BODY_PASSES * A.nr * 4, BODY_FLOPS * A.nr)
         out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                       **{f"{key}_ms": v for key, v in parts.items()})
-        print(f"[5h K13] {n}^3 f32 a body (device time over {bodies} "
-              f"bodies of a solve): kernels {ms:.6f} ms (A {parts['A']:.6f}, "
-              f"B {parts['B']:.6f}, C {parts['C']:.6f}); plain body "
-              f"{plain_ms:.6f} ms in {len(plain)} kinds of torch kernel; "
-              f"bound {b_ms:.6f} ms ({b_by}, {K13_PASSES} passes), "
-              f"{b_ms / ms:.3f} of it | {gpu}")
-        del A, b, state0, run
+        if parent_runs:
+            out[n]["parent_ms"] = min(parent_runs)
+        turn_text = " / ".join(f"{side} {sum(m.values()):.6f}"
+                               for side, m in turns)
+        print(f"[5h K15 k=1] {n}^3 f32 a body (device time over {bodies} "
+              f"bodies of a solve, in turns: {turn_text} ms): kernels "
+              f"{ms:.6f} ms (A {parts['A']:.6f}, B {parts['B']:.6f}, C "
+              f"{parts['C']:.6f}); plain body {plain_ms:.6f} ms in "
+              f"{len(plain)} kinds of torch kernel; bound {b_ms:.6f} ms "
+              f"({b_by}, {BODY_PASSES} passes), {b_ms / ms:.3f} of it | {gpu}")
+        del A, b, state0
         torch.cuda.empty_cache()
 
     f32 = DTypePolicy.from_names("f32")
-    builds = [(fmt, n) for n in K13_SIZES
+    builds = [(fmt, n) for n in BODY_SIZES
               for fmt in ("dia", "stencil", "bslab", "bsell", "crs")]
     builds += [("sell", 100)]
     for fmt, n in builds:
@@ -2532,11 +2742,12 @@ def phase5h_cg_body(dev, gpu):
         k_t, x_t, h_t, s_t = plain_cg(A, b)
         rel, m = history_rel(res.residual_history, h_t, 1e-4)
         diff = float(np.max(np.abs(res.x - xexact)))
-        print(f"[5h K13] {n}^3 f32 {fmt} (spmv {getattr(A, 'impl', '-')}) "
-              f"CG x150: fused body {res.solve_seconds:.6f} s, plain body "
-              f"{s_t:.6f} s ({s_t / res.solve_seconds:.2f} x); k "
-              f"{res.iterations}/{k_t}, history max rel diff {rel:.2e} over "
-              f"{m} entries, max|x-1| {diff:.3e} | {gpu}")
+        print(f"[5h K15 k=1] {n}^3 f32 {fmt} (spmv "
+              f"{getattr(A, 'impl', '-')}) CG x150: fused body "
+              f"{res.solve_seconds:.6f} s, plain body {s_t:.6f} s "
+              f"({s_t / res.solve_seconds:.2f} x); k {res.iterations}/{k_t}, "
+              f"history max rel diff {rel:.2e} over {m} entries, max|x-1| "
+              f"{diff:.3e} | {gpu}")
         check(res.iterations == k_t == 150 and m >= 2 and rel <= 1e-4
               and diff < F32_DIFF_BOUND,
               f"{n}^3 {fmt}: fused and plain CG differ")
@@ -2546,14 +2757,6 @@ def phase5h_cg_body(dev, gpu):
 
 
 # -- K15: the fused body of simultaneous CG -----------------------------------
-K15_SIZES = (100, 200)
-
-
-def k15_wrappers():
-    from sparsebench_tpu_torch.ops import cg_multi_body
-
-    return (cg_multi_body.body_p, cg_multi_body.body_pap,
-            cg_multi_body.body_xr)
 
 
 def k15_problem(n: int, dt: str, dev, k: int = K_TIMED):
@@ -2572,12 +2775,16 @@ def k15_problem(n: int, dt: str, dev, k: int = K_TIMED):
     return A, A.spmm_kn(xs.to(device=dev, dtype=vdt)).contiguous()
 
 
-def phase3j_cg_multi_body(dev, gpu):
+def phase3j_cg_multi_body(dev, gpu, parent=None):
     """K15 on the card at 100^3 and 200^3 in f32 and f64, k = 8 (DIA, K8 as
     the SpMV): a blocked solve of 150 iterations through
-    ``cg_multi_loop`` (3 K15 launches a body), each column's x, history
-    and count against ``cg_loop``'s K13 solve of that column bit for bit;
-    then against the eager loop (``plain_bodies`` from the same init): the
+    ``cg_multi_loop`` (3 K15 launches a body, no start r.r), each column's
+    x, history and count against ``cg_loop``'s solve of that column (K15
+    at k = 1) bit for bit, and with ``parent`` (a ``ParentBody``) the
+    blocked solve on the parent's grid against the parent's single-RHS
+    fused solve of each column bit for bit (the parent's blocked solve
+    gave those bits, column by column); then
+    against the eager loop (``plain_bodies`` from the same init): the
     counts equal, the history to the ROADMAP parity floors (f32 rtol 1e-4
     above 1e-4 of the start, f64 1e-9 above 1e-10) and X within 10 rtol
     max|X_eager|. Returns the largest |X - X_eager|."""
@@ -2591,9 +2798,9 @@ def phase3j_cg_multi_body(dev, gpu):
     )
 
     floors = {"f32": (1e-4, 1e-4), "f64": (NOISE_FLOOR, HIST_RTOL)}
-    wrappers = k15_wrappers()
+    wrappers = body_wrappers()
     err = 0.0
-    for n in K15_SIZES:
+    for n in BODY_SIZES:
         for dt in ("f32", "f64"):
             A, B = k15_problem(n, dt, dev)
             k = B.shape[0]
@@ -2601,16 +2808,30 @@ def phase3j_cg_multi_body(dev, gpu):
             before = [w.launches for w in wrappers]
             X, iters, hist = cg_multi_loop(A, B, X0, 150, 0.0)
             ran = [w.launches - c for w, c in zip(wrappers, before)]
-            check(ran == [149] * 3, f"K15 {n}^3 {dt}: launches {ran}")
+            check(ran == [0] + [149] * 3, f"K15 {n}^3 {dt}: launches {ran}")
             same = 0
+            eps = torch.zeros((), dtype=B.dtype, device=dev)
+            if parent is not None:
+                with parent.grid_for_this_tree():
+                    X_p, iters_p, hist_p = cg_multi_loop(A, B, X0, 150, 0.0)
             for c in range(k):
                 b = B[c].clone()
                 x, kk, h = cg.cg_loop(A, b, torch.zeros_like(b), 150, 0.0)
                 check(int(iters[c]) == int(kk) == 150,
                       f"K15 {n}^3 {dt}: column {c} count {int(iters[c])} "
-                      f"against K13's {int(kk)}")
+                      f"against cg_loop's {int(kk)}")
                 check(bits_equal(X[c], x) and bits_equal(hist[:, c], h),
-                      f"K15 {n}^3 {dt}: column {c} differs from K13's solve")
+                      f"K15 {n}^3 {dt}: column {c} differs from cg_loop's "
+                      "solve")
+                if parent is not None:
+                    theirs = parent.solve(cg.matvec(A), cg.cg_init(
+                        A, b, torch.zeros_like(b), 150), 150, eps, 149)
+                    check(int(theirs[0]) == int(iters_p[c])
+                          and bits_equal(X_p[c], theirs[1])
+                          and bits_equal(hist_p[:, c], theirs[6]),
+                          f"K15 {n}^3 {dt}: column {c} differs from the "
+                          "parent's solve")
+                    del theirs
                 same += 1
                 del b, x, h
             spmm = make_spmm_kn(A)
@@ -2627,12 +2848,16 @@ def phase3j_cg_multi_body(dev, gpu):
             check(d <= 10 * rtol * float(Xp.abs().max()),
                   f"K15 {n}^3 {dt}: max|X - X_eager| {d:.3e} beyond 10 rtol "
                   "max|X_eager|")
+            vs = " and the parent's" if parent is not None else ""
             print(f"[3j K15] {n}^3 {dt} k={k} x150: {same} columns bit for "
-                  f"bit K13's solves (x, history, count); against the eager "
-                  f"loop: counts equal, history max rel diff {rel:.3e} (rtol "
-                  f"{rtol}), max|X - X_eager| {d:.3e} | {gpu}")
+                  f"bit cg_loop's solves{vs} (x, history, count); against "
+                  f"the eager loop: counts equal, history max rel diff "
+                  f"{rel:.3e} (rtol {rtol}), max|X - X_eager| {d:.3e} | "
+                  f"{gpu}")
             check(rel <= rtol, f"K15 {n}^3 {dt}: history differs from the "
                   "eager loop's")
+            if parent is not None:
+                del X_p, iters_p, hist_p
             del A, B, X0, X, hist, state, Xp, hp
             torch.cuda.empty_cache()
     return err
@@ -2650,6 +2875,7 @@ def phase5j_cg_multi_body(dev, gpu):
     from sparsebench_tpu_torch.ops import cg_multi_body as k15
     from sparsebench_tpu_torch.solvers.cg_multi import (
         cg_multi_loop,
+        kernel_run,
         make_spmm_kn,
         multi_init,
         plain_bodies,
@@ -2659,7 +2885,7 @@ def phase5j_cg_multi_body(dev, gpu):
     names = {"A": "cg_multi_p_kernel", "B": "cg_multi_pap_kernel",
              "C": "cg_multi_xr_kernel"}
     k8 = ("dia_spmm_kernel", "dia_spmm_quad_kernel")
-    for n in K15_SIZES:
+    for n in BODY_SIZES:
         A, B = k15_problem(n, "f32", dev)
         k = B.shape[0]
         X0 = torch.zeros_like(B)
@@ -2672,8 +2898,8 @@ def phase5j_cg_multi_body(dev, gpu):
             X0_, R, rtrans, normr, hist, eps = state
             with torch.cuda.device(dev):
                 # a run takes R and the history as its own
-                run = k15.Run(X0_, R.clone(), rtrans, normr, hist.clone(),
-                              torch.broadcast_to(eps, rtrans.shape), 150)
+                run = kernel_run(X0_, R.clone(), rtrans, normr, hist.clone(),
+                                 eps)
             torch.cuda.synchronize()
             return run
 
@@ -2695,18 +2921,18 @@ def phase5j_cg_multi_body(dev, gpu):
         for side in ("eager", "fused", "fused", "eager"):
             if side == "fused":
                 run = fused()
-                ms = k13_device_ms(lambda: fused_bodies(run), bodies, k8)
-                check(run.iters.tolist() == [150] * k,
-                      f"K15 {n}^3: counts {run.iters.tolist()} after a solve")
+                ms = body_device_ms(lambda: fused_bodies(run), bodies, k8)
+                check(run.count.tolist() == [150] * k,
+                      f"K15 {n}^3: counts {run.count.tolist()} after a solve")
             else:
-                ms = k13_device_ms(plain(), bodies, k8)
+                ms = body_device_ms(plain(), bodies, k8)
             turns.append((side, ms))
         k15_runs = [sum(m.values()) for side, m in turns if side == "fused"]
         plain_runs = [sum(m.values()) for side, m in turns if side == "eager"]
         last = [m for side, m in turns if side == "fused"][-1]
         parts = {key: last.get(name, 0.0) for key, name in names.items()}
         ms, plain_ms = min(k15_runs), min(plain_runs)
-        b_ms, b_by = bound(K13_PASSES * k * A.nr * 4, K13_FLOPS * k * A.nr)
+        b_ms, b_by = bound(BODY_PASSES * k * A.nr * 4, BODY_FLOPS * k * A.nr)
         walls = {"fused": [], "eager": []}
         for side in ("eager", "fused", "fused", "eager"):
             if side == "fused":
@@ -2731,7 +2957,7 @@ def phase5j_cg_multi_body(dev, gpu):
               f"{parts['A']:.6f}, B {parts['B']:.6f}, C {parts['C']:.6f}); "
               f"eager slab ops {plain_runs[0]:.6f} / {plain_runs[1]:.6f} ms "
               f"in {len(turns[0][1])} kinds of torch kernel; bound "
-              f"{b_ms:.6f} ms ({b_by}, {K13_PASSES} passes of the slab), "
+              f"{b_ms:.6f} ms ({b_by}, {BODY_PASSES} passes of the slab), "
               f"{b_ms / ms:.3f} of it | {gpu}")
         print(f"[5j K15] {n}^3 f32 CG x150 --nrhs {k} (K8 in both), in "
               f"turns: fused body {walls['fused'][0]:.6f} / "
@@ -2849,20 +3075,19 @@ def phase3i_crs(dev, gpu, cli):
               f"CRS {value} values under {vectors} vectors left the plain "
               "version")
     del A, h
-    k13 = k13_wrappers()
+    body = body_wrappers()
     crs_spmv.launches = 0
-    for w in k13:
-        w.launches = 0
+    before = [w.launches for w in body]
     k, diff = parse_cg(run_cli(cli.main, ["-t", "cg", "--fmt", "crs"]))
-    rr, pa, pap, xr = (w.launches for w in k13)
+    rr, pa, pap, xr = (w.launches - c for w, c in zip(body, before))
     launches = crs_spmv.launches
     print(f"[3i K14] -t cg --fmt crs: k={k} difference={diff} K14 launches="
-          f"{launches}, K13 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | {gpu}")
+          f"{launches}, K15 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | {gpu}")
     check(k == 150 and diff < F32_DIFF_BOUND, "--fmt crs CG differs")
     # warm-up and timed solve: each one K14 and one r.r, then A, K14, B
     # and C a body
     check(rr >= 2 and pa == pap == xr == 149 * rr and launches == 150 * rr,
-          "--fmt crs did not run K14 and K13 on every body")
+          "--fmt crs did not run K14 and K15 on every body")
     return worst, worst_abs, launches
 
 
@@ -3338,9 +3563,10 @@ def main(argv=None) -> int:
     ap.add_argument("--against", type=Path, default=None,
                     help="another tree of this repository (the parent "
                     "unpacked with git archive) whose K2, K3 and K5 (phase "
-                    "5b), "
-                    "K8 (phase 5d), K9 and K10 (phase 5f) to time in turns "
-                    "with this tree's")
+                    "5b), K8 (phase 5d), K9 and K10 (phase 5f) and K13 "
+                    "(phase 5h, where it has one) to time in turns with "
+                    "this tree's; phases 3h and 3j hold this tree's CG "
+                    "solves to its K13 bit for bit")
     args = ap.parse_args(argv)
     if not (REPO / "sparsebench_tpu_torch" / "csrc" / "dia_spmv.cu").is_file():
         print("chip_smoke: sparsebench_tpu_torch/ is not beside this script; "
@@ -3402,25 +3628,32 @@ def main(argv=None) -> int:
     err_e = phase3e_memroof(dev)
     err_f = phase3f_bsell(dev)
     err_g = phase3g_protos(dev)
-    err_h = phase3h_cg_body(dev, gpu)
+    parent = None
+    if args.against is not None:
+        if (args.against / "sparsebench_tpu_torch" / "csrc"
+                / "cg_body.cu").is_file():
+            parent = ParentBody(args.against)
+        else:
+            print(f"[3h K15 k=1] {args.against} has no single-RHS fused "
+                  "body of its own: nothing to compare")
+    err_h = phase3h_cg_body(dev, gpu, parent)
     gap_i, err_i, launches_i = phase3i_crs(dev, gpu, cli)
-    err_j = phase3j_cg_multi_body(dev, gpu)
+    err_j = phase3j_cg_multi_body(dev, gpu, parent)
     # the kernel auto picks for RGL (K6; K7 only when asked for)
     auto_kernel = "K7" if auto_c["RGL 2M"] == "kernel_win" else "K6"
 
     # -- phase 4: the main path through the CLI -----------------------------
     dia_spmv.launches = 0
-    k13 = k13_wrappers()
-    for w in k13:
-        w.launches = 0
+    body = body_wrappers()
+    start = [w.launches for w in body]
     for argv in (["-t", "cg"], ["-f", str(REPO / "hpcg.par"), "-t", "cg"]):
         before = dia_spmv.launches
-        before13 = [w.launches for w in k13]
+        before15 = [w.launches for w in body]
         k, diff = parse_cg(run_cli(cli.main, argv))
         n = dia_spmv.launches - before
-        rr, pa, pap, xr = (w.launches - c for w, c in zip(k13, before13))
+        rr, pa, pap, xr = (w.launches - c for w, c in zip(body, before15))
         print(f"[4 main] {' '.join(argv)}: k={k} difference={diff} "
-              f"kernel launches={n}, K13 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | "
+              f"kernel launches={n}, K15 r.r/A/B/C {rr}/{pa}/{pap}/{xr} | "
               f"{gpu}")
         check(k == 150, f"{argv}: k={k}, expected 150")
         check(diff < F32_DIFF_BOUND,
@@ -3429,23 +3662,23 @@ def main(argv=None) -> int:
         check(n >= 2 * 150, f"{argv}: only {n} kernel launches")
         # each solve: one r.r at its start, then A, B and C a body
         check(rr >= 2 and pa == pap == xr == 149 * rr,
-              f"{argv}: K13 launches r.r/A/B/C {rr}/{pa}/{pap}/{xr}")
-    launches_k13 = sum(w.launches for w in k13)
+              f"{argv}: K15 launches r.r/A/B/C {rr}/{pa}/{pap}/{xr}")
+    launches_main15 = sum(w.launches - c for w, c in zip(body, start))
     before = dia_spmv.launches
     text = run_cli(cli.main, ["-t", "spmv"])
     n = dia_spmv.launches - before
     m = re.search(r"spMVM best per-iteration time: (\S+) ms", text)
     check(m is not None, "spmv output missing")
     check(n >= 150, f"-t spmv: only {n} kernel launches")
-    check(sum(w.launches for w in k13) == launches_k13,
-          "-t spmv launched K13")
+    check(sum(w.launches - c for w, c in zip(body, start))
+          == launches_main15, "-t spmv launched K15")
     print(f"[4 main] -t spmv: kernel launches={n}, reported per-SpMV time "
           f"{m.group(1)} ms | {gpu}")
     launches_main = dia_spmv.launches
     print(f"[4 main] kernel launches over the main path: K1 {launches_main}, "
-          f"K13 {launches_k13}")
+          f"K15 {launches_main15}")
 
-    # f64 history at 100^3: the kernels (K1 and K13) vs the plain version
+    # f64 history at 100^3: the kernels (K1 and K15) vs the plain version
     # (the plain SpMV and the plain body)
     A_k, counts = DiaMatrix.from_stencil(100, 100, 100, device=dev,
                                          policy=f64, impl="kernel")
@@ -3456,7 +3689,7 @@ def main(argv=None) -> int:
     k_t, _x_t, h_t, _s = plain_cg(A_t, b)
     check(r_k.iterations == k_t, "f64 k differs")
     rel, m = history_rel(r_k.residual_history, h_t, NOISE_FLOOR)
-    print(f"[4 main] f64 100^3 history kernels (K1, K13) vs plain (SpMV and "
+    print(f"[4 main] f64 100^3 history kernels (K1, K15) vs plain (SpMV and "
           f"body): k={r_k.iterations}, {m} entries above the noise floor, "
           f"max rel diff {rel:.3e} (rtol {HIST_RTOL})")
     check(rel <= HIST_RTOL, "f64 residual history differs")
@@ -3520,7 +3753,7 @@ def main(argv=None) -> int:
               f"plain {phys / (p_ms * 1e-3) / 1e9:.1f} GB/s; bound "
               f"{b_ms:.6f} ms ({b_by}); cuSPARSE CSR f32 {lib_ms:.6f} ms "
               f"(max|csr - kernel| {lib_err:.3e}) | {gpu}")
-        print(f"[5 times] {n}^3 f32 CG x150 solve: kernels (K1, K13) "
+        print(f"[5 times] {n}^3 f32 CG x150 solve: kernels (K1, K15) "
               f"{solve['kernel']:.6f} s, plain (SpMV and body) "
               f"{solve['plain']:.6f} s | {gpu}")
         del A_k, A_t, x
@@ -3544,8 +3777,9 @@ def main(argv=None) -> int:
     # -- phase 5g: the prototype modules (P1-P5) and their kernels' times ---
     launches_g, times_g = phase5g_protos(dev, gpu, tmpdir, timing[200])
 
-    # -- phase 5h: times of K13 and CG through the fused and plain body -----
-    times_h = phase5h_cg_body(dev, gpu)
+    # -- phase 5h: times of K15 at k = 1 and CG through the fused and plain
+    # body
+    times_h = phase5h_cg_body(dev, gpu, parent)
 
     # -- phase 5i: times of K14 -----------------------------------------------
     times_i = phase5i_crs_times(dev, gpu)
@@ -3583,17 +3817,19 @@ def main(argv=None) -> int:
         row("stencil_cg_vmem", "stencil_cg_vmem.cu",
             "sparsebench_tpu/ops/stencil_cg_vmem.py:274", launches_b["K5"],
             err_b["K5"], times_b["K5"][100], times_b["K5"][200]),
-        # no Pallas counterpart: XLA fuses the JAX package's body
-        row("cg_body", "cg_body.cu", "sparsebench_tpu/solvers/cg.py:157",
-            launches_k13, err_h, times_h[100], times_h[200]),
         # no Pallas counterpart: XLA's gather and segment sum
         dict(row("crs_spmv", "crs_spmv.cu",
                  "sparsebench_tpu/formats/crs.py:70", launches_i, err_i,
                  times_i[100], times_i[200]), max_gap_over_bound=gap_i),
-        # no Pallas counterpart: XLA fuses the JAX package's blocked body
-        row("cg_multi_body", "cg_multi_body.cu",
-            "sparsebench_tpu/solvers/cg_multi.py:152",
-            launches_k15, err_j, times_j[100], times_j[200]),
+        # no Pallas counterpart: XLA fuses the JAX package's bodies; the
+        # k = 1 run (cg_run's body, sparsebench_tpu/solvers/cg.py:157)
+        # beside the blocked one
+        dict(row("cg_multi_body", "cg_multi_body.cu",
+                 "sparsebench_tpu/solvers/cg_multi.py:152",
+                 launches_k15, err_j, times_j[100], times_j[200]),
+             launches_k1=launches_main15, max_abs_err_k1=err_h,
+             **{f"{k}_k1_{n}": v for n, t in times_h.items()
+                for k, v in t.items()}),
     ]
     for name, key, line in (("bslab_spmv", "K6", 242),
                             ("bslab_spmv_win", "K7", 318)):

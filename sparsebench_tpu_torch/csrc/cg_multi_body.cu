@@ -1,12 +1,13 @@
-// The body of simultaneous (multi-RHS) CG in three kernels around the
-// blocked SpMV, for Hopper (sm_90a): K15 of the port. Each launch covers
-// all k columns of a (k, n) slab, slab-major (column c is row c, n
-// contiguous elements):
+// The body of CG in three kernels around the SpMV, for Hopper (sm_90a):
+// K15 of the port. Each launch covers all k columns of a (k, n) slab,
+// slab-major (column c is row c, n contiguous elements); the single-RHS
+// loop runs it at k = 1.
 //
 //     A  cg_multi_p_kernel    per column: active, first, beta from its
 //                             committed scalars; P = R + beta P where active;
 //                             hist[it, c] = sqrt(rt)
-//     (the SpMV: AP = A P, K8 on DIA, else the stacked single-vector product)
+//     (the SpMV: AP = A P; K8 on DIA, else the stacked single-vector
+//     product, or the format's own kernel at k = 1)
 //     B  cg_multi_pap_kernel  per column p.Ap; the column's last block:
 //                             alpha, breakdown, and the commit of its count,
 //                             rtrans, normr and done
@@ -14,39 +15,48 @@
 //                             r.r; the column's last block commits r.r for
 //                             the next body's beta
 //
-// It replaces no TPU kernel: the JAX package's loop (solvers/cg_multi.py)
-// is fused by XLA. The port's eager loop (solvers/cg_multi.py) makes about
-// 25 passes over the slab a body (a (k, n) product before each sum, three
-// temporaries in the masked P update, two each in the X and R updates);
-// this makes 11 (A 3, B 2, C 6) in 3 launches, whatever k is, and keeps
-// every column's scalars on the card.
+// It replaces no TPU kernel: the JAX package's loops (solvers/cg.py cg_run,
+// solvers/cg_multi.py) are fused by XLA. The port's eager bodies (the plain
+// versions: ops/cg_body.py, 26 vector passes a body, and
+// solvers/cg_multi.py plain_bodies, 25 slab passes) run dozens of small
+// torch operations; this makes 11 passes (A 3, B 2, C 6) in 3 launches,
+// whatever k is, and keeps every column's scalars on the card.
 //
-// What bounds it: memory, 11 passes of k n elements a body (2.8 GB at 200^3,
-// k = 8, f32). The grid is (g, k): blockIdx.y is the column, blockIdx.x one
-// of the g blocks over n that K13 launches for a vector of n elements
-// (sb_cg_body_blocks_*, passed in by the wrapper), so each column is walked
-// exactly as K13 walks its one vector: 16 bytes a thread in a grid-stride
-// loop over the column, the last n mod 16/sizeof(T) elements in a scalar
-// loop. Where n is not a multiple of 16/sizeof(T) the columns after the
-// first do not start 16-byte aligned; the kernels then load the same
-// elements one at a time, in the same order (kVec false).
+// What bounds it: memory, 11 passes of k n elements a body (352 MB at 200^3
+// in f32, k = 1; 2.8 GB at k = 8). The grid is (g, k): blockIdx.y is the
+// column, blockIdx.x one of g blocks over n (sb_cg_multi_blocks_*: one wave
+// of the card, as many blocks as the kernels' registers let an SM hold at
+// once: 6 on the H100 in f32 and in f64, where C's update takes 40
+// registers, with 16-byte loads in f32 and lane by lane in f64; at 200^3
+// in f64 a body took 0.2398 ms at k = 1 and 1.857 ms at k = 8 on that
+// grid, against 0.2410 and 1.851 ms at 8 blocks an SM, H100 at 700 W), so
+// each column is walked alike: 16 bytes a thread in a grid-stride loop
+// over the column, the last n mod 16/sizeof(T) elements in a scalar loop.
+// Where k > 1 and n is not a multiple of 16/sizeof(T) the columns
+// after the first do not start 16-byte aligned; the kernels then load the
+// same elements one at a time, in the same order (kVec false).
 //
-// The recurrence is that of each column of cg_multi_loop, and so of
-// cg_body.cu's, scalar for scalar: the exit test reads the previous body's
-// normr, the first body (count == 1) keeps the initial rtrans and takes
-// beta = 0, breakdown (p.Ap <= rt * 1e-30) sets alpha to 0 and done, and an
-// inactive column writes no vector and no state entry (its history slot
-// stays NaN). Products, sums, quotients and square roots are rounded one by
-// one (common.cuh).
+// The recurrence is that of each column of cg_run, scalar for scalar
+// (ops/cg_body.py says which torch operation each step mirrors): the exit
+// test reads the previous body's normr against eps in f64 (cg_run's
+// comparison in the wider of the dtypes: f64 holds both exactly), the first
+// body (count == 1) keeps the initial rtrans and takes beta = 0, breakdown
+// (p.Ap <= rt * 1e-30) sets alpha to 0 and done, and an inactive column
+// writes no vector and no state entry (its history slot stays as it was).
+// Products, sums, quotients and square roots are rounded one by one
+// (common.cuh). A run starts from any CG state: the count, done, P, rtrans
+// and normr it is given.
 //
-// Dots keep K13's order column by column: each thread sums its own elements
-// in order, each block its threads as a fixed tree (sb::block_sum) into one
-// partial, and the column's last block to finish (its own ticket after a
-// __threadfence) sums the column's g partials in index order, through
-// K13's own helpers (sb::last_block, sb::sum_partials). So column c
-// of a blocked solve gives the bits of K13's solve of column c, given the
-// same SpMV product (K8's row c is K1 on column c) and the same r.r at the
-// start of the run (the caller's, as cg_init takes it).
+// Dots are taken in a fixed order, column by column: each thread sums its
+// own elements in order, each block its threads as a fixed tree
+// (sb::block_sum) into one partial, and the column's last block to finish
+// (its own ticket after a __threadfence) sums the column's g partials in
+// index order (sb::last_block, sb::sum_partials). The grid is fixed for
+// (n, dtype, card), so column c of a blocked solve gives the bits of the
+// single-RHS solve of column c, given the same SpMV product (K8's row c is
+// K1 on column c) and the same r.r at the start of the run. The r.r of the
+// start of a run is C launched with no update (kUpdate false) on the same
+// grid: the same bits as the r.r that C leaves at the end of a body.
 //
 // A scalar that the blocks of one launch read is never written in that
 // launch: A writes only the body's own slots (rt, normr_new, the active
@@ -57,6 +67,8 @@
 // Types: T is both the vectors' and the scalars' dtype (f32 or f64). The
 // entry points launch on the stream they are given, do not synchronise,
 // allocate nothing, and return cudaGetLastError().
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -106,16 +118,18 @@ __device__ __forceinline__ void store(T* col, long long j, const Pack<T>& a) {
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 cg_multi_p_kernel(const T* __restrict__ r, T* __restrict__ p, T* s,
-                  const int* __restrict__ count, const T* __restrict__ eps,
-                  T* __restrict__ hist, long long hist_len, int* flags,
-                  long long k_end, long long n) {
+                  const int* __restrict__ count,
+                  const double* __restrict__ eps, T* __restrict__ hist,
+                  long long hist_len, int* flags, long long k_end,
+                  long long n) {
   const int k = gridDim.y;
   const int c = blockIdx.y;
   const long long kk = count[c];
   const T normr = s[kNormr * k + c];
   const T rtrans = s[kRtrans * k + c];
   const T rr = s[kRr * k + c];
-  const bool active = kk < k_end && normr > eps[c] && flags[kDone * k + c] == 0;
+  const bool active = kk < k_end && static_cast<double>(normr) > eps[c] &&
+                      flags[kDone * k + c] == 0;
   const bool first = kk == 1;
   const T rt = first ? rtrans : rr;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -186,7 +200,9 @@ cg_multi_pap_kernel(const T* __restrict__ ap, const T* __restrict__ p, T* s,
   if (breakdown) flags[kDone * k + c] = 1;
 }
 
-template <typename T, bool kVec>
+// kUpdate: X += alpha P, R -= alpha AP, then r.r of the new R (a body);
+// otherwise r.r of R alone in every column (the start of a run)
+template <typename T, bool kVec, bool kUpdate>
 __global__ void __launch_bounds__(kThreads)
 cg_multi_xr_kernel(const T* __restrict__ ap, T* __restrict__ x,
                    const T* __restrict__ p, T* __restrict__ r, T* s,
@@ -195,8 +211,8 @@ cg_multi_xr_kernel(const T* __restrict__ ap, T* __restrict__ x,
   const int k = gridDim.y;
   const int c = blockIdx.y;
   // an inactive column: its x, r and committed r.r stand
-  if (flags[kActive * k + c] == 0) return;
-  const T alpha = s[kAlpha * k + c];
+  if (kUpdate && flags[kActive * k + c] == 0) return;
+  const T alpha = kUpdate ? s[kAlpha * k + c] : T(0);
   constexpr int L = Pack<T>::kLanes;
   const T* ac = ap + c * n;
   const T* pc = p + c * n;
@@ -208,23 +224,28 @@ cg_multi_xr_kernel(const T* __restrict__ ap, T* __restrict__ x,
   T acc = T(0);
   for (long long j = tid; j < nvec; j += stride) {
     Pack<T> rv = load<T, kVec>(rc, j);
-    Pack<T> xv = load<T, kVec>(xc, j);
-    const Pack<T> pv = load<T, kVec>(pc, j);
-    const Pack<T> av = load<T, kVec>(ac, j);
+    if (kUpdate) {
+      Pack<T> xv = load<T, kVec>(xc, j);
+      const Pack<T> pv = load<T, kVec>(pc, j);
+      const Pack<T> av = load<T, kVec>(ac, j);
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-      xv.v[l] = add_rn(xv.v[l], mul_rn(alpha, pv.v[l]));
-      rv.v[l] = sub_rn(rv.v[l], mul_rn(alpha, av.v[l]));
+      for (int l = 0; l < L; ++l) {
+        xv.v[l] = add_rn(xv.v[l], mul_rn(alpha, pv.v[l]));
+        rv.v[l] = sub_rn(rv.v[l], mul_rn(alpha, av.v[l]));
+      }
+      store<T, kVec>(xc, j, xv);
+      store<T, kVec>(rc, j, rv);
     }
-    store<T, kVec>(xc, j, xv);
-    store<T, kVec>(rc, j, rv);
 #pragma unroll
     for (int l = 0; l < L; ++l) acc = add_rn(acc, mul_rn(rv.v[l], rv.v[l]));
   }
   for (long long i = nvec * L + tid; i < n; i += stride) {
-    xc[i] = add_rn(xc[i], mul_rn(alpha, pc[i]));
-    const T v = sub_rn(rc[i], mul_rn(alpha, ac[i]));
-    rc[i] = v;
+    T v = rc[i];
+    if (kUpdate) {
+      xc[i] = add_rn(xc[i], mul_rn(alpha, pc[i]));
+      v = sub_rn(v, mul_rn(alpha, ac[i]));
+      rc[i] = v;
+    }
     acc = add_rn(acc, mul_rn(v, v));
   }
   const T part = block_sum(acc, red);
@@ -239,6 +260,40 @@ dim3 grid(int g, int k) {
   return dim3(static_cast<unsigned>(g), static_cast<unsigned>(k));
 }
 
+template <typename T>
+int blocks(long long n, int* out) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  // blocks resident on an SM at once, the least over the body's kernels
+  int per_sm = INT_MAX;
+  const auto least = [&](auto kernel) {
+    int b = 0;
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, kThreads, 0);
+    }
+    if (b < per_sm) per_sm = b;
+  };
+  least(cg_multi_p_kernel<T, true>);
+  least(cg_multi_p_kernel<T, false>);
+  least(cg_multi_pap_kernel<T, true>);
+  least(cg_multi_pap_kernel<T, false>);
+  least(cg_multi_xr_kernel<T, true, true>);
+  least(cg_multi_xr_kernel<T, false, true>);
+  least(cg_multi_xr_kernel<T, true, false>);
+  least(cg_multi_xr_kernel<T, false, false>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // one full wave at most; fewer blocks where n is small
+  const long long per_block = static_cast<long long>(kThreads) * Pack<T>::kLanes;
+  const long long want = (n + per_block - 1) / per_block;
+  const long long wave = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *out = static_cast<int>(want < wave ? want : wave);
+  return 0;
+}
+
 template <typename T, bool kVec>
 void launch_p_as(const void* r, void* p, void* s, const void* count,
                  const void* eps, void* hist, long long hist_len, void* flags,
@@ -246,7 +301,7 @@ void launch_p_as(const void* r, void* p, void* s, const void* count,
   cg_multi_p_kernel<T, kVec><<<grid(g, k), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(r), static_cast<T*>(p), static_cast<T*>(s),
-      static_cast<const int*>(count), static_cast<const T*>(eps),
+      static_cast<const int*>(count), static_cast<const double*>(eps),
       static_cast<T*>(hist), hist_len, static_cast<int*>(flags), k_end, n);
 }
 
@@ -288,12 +343,12 @@ int launch_pap(const void* ap, const void* p, void* s, void* count,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kUpdate>
 void launch_xr_as(const void* ap, void* x, const void* p, void* r, void* s,
                   void* flags, void* partials, long long n, int g, int k,
                   void* stream) {
-  cg_multi_xr_kernel<T, kVec><<<grid(g, k), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  cg_multi_xr_kernel<T, kVec, kUpdate><<<grid(g, k), kThreads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(ap), static_cast<T*>(x), static_cast<const T*>(p),
       static_cast<T*>(r), static_cast<T*>(s), static_cast<int*>(flags),
       static_cast<T*>(partials), n);
@@ -302,11 +357,19 @@ void launch_xr_as(const void* ap, void* x, const void* p, void* r, void* s,
 template <typename T>
 int launch_xr(const void* ap, void* x, const void* p, void* r, void* s,
               void* flags, void* partials, long long n, int g, int k, int vec,
-              void* stream) {
-  if (vec) {
-    launch_xr_as<T, true>(ap, x, p, r, s, flags, partials, n, g, k, stream);
+              int update, void* stream) {
+  if (update && vec) {
+    launch_xr_as<T, true, true>(ap, x, p, r, s, flags, partials, n, g, k,
+                                stream);
+  } else if (update) {
+    launch_xr_as<T, false, true>(ap, x, p, r, s, flags, partials, n, g, k,
+                                 stream);
+  } else if (vec) {
+    launch_xr_as<T, true, false>(ap, x, p, r, s, flags, partials, n, g, k,
+                                 stream);
   } else {
-    launch_xr_as<T, false>(ap, x, p, r, s, flags, partials, n, g, k, stream);
+    launch_xr_as<T, false, false>(ap, x, p, r, s, flags, partials, n, g, k,
+                                  stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -315,12 +378,17 @@ int launch_xr(const void* ap, void* x, const void* p, void* r, void* s,
 
 extern "C" {
 
-// Every entry: g blocks over n a column (K13's grid for n), k columns
-// (gridDim.y), vec = 1 where every column starts 16-byte aligned.
+// The run's grid over n elements a column on the current device: out, the
+// blocks over n of every launch of the run.
+int sb_cg_multi_blocks_f32(long long n, int* out) { return blocks<float>(n, out); }
+int sb_cg_multi_blocks_f64(long long n, int* out) { return blocks<double>(n, out); }
+
+// Every entry: g blocks over n a column (sb_cg_multi_blocks_* for n), k
+// columns (gridDim.y), vec = 1 where every column starts 16-byte aligned.
 
 // A: R, P (updated in place), s ((6, k) scalar slots), count (int32, k),
-// eps (k), hist (hist_len rows of k), flags (int32 (3, k): active, ticket,
-// done)
+// eps (f64, k), hist (hist_len rows of k), flags (int32 (3, k): active,
+// ticket, done)
 int sb_cg_multi_p_f32(const void* r, void* p, void* s, const void* count,
                       const void* eps, void* hist, long long hist_len,
                       void* flags, long long k_end, long long n, int g, int k,
@@ -350,18 +418,20 @@ int sb_cg_multi_pap_f64(const void* ap, const void* p, void* s, void* count,
                             stream);
 }
 
-// C: AP, X and R updated in place, each column's r.r committed
+// C: AP, X and R updated in place, each column's r.r committed (update =
+// 1), or each column's r.r of R alone (update = 0: AP, X and P are not
+// read)
 int sb_cg_multi_xr_f32(const void* ap, void* x, const void* p, void* r,
                        void* s, void* flags, void* partials, long long n,
-                       int g, int k, int vec, void* stream) {
+                       int g, int k, int vec, int update, void* stream) {
   return launch_xr<float>(ap, x, p, r, s, flags, partials, n, g, k, vec,
-                          stream);
+                          update, stream);
 }
 int sb_cg_multi_xr_f64(const void* ap, void* x, const void* p, void* r,
                        void* s, void* flags, void* partials, long long n,
-                       int g, int k, int vec, void* stream) {
+                       int g, int k, int vec, int update, void* stream) {
   return launch_xr<double>(ap, x, p, r, s, flags, partials, n, g, k, vec,
-                           stream);
+                           update, stream);
 }
 
 }  // extern "C"

@@ -72,8 +72,8 @@ __device__ __forceinline__ T safe_div(T num, T den) {
   return den != T(0) ? div_rn(num, den) : T(0);
 }
 
-// A sum over the blocks of a grid in a fixed order (the CG bodies' dots,
-// K13 and K15): this block's partial goes to partials[blockIdx.x]; true in
+// A sum over the blocks of a grid in a fixed order (the CG body's dots,
+// K15): this block's partial goes to partials[blockIdx.x]; true in
 // every thread of the block that finishes last (its ticket after a
 // __threadfence).
 template <typename T>

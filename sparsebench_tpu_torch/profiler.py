@@ -27,9 +27,9 @@ span is one check and records nothing, and a solver loop reads the switch
 once a solve.
 
 The kernel registry (``Kernel``, ``kernels``, ``kernels_named``): each
-ops module declares its kernels beside their wrappers, by id (K1-K15,
-P1-P5), the names their device events carry, their layer and the
-wrappers whose ``launches`` count them; ``kernels`` gathers them.
+ops module declares its kernels beside their wrappers, by id (K1-K12,
+K14, K15, P1-P5), the names their device events carry, their layer and
+the wrappers whose ``launches`` count them; ``kernels`` gathers them.
 """
 
 from __future__ import annotations
@@ -367,16 +367,16 @@ LAYERS = ("SpMV kernels", "solver loops", "device", "prototypes")
 # the ops modules that declare kernels (``KERNELS`` beside their wrappers)
 KERNEL_MODULES = ("dia_spmv", "stencil", "cg_fused", "stencil_cg_vmem",
                   "bslab_spmv", "dia_spmm", "bsell_spmv", "memroof",
-                  "dia_window", "slab_slices", "csr_twopass", "cg_body",
-                  "crs_spmv", "cg_multi_body")
+                  "dia_window", "slab_slices", "csr_twopass", "crs_spmv",
+                  "cg_multi_body")
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
-    """A hand-written kernel: its ``id`` (K1-K15, P1-P5), the ``names`` of
-    the ``__global__`` functions its device events carry, its ``layer``
-    (one of ``LAYERS``) and the ``wrappers`` whose ``launches`` count its
-    launches."""
+    """A hand-written kernel: its ``id`` (K1-K12, K14, K15, P1-P5), the
+    ``names`` of the ``__global__`` functions its device events carry, its
+    ``layer`` (one of ``LAYERS``) and the ``wrappers`` whose ``launches``
+    count its launches."""
     id: str
     names: tuple
     layer: str

@@ -30,8 +30,9 @@ updates (alpha = 0, history written and k advanced only while active). So
 each iteration; the price is that a solve ending early (eps > 0 or
 breakdown) still runs the remaining bodies, masked. On a card, f32 or f64
 and unpreconditioned, a body is three kernels around the SpMV that carry
-the masks and scalars on the device (``ops/cg_body.py``, K13); elsewhere
-it is the same three stages in plain torch.
+the masks and scalars on the device (``ops/cg_multi_body.py``, K15 at
+k = 1); elsewhere it is the same three stages in plain torch
+(``ops/cg_body.py``).
 
 The variants ``cs`` (single-reduction CG, ``cg_cs_loop``), ``fused``
 (p-update, apply and p.Ap in one kernel, ``cg_fused_loop``) and ``vmem``
@@ -63,7 +64,7 @@ import torch
 
 from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
-from sparsebench_tpu_torch.ops import cg_body
+from sparsebench_tpu_torch.ops import cg_body, cg_multi_body
 from sparsebench_tpu_torch.ops.blas1 import ddot, safe_div
 from sparsebench_tpu_torch.ops.cg_fused import cs_update
 from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
@@ -152,13 +153,14 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
     changes no state entry, so two segments give the bits of one run.
     ``inv_diag``/``precond`` as in ``cg_init``.
 
-    A body is the three stages of ``ops/cg_body.py`` around the SpMV: its
-    kernels (K13) where ``cg_body.body_kind`` says so (f32/f32 or f64/f64,
+    A body is three stages around the SpMV: the kernels K15 at k = 1
+    where ``cg_multi_body.body_kind`` says so (f32/f32 or f64/f64,
     unpreconditioned, on a card) and the SpMV's product is a vector they
-    read (``cg_body.Run.takes``), with the run's own copies of x, p and r
-    updated in place, else the plain stages. The kind is the attribute
-    ``body`` of the innermost open span (``cg.solve`` under ``cg_loop``);
-    ``cg.kernel_bodies`` counts the fused bodies beside ``cg.bodies``."""
+    read (``cg_multi_body.takes``), with the run's own copies of x, p and
+    r updated in place, else the plain stages of ``ops/cg_body.py``. The
+    kind is the attribute ``body`` of the innermost open span
+    (``cg.solve`` under ``cg_loop``); ``cg.kernel_bodies`` counts the
+    fused bodies beside ``cg.bodies``."""
     r = state[3]
     vdt = r.dtype
     sdt = default_acc_dtype(vdt, acc_dtype)
@@ -167,7 +169,8 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
     apply_m = resolve_apply_m(precond, inv_diag, spmv, vdt)
     span = profiler.span_fn()
     bodies = max(k_end - (1 if k_start is None else k_start), 0)
-    kind = cg_body.body_kind(r.device.type, vdt, sdt, apply_m is not None)
+    kind = cg_multi_body.body_kind(r.device.type, vdt, sdt,
+                                   apply_m is not None)
     if kind == "kernel":
         fused = _fused_bodies(spmv, state, bodies, k_end, eps, span)
         if fused is None:
@@ -183,23 +186,46 @@ def cg_run(A, state, k_end: int, eps, acc_dtype: Optional[torch.dtype] = None,
     return state
 
 
+def kernel_run(state, k_end: int, eps) -> cg_multi_body.Run:
+    """A run of K15 at k = 1 from the CG state ``state`` to ``k_end``, on
+    (1, n) views of its own copies of x, r and p, the history and the
+    count, so that it never writes into ``state``. ``eps`` is a tensor,
+    compared in f64. Set up inside ``torch.cuda.device`` of the
+    vectors."""
+    k, x, p, r, rtrans, normr, hist, done = state
+    same = torch.contiguous_format
+    return cg_multi_body.Run(
+        *(v.reshape(1, -1).clone(memory_format=same) for v in (x, r, p)),
+        rtrans.reshape(1), normr.reshape(1),
+        hist.reshape(-1, 1).clone(memory_format=same),
+        eps.to(device=r.device, dtype=torch.float64).reshape(1),
+        k.reshape(1).to(torch.int32, copy=True), done.reshape(1), k_end)
+
+
 def _fused_bodies(spmv, state, bodies: int, k_end: int, eps, span):
-    """``bodies`` fused bodies from ``state`` (K13 around the SpMV): the
-    state after them. None where the first body's SpMV gives a product the
-    kernels do not read (``Run.takes``); ``state`` is then as it was, for
-    the plain body to run from, which takes torch's type promotion."""
+    """``bodies`` fused bodies from ``state`` (``kernel_run``, K15 at k = 1
+    around the SpMV): the state after them, in the dtypes and shapes of
+    ``cg_init``'s. None where the first body's SpMV gives a product the
+    kernels do not read (``cg_multi_body.takes``, asked before B and C
+    launch): ``state`` is as it was, for the plain body to run from, which
+    takes torch's type promotion."""
     with torch.cuda.device(state[3].device):
-        run = cg_body.Run(state, k_end, eps)
-        cg_body.body_rr(run)
-        for _ in range(bodies):
+        run = kernel_run(state, k_end, eps)
+        # the state carries no r.r: a continuing body reads this one
+        cg_multi_body.body_rr(run)
+        for i in range(bodies):
             with span("cg.body"):
-                cg_body.body_p(run)
-                ap = spmv(run.p)
-                if not run.takes(ap):
+                cg_multi_body.body_p(run)
+                ap = spmv(run.P[0]).unsqueeze(0)
+                if i == 0 and not cg_multi_body.takes(ap, run.dtype,
+                                                      run.shape):
                     return None
-                cg_body.body_pap(run, ap)
-                cg_body.body_xr(run, ap)
-    return run.state()
+                cg_multi_body.body_pap(run, ap)
+                cg_multi_body.body_xr(run, ap)
+    # the state's dtypes: the count and done (the flags' third row) cast
+    return (run.count.reshape(()).to(torch.int64), run.X[0], run.P[0],
+            run.R[0], run.s[0, 0], run.s[1, 0], run.hist[:, 0],
+            run.flags[2, 0].to(torch.bool))
 
 
 def _solve_span(variant: str):

@@ -17,18 +17,18 @@ own, with (k,)-vectors of alpha, beta and the dots; it is not block CG
 with a shared Krylov space. A column that converges (normr <= eps) or
 breaks down freezes (alpha = 0, P kept) while the others go on.
 
-Which body runs where (``cg_body.body_kind``, the rule of the single-RHS
-loop, and ``cg_multi_body.takes``): on a CUDA card, with f32 or f64
-vectors accumulated in the same dtype and an SpMV whose product is a
+Which body runs where (``cg_multi_body.body_kind``, the rule of the
+single-RHS loop, and ``cg_multi_body.takes``): on a CUDA card, with f32 or
+f64 vectors accumulated in the same dtype and an SpMV whose product is a
 contiguous (k, n) slab of that dtype, 16-byte aligned, a body is the three
 kernels K15 around the SpMV (``ops/cg_multi_body.py``), one launch a stage
-for all k columns, each column's masks and scalars on the card. Their dots
-sum each column in K13's order and the run starts from each column's r.r
-as ``cg_init`` takes it, so on the card column c equals the single-RHS
-``cg_loop`` on that column bit for bit (x, history, count) wherever row c
-of the blocked product is the single-vector product of column c: on DIA
-(row c of K8 is K1 on column c) and on every format that stacks its
-single-vector products. Everywhere else (the CPU, bf16 vectors, mixed
+for all k columns, each column's masks and scalars on the card. The
+single-RHS loop runs the same kernels at k = 1, and the run starts from
+each column's r.r as ``cg_init`` takes it, so on the card column c equals
+the single-RHS ``cg_loop`` on that column bit for bit (x, history, count)
+wherever row c of the blocked product is the single-vector product of
+column c: on DIA (row c of K8 is K1 on column c) and on every format that
+stacks its single-vector products. Everywhere else (the CPU, bf16 vectors, mixed
 dtypes, another product) the body is the eager loop (``plain_bodies``),
 whose dots sum a (k, n) product along its rows (``torch.sum(..., dim=1)``):
 column c then matches the single-RHS loop to reduction order only.
@@ -57,7 +57,7 @@ import torch
 
 from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import synchronize
-from sparsebench_tpu_torch.ops import cg_body, cg_multi_body
+from sparsebench_tpu_torch.ops import cg_multi_body
 from sparsebench_tpu_torch.ops.blas1 import ddot
 from sparsebench_tpu_torch.solvers.cg import (
     CGResult,
@@ -116,11 +116,11 @@ def _dots(U, V, sdt):
 def multi_init(spmm, B, X0, itermax: int, eps, sdt):
     """The loop's init and its choice of body: (kind, (X0, R, rtrans,
     normr, hist, eps)), ``kind`` ``"kernel"`` where K15 runs the bodies
-    (``cg_body.body_kind`` and ``cg_multi_body.takes`` of the first
+    (``cg_multi_body.body_kind`` and ``cg_multi_body.takes`` of the first
     product), else ``"torch"``. The kernels start from each column's r.r
     as ``cg_init`` takes it, the eager loop from its row sums."""
     device = B.device
-    kind = cg_body.body_kind(device.type, B.dtype, sdt, False)
+    kind = cg_multi_body.body_kind(device.type, B.dtype, sdt, False)
     eps = torch.as_tensor(eps, device=device).to(sdt)
     AX = spmm(X0)
     if kind == "kernel" and not cg_multi_body.takes(AX, B.dtype,
@@ -173,22 +173,34 @@ def plain_bodies(spmm, B, X0, R, rtrans, normr, hist, eps, sdt,
     return X, iters, hist
 
 
+def kernel_run(X0, R, rtrans, normr, hist, eps) -> cg_multi_body.Run:
+    """A run of K15 from ``multi_init``'s state: P = 0, every count 1, no
+    column done. It takes R and the history as its own, and a copy of X0.
+    Set up inside ``torch.cuda.device`` of the slabs."""
+    k = R.shape[0]
+    return cg_multi_body.Run(
+        X0.clone(memory_format=torch.contiguous_format), R,
+        torch.zeros_like(R), rtrans, normr, hist,
+        torch.broadcast_to(eps, (k,)).to(torch.float64).contiguous(),
+        torch.ones(k, dtype=torch.int32, device=R.device),
+        torch.zeros(k, dtype=torch.bool, device=R.device), hist.shape[0])
+
+
 def kernel_bodies(spmm, X0, R, rtrans, normr, hist, eps,
                   span=contextlib.nullcontext):
     """``len(hist) - 1`` bodies of K15 around ``spmm`` from
-    ``multi_init``'s state, each in ``span("cg_multi.body")``; (X, iters,
-    hist) after them, the run's own tensors."""
+    ``multi_init``'s state (``kernel_run``), each in
+    ``span("cg_multi.body")``; (X, iters, hist) after them, the run's own
+    tensors."""
     with torch.cuda.device(R.device):
-        run = cg_multi_body.Run(X0, R, rtrans, normr, hist,
-                                torch.broadcast_to(eps, rtrans.shape),
-                                hist.shape[0])
+        run = kernel_run(X0, R, rtrans, normr, hist, eps)
         for _ in range(1, hist.shape[0]):
             with span("cg_multi.body"):
                 cg_multi_body.body_p(run)
                 AP = spmm(run.P)
                 cg_multi_body.body_pap(run, AP)
                 cg_multi_body.body_xr(run, AP)
-    return run.X, run.iters, run.hist
+    return run.X, run.count, run.hist
 
 
 def solve_cg_multi(A, B, *, itermax: int = 150, eps: float = 0.0,

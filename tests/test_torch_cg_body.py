@@ -1,11 +1,14 @@
-"""The fused body of standard CG (``sparsebench_tpu_torch/ops/cg_body.py``,
-K13 in ``csrc/cg_body.cu``), without the JAX package.
+"""The body of standard CG: ``cg_run``'s plain stages
+(``sparsebench_tpu_torch/ops/cg_body.py``) and its fused run, K15 at k = 1
+(``ops/cg_multi_body.py``, ``csrc/cg_multi_body.cu``), without the JAX
+package.
 
-Here on the CPU: the rule that picks the body, and the plain stages against
+Here on the CPU: the rule that picks the body, the plain stages against
 the eager body they were cut from (``eager_run``, the body ``cg_run`` ran
-inline before), bit for bit. The tests marked ``cuda`` (on a card:
-``python -m pytest tests/test_torch_cg_body.py --noconftest -q``) hold the
-kernels to the plain stages on the card: k and the history to the ROADMAP
+inline before), bit for bit, and a CPU state refused by the kernels' run.
+The tests marked ``cuda`` (on a card: ``python -m pytest
+tests/test_torch_cg_body.py --noconftest -q``) hold the fused run to the
+plain stages on the card: k and the history to the ROADMAP
 parity floors (f64: rtol 1e-9 where normr >= 1e-10 normr0; f32: rtol 1e-4
 where normr >= 1e-4 normr0), the early exit, the breakdown freeze and a zero
 right-hand side exactly, segments and repeated solves bit for bit, the
@@ -29,7 +32,7 @@ from sparsebench_tpu_torch.formats.bslab import BslabMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.formats.stencil import StencilOperator
 from sparsebench_tpu_torch.host import HostCSR, generate_stencil
-from sparsebench_tpu_torch.ops import _build, cg_body
+from sparsebench_tpu_torch.ops import _build, cg_body, cg_multi_body
 from sparsebench_tpu_torch.ops.blas1 import ddot, safe_div
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
 from sparsebench_tpu_torch.solvers import cg, checkpoint
@@ -151,7 +154,7 @@ def assert_same_state(a, b):
     ("cpu", "bf16", "f32", True, "torch"),
 ])
 def test_body_kind_follows_the_input(device, vdt, sdt, pre, kind):
-    assert cg_body.body_kind(device, DT[vdt], DT[sdt], pre) == kind
+    assert cg_multi_body.body_kind(device, DT[vdt], DT[sdt], pre) == kind
 
 
 @pytest.mark.parametrize("dt,dims,kw", [
@@ -195,16 +198,16 @@ def test_plain_stages_freeze_on_breakdown():
 
 def test_cpu_runs_launch_no_fused_kernel():
     A, b = problem((8, 7, 6), "f32", CPU)
-    before = profiler.kernels()["K13"].launches
+    before = profiler.kernels()["K15"].launches
     cg.cg_loop(A, b, torch.zeros_like(b), 10, 0.0)
-    assert profiler.kernels()["K13"].launches == before
+    assert profiler.kernels()["K15"].launches == before
 
 
 def test_run_refuses_what_the_kernels_do_not_take():
     A, b = problem((4, 3, 2), "f32", CPU)
     state = cg.cg_init(A, b, torch.zeros_like(b), 5)
     with pytest.raises(TypeError, match="no kernel"):
-        cg_body.Run(state, 5, torch.zeros(()))
+        cg.kernel_run(state, 5, torch.zeros(()))
 
 
 # -- on the card -----------------------------------------------------------
@@ -234,9 +237,9 @@ def test_fused_run_matches_the_plain_body(dims, itermax, dt, cuda_device):
     100^3 and 200^3: the same k, done and NaN pattern, the history to the
     parity floor of the dtype."""
     A, b = problem(dims, dt, cuda_device)
-    before = profiler.kernels()["K13"].launches
+    before = profiler.kernels()["K15"].launches
     fused, plain = solve_both(A, b, itermax)
-    assert profiler.kernels()["K13"].launches - before == 3 * (itermax - 1) + 1
+    assert profiler.kernels()["K15"].launches - before == 3 * (itermax - 1) + 1
     assert int(fused[0]) == int(plain[0])
     assert bool(fused[7]) == bool(plain[7])
     if A.nr > 1:  # one row may solve exactly and break down
@@ -263,9 +266,9 @@ def test_fused_run_matches_the_plain_body_on_each_format(fmt, dt,
     and gives the plain body's k, done and NaN pattern and its history to
     the parity floor of the dtype."""
     A, b = format_problem(fmt, (47, 41, 37), dt, cuda_device)
-    before = profiler.kernels()["K13"].launches
+    before = profiler.kernels()["K15"].launches
     fused, plain = solve_both(A, b, 100)
-    assert profiler.kernels()["K13"].launches - before == 3 * 99 + 1
+    assert profiler.kernels()["K15"].launches - before == 3 * 99 + 1
     assert int(fused[0]) == int(plain[0]) == 100
     assert not bool(fused[7]) and not bool(plain[7])
     hf, hp = fused[6].cpu().numpy(), plain[6].cpu().numpy()
@@ -286,8 +289,8 @@ def test_a_product_of_another_dtype_takes_the_plain_body(cuda_device):
     b = torch.rand(A.nr, generator=torch.Generator().manual_seed(4),
                    dtype=torch.float64).to(cuda_device)
     assert A.spmv(b).dtype == torch.float32
-    wrappers = (cg_body.body_rr, cg_body.body_p, cg_body.body_pap,
-                cg_body.body_xr)
+    wrappers = (cg_multi_body.body_rr, cg_multi_body.body_p,
+                cg_multi_body.body_pap, cg_multi_body.body_xr)
     before = [w.launches for w in wrappers]
     fused, plain = solve_both(A, b, 30)
     assert [w.launches - n for w, n in zip(wrappers, before)] == [1, 1, 0, 0]
@@ -395,8 +398,8 @@ def test_a_fused_body_launches_k1_and_the_three_kernels(cuda_device):
     so no torch operation runs inside a body."""
     A, b = problem((32, 32, 32), "f32", cuda_device)
     x0 = torch.zeros_like(b)
-    wrappers = (dia_spmv, cg_body.body_rr, cg_body.body_p, cg_body.body_pap,
-                cg_body.body_xr)
+    wrappers = (dia_spmv, cg_multi_body.body_rr, cg_multi_body.body_p,
+                cg_multi_body.body_pap, cg_multi_body.body_xr)
     counts = {}
     for itermax in (10, 20):
         before = [w.launches for w in wrappers]
@@ -405,8 +408,9 @@ def test_a_fused_body_launches_k1_and_the_three_kernels(cuda_device):
         bodies = itermax - 1
         assert ran == [bodies + 1, 1, bodies, bodies, bodies]
         assert ops["dia_spmv_kernel"] == bodies + 1
-        assert ops["cg_body_p_kernel"] == ops["cg_body_pap_kernel"] == bodies
-        assert ops["cg_body_xr_kernel"] == bodies + 1
+        assert ops["cg_multi_p_kernel"] == ops["cg_multi_pap_kernel"] == (
+            bodies)
+        assert ops["cg_multi_xr_kernel"] == bodies + 1
         counts[itermax] = sum(ops.values()) - 4 * bodies - 2
     assert counts[10] == counts[20]
 
@@ -416,10 +420,10 @@ def test_run_refuses_vectors_the_kernels_do_not_take(cuda_device):
     A, b = problem((4, 3, 2), "bf16", cuda_device)
     state = cg.cg_init(A, b, torch.zeros_like(b), 5)
     with pytest.raises(TypeError, match="no kernel"):
-        cg_body.Run(state, 5, torch.zeros((), device=cuda_device))
+        cg.kernel_run(state, 5, torch.zeros((), device=cuda_device))
     A, b = problem((4, 3, 2), "f32", cuda_device)
     k, x, p, r, rtrans, normr, hist, done = cg.cg_init(
         A, b, torch.zeros_like(b), 5)
-    with pytest.raises(ValueError, match="x must be"):
-        cg_body.Run((k, x[:-1], p, r, rtrans, normr, hist, done), 5,
-                    torch.zeros((), device=cuda_device))
+    with pytest.raises(ValueError, match="X must be"):
+        cg.kernel_run((k, x[:-1], p, r, rtrans, normr, hist, done), 5,
+                      torch.zeros((), device=cuda_device))

@@ -2,12 +2,14 @@
 cg_multi_body.py``, K15 in ``csrc/cg_multi_body.cu``), without the JAX
 package.
 
-Here on the CPU: the rule that picks the body (K13's rule, then whether the
-SpMV's product is a slab the kernels read), the checks that refuse a slab
-before any launch, and the CPU keeping the eager loop. The tests marked
-``cuda`` (on a card: ``python -m pytest tests/test_torch_cg_multi_body.py
---noconftest -q``) hold column c of a fused blocked solve to the
-single-RHS solve of column c through K13 bit for bit (x, history, count)
+Here on the CPU: the rule that picks the body (the single-RHS loop's
+rule, then whether the SpMV's product is a slab the kernels read), the
+checks that refuse a slab or a state before any launch, a run taking any
+CG state (P, counts, done), and the CPU keeping the eager loop. The tests
+marked ``cuda`` (on a card: ``python -m pytest
+tests/test_torch_cg_multi_body.py --noconftest -q``) hold column c of a
+fused blocked solve to the single-RHS solve of column c (``cg_loop``, K15
+at k = 1) bit for bit (x, history, count)
 on DIA and CRS, f32 and f64, k in {1, 3, 8}; the fused loop to the eager
 loop (``eager_multi``, the loop's plain body) with a per-column eps that
 freezes columns at different iterations (counts and NaN slots equal,
@@ -29,7 +31,7 @@ from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.crs import CRSMatrix
 from sparsebench_tpu_torch.formats.dia import DiaMatrix
 from sparsebench_tpu_torch.host import HostCSR
-from sparsebench_tpu_torch.ops import _build, cg_body, cg_multi_body
+from sparsebench_tpu_torch.ops import _build, cg_multi_body
 from sparsebench_tpu_torch.ops.blas1 import safe_div
 from sparsebench_tpu_torch.ops.dia_spmm import dia_spmm
 from sparsebench_tpu_torch.solvers import cg
@@ -38,8 +40,8 @@ from sparsebench_tpu_torch.solvers.cg_multi import cg_multi_loop, make_spmm_kn
 CPU = torch.device("cpu")
 DT = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
 FORMATS = {"dia": DiaMatrix, "crs": CRSMatrix}
-WRAPPERS = (cg_multi_body.body_p, cg_multi_body.body_pap,
-            cg_multi_body.body_xr)
+WRAPPERS = (cg_multi_body.body_rr, cg_multi_body.body_p,
+            cg_multi_body.body_pap, cg_multi_body.body_xr)
 
 
 def eager_multi(A, B, X0, itermax, eps):
@@ -130,10 +132,11 @@ def same_bits(u, v):
     ("cpu", "f64", "f64", "torch"),
     ("cpu", "bf16", "f32", "torch"),
 ])
-def test_the_loop_takes_k13s_rule(device, vdt, sdt, kind):
-    """The blocked loop asks K13's rule, unpreconditioned: CUDA with f32 or
-    f64 vectors accumulated in their own dtype engages the kernels."""
-    assert cg_body.body_kind(device, DT[vdt], DT[sdt], False) == kind
+def test_the_loop_takes_the_single_rhs_rule(device, vdt, sdt, kind):
+    """The blocked loop asks the single-RHS loop's rule, unpreconditioned:
+    CUDA with f32 or f64 vectors accumulated in their own dtype engages the
+    kernels."""
+    assert cg_multi_body.body_kind(device, DT[vdt], DT[sdt], False) == kind
 
 
 def aligned_slab(shape, dt, offset=0):
@@ -171,25 +174,35 @@ def test_takes_only_contiguous_aligned_slabs(case, ok):
 
 
 def run_inputs(k=3, n=40, dt=torch.float32, itermax=5):
-    X0 = torch.zeros((k, n), dtype=dt)
+    X = torch.zeros((k, n), dtype=dt)
     R = torch.ones((k, n), dtype=dt)
     rtrans = torch.full((k,), float(n), dtype=dt)
     hist = torch.full((itermax, k), float("nan"), dtype=dt)
-    return dict(X0=X0, R=R, rtrans=rtrans, normr=rtrans.sqrt(), hist=hist,
-                eps=torch.zeros(k, dtype=dt), k_end=itermax)
+    return dict(X=X, R=R, P=torch.zeros_like(R), rtrans=rtrans,
+                normr=rtrans.sqrt(), hist=hist,
+                eps=torch.zeros(k, dtype=torch.float64),
+                count=torch.ones(k, dtype=torch.int32),
+                done=torch.zeros(k, dtype=torch.bool), k_end=itermax)
 
 
 @pytest.mark.parametrize("bad,match", [
     (("R", lambda v: v.t()), "R must be"),
     (("R", lambda v: v[:, :-1]), "R must be"),
-    (("R", lambda v: v.to(torch.float64)), "X0 must be"),
-    (("X0", lambda v: v[:-1]), "X0 must be"),
-    (("X0", lambda v: v.to(torch.float64)), "X0 must be"),
+    (("R", lambda v: v.to(torch.float64)), "X must be"),
+    (("X", lambda v: v[:-1]), "X must be"),
+    (("X", lambda v: v.to(torch.float64)), "X must be"),
     (("rtrans", lambda v: v[:-1]), "rtrans must be"),
-    (("eps", lambda v: v.to(torch.float64)), "eps must be"),
-    (("hist", lambda v: v[:-1]), "hist must be"),
+    (("eps", lambda v: v.to(torch.float32)), "eps must be"),
+    (("hist", lambda v: v[:, :-1]), "hist must be"),
     (("hist", lambda v: v.t().contiguous().t()), "hist must be"),
     (("R", lambda v: v.reshape(-1)), r"\(k, n\)"),
+    (("P", lambda v: v[:-1]), "P must be"),
+    (("P", lambda v: v.t().contiguous().t()), "P must be"),
+    (("P", lambda v: v.to(torch.float64)), "P must be"),
+    (("count", lambda v: v[:-1]), "count must be"),
+    (("count", lambda v: v.to(torch.int64)), "count must be"),
+    (("done", lambda v: v[:-1]), "done must be"),
+    (("done", lambda v: v.to(torch.int32)), "done must be"),
 ])
 def test_run_refuses_bad_slabs_before_any_launch(bad, match):
     """Shapes, dtypes and strides are checked before the device: on the
@@ -203,6 +216,26 @@ def test_run_refuses_bad_slabs_before_any_launch(bad, match):
         cg_multi_body.Run(**kw)
     with pytest.raises(TypeError, match="no kernel"):
         cg_multi_body.Run(**run_inputs())
+    assert [w.launches for w in WRAPPERS] == before
+
+
+@pytest.mark.parametrize("state", ["P", "count", "done", "all"])
+def test_run_accepts_any_cg_state(state):
+    """A run starts from any CG state, not only P = 0, count 1 and done 0
+    (a later segment of ``cg_run``): a given P, per-column counts and done
+    flags pass every check (on the CPU the run then refuses the device,
+    the TypeError of no kernel), and nothing launches."""
+    before = [w.launches for w in WRAPPERS]
+    kw = run_inputs()
+    if state in ("P", "all"):
+        kw["P"] = torch.linspace(-1, 1, 120).reshape(3, 40)
+    if state in ("count", "all"):
+        kw["count"] = torch.tensor([1, 4, 5], dtype=torch.int32)
+    if state in ("done", "all"):
+        kw["done"] = torch.tensor([False, True, False])
+    with pytest.raises(TypeError, match="no kernel for torch.float32 slabs "
+                       r"of \(3, 40\) on cpu"):
+        cg_multi_body.Run(**kw)
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -249,7 +282,8 @@ def cuda_device():
 
 
 def single_solves(A, B, itermax, eps=0.0):
-    """Each column through ``cg_loop`` (K13 on a card): [(x, k, hist)]."""
+    """Each column through ``cg_loop`` (K15 at k = 1 on a card): [(x, k,
+    hist)]."""
     out = []
     for c in range(B.shape[0]):
         b = B[c].clone()
@@ -262,13 +296,14 @@ def single_solves(A, B, itermax, eps=0.0):
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 @pytest.mark.parametrize("fmt", ["dia", "crs"])
-def test_each_column_is_k13s_solve_bit_for_bit(fmt, dt, k, cuda_device):
-    """Column c of the fused blocked solve is ``cg_loop``'s K13 solve of
-    column c: x, the history and the count, bit for bit."""
+def test_column_c_of_the_blocked_solve_is_the_single_rhs_solve_of_column_c(
+        fmt, dt, k, cuda_device):
+    """Column c of the fused blocked solve is ``cg_loop``'s solve of column
+    c: x, the history and the count, bit for bit."""
     A, B = problem(fmt, (20, 19, 17), dt, k, cuda_device, seed=k)
     before = [w.launches for w in WRAPPERS]
     X, iters, hist = cg_multi_loop(A, B, torch.zeros_like(B), 60, 0.0)
-    assert [w.launches - n for w, n in zip(WRAPPERS, before)] == [59] * 3
+    assert [w.launches - n for w, n in zip(WRAPPERS, before)] == [0] + [59] * 3
     for c, (x, kk, h) in enumerate(single_solves(A, B, 60)):
         assert int(iters[c]) == int(kk) == 60
         assert same_bits(X[c], x), f"column {c}: x differs"
@@ -278,9 +313,10 @@ def test_each_column_is_k13s_solve_bit_for_bit(fmt, dt, k, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 @pytest.mark.parametrize("fmt", ["dia", "crs"])
-def test_odd_n_columns_are_k13s_solves(fmt, dt, cuda_device):
+def test_odd_n_columns_are_the_single_rhs_solves(fmt, dt, cuda_device):
     """n = 1001, no multiple of a 16-byte pack: the columns after the first
-    start unaligned and are read lane by lane, in K13's order still."""
+    start unaligned and are read lane by lane, in the order of the
+    single-RHS run (one aligned column, read 16 bytes at a time) still."""
     A, B = problem(fmt, (11, 13, 7), dt, 3, cuda_device, seed=5)
     X, iters, hist = cg_multi_loop(A, B, torch.zeros_like(B), 40, 0.0)
     for c, (x, kk, h) in enumerate(single_solves(A, B, 40)):
@@ -293,7 +329,8 @@ def test_odd_n_columns_are_k13s_solves(fmt, dt, cuda_device):
 def test_per_column_eps_freezes_as_the_eager_loop(dt, cuda_device):
     """eps a column, so that the columns freeze at different iterations:
     the counts and NaN slots equal the eager loop's, the history and X
-    agree to reduction order; each column is its K13 solve bit for bit.
+    agree to reduction order; each column is its single-RHS solve bit for
+    bit.
     40 iterations: with eps 0 the recursive residual of an f32 solve at
     16^3 keeps falling until its dots underflow (about iteration 85), where
     a breakdown follows the order of the sums."""
@@ -327,8 +364,8 @@ def test_per_column_eps_freezes_as_the_eager_loop(dt, cuda_device):
 def test_a_column_that_breaks_down_freezes_alone(dt, cuda_device):
     """diag(1 .. 300): a column along the eigenvector of 64 solves exactly
     in one step (every sum exact) and breaks down at k = 3, the others run
-    every iteration; each column is its K13 solve bit for bit, and the
-    eager loop gives the same counts."""
+    every iteration; each column is its single-RHS solve bit for bit, and
+    the eager loop gives the same counts."""
     A = diagonal(np.arange(1, 301), dt, cuda_device)
     B = torch.ones((3, 300), dtype=DT[dt], device=cuda_device)
     B[1] = 0
@@ -386,7 +423,7 @@ def test_a_fused_body_launches_k8_and_the_three_kernels(cuda_device):
         ops = device_ops(lambda: cg_multi_loop(A, B, X0, itermax, 0.0))
         ran = [w.launches - n for w, n in zip((dia_spmm, *WRAPPERS), before)]
         bodies = itermax - 1
-        assert ran == [bodies + 1, bodies, bodies, bodies]
+        assert ran == [bodies + 1, 0, bodies, bodies, bodies]
         assert ops["cg_multi_p_kernel"] == ops["cg_multi_pap_kernel"] == (
             ops["cg_multi_xr_kernel"]) == bodies
         counts[itermax] = sum(ops.values()) - 4 * bodies

@@ -12,7 +12,7 @@ marked ``cuda`` (on a card: ``python -m pytest tests/test_torch_crs.py
 order from 0 and the plain version in torch's order; each is within
 len_i u (|A| |x|)_i of the exact sum (u the unit roundoff, len_i the
 row's entries; products and sums rounded to nearest), so the two are held
-to 2 len_i u (|A| |x|)_i. A 200^3 CG through K14 and the fused body K13 is
+to 2 len_i u (|A| |x|)_i. A 200^3 CG through K14 and the fused body K15 is
 held to the reference's history to the ROADMAP parity floor (f32: rtol
 1e-4 where the reference's residual is at least 1e-4 of its start).
 """
@@ -30,7 +30,7 @@ from sparsebench_tpu_torch.formats import crs as crs_mod
 from sparsebench_tpu_torch.formats import from_csr, get_format
 from sparsebench_tpu_torch.formats.crs import CCRSMatrix, CRSMatrix
 from sparsebench_tpu_torch.host import HostCSR, generate_stencil, read_mm
-from sparsebench_tpu_torch.ops import cg_body
+from sparsebench_tpu_torch.ops import cg_multi_body
 from sparsebench_tpu_torch.ops.crs_spmv import (
     crs_spmv,
     crs_spmv_torch,
@@ -453,11 +453,11 @@ def test_cg_200_cubed_through_k14_and_k13_matches_the_reference(cuda_device):
     xs = torch.rand(A.nr, generator=torch.Generator().manual_seed(7),
                     dtype=torch.float64).to(cuda_device)
     b64 = hpcg.apply(xs, cfg)
-    before = (crs_spmv.launches, profiler.kernels()["K13"].launches)
+    before = (crs_spmv.launches, profiler.kernels()["K15"].launches)
     x, k, hist = cg.cg_loop(A, b64.float(), torch.zeros_like(b64.float()),
                             150, 0.0)
     assert crs_spmv.launches - before[0] == 150
-    assert profiler.kernels()["K13"].launches - before[1] == 3 * 149 + 1
+    assert profiler.kernels()["K15"].launches - before[1] == 3 * 149 + 1
     _x_ref, k_ref, h_ref = hpcg.cg(b64[None], cfg)
     assert int(k) == int(k_ref[0]) == 150
     h, h_ref = hist.double().cpu().numpy(), h_ref[:, 0].cpu().numpy()
@@ -468,14 +468,14 @@ def test_cg_200_cubed_through_k14_and_k13_matches_the_reference(cuda_device):
 
 @pytest.mark.cuda
 def test_a_body_launches_k14_and_the_three_kernels(cuda_device):
-    """Per body: one K14 and one launch each of K13's A, B and C (and one
+    """Per body: one K14 and one launch each of K15's A, B and C (and one
     K14 and one C a solve for its start), counted by the wrappers."""
     A, _ = CRSMatrix.from_stencil(32, 32, 32, device=cuda_device,
                                   policy=DTypePolicy.from_names("f32"))
     b = torch.rand(A.nr, device=cuda_device)
     x0 = torch.zeros_like(b)
-    wrappers = (crs_spmv, cg_body.body_rr, cg_body.body_p, cg_body.body_pap,
-                cg_body.body_xr)
+    wrappers = (crs_spmv, cg_multi_body.body_rr, cg_multi_body.body_p,
+                cg_multi_body.body_pap, cg_multi_body.body_xr)
     for itermax in (10, 20):
         before = [w.launches for w in wrappers]
         cg.cg_loop(A, b, x0, itermax, 0.0)

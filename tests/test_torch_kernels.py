@@ -174,7 +174,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     assert [p.name for p in _build.sources()] == [
-        "bsell_spmv.cu", "bslab_spmv.cu", "cg_body.cu", "cg_fused.cu",
+        "bsell_spmv.cu", "bslab_spmv.cu", "cg_fused.cu",
         "cg_multi_body.cu", "crs_spmv.cu", "csr_twopass.cu",
         "dia_spmm.cu", "dia_spmv.cu", "dia_window.cu", "memroof.cu",
         "slab_slices.cu", "stencil.cu", "stencil_cg_vmem.cu"]
