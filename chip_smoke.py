@@ -75,11 +75,16 @@ lines; any failure raises and exits non-zero:
    bslab CG x150 seconds on each;
 3d. the multi-RHS DIA kernel K8 against dia_spmm_torch, bit for bit, and
    row c of its result against K1 on row c of the block, bit for bit, for
-   k in {1, 2, 8, 9, 16}, (bf16, f32), (f32, f32) and (f64, f64), at
-   10x9x7 and 7x6x5 (n not a multiple of 4: one row a thread), 10x10x8
-   (four rows a thread, some runs read as scalars), 12x10x9, 100^3, 200^3
+   k in {1, 2, 3, 8, 9, 12, 16}, (bf16, f32), (f32, f32) and (f64, f64),
+   at 10x9x7 and 7x6x5 (n not a multiple of 4: one row a thread), 10x10x8
+   (four rows a thread, some runs read as scalars), 12x10x9, 30x20x12
+   (the staged form, some runs read as scalars), 100^3, 200^3 (the staged
+   form; f64 with 8 or more columns over its budget: four rows a thread)
    and klein, the small ones also with a row stride not a multiple of 4
-   and with X 4 B past a 16 B boundary; both forms of the gate must run;
+   and with X 4 B past a 16 B boundary; where spmm_plan picks the
+   four-row form and staged_plan admits the staged form (f64 at 1 to 3
+   columns), the staged form too; the staged, four-row and one-row forms
+   must all run, with and without runs read as scalars;
 4d. the solver family through the CLI: ``-t cg --nrhs 8`` at 100^3 and
    ``-f hpcg.par -t cg --nrhs 8`` at 200^3 with the K8 and K15 counts read
    before and after (at least 150 K8 launches a solve, A, B and C of K15
@@ -1362,7 +1367,7 @@ def phase5c_times(dev, gpu):
 
 # -- K8 and the solver family ---------------------------------------------------
 
-K_SET = (1, 2, 8, 9, 16)
+K_SET = (1, 2, 3, 8, 9, 12, 16)
 K_TIMED = 8
 
 
@@ -1370,15 +1375,16 @@ def spmm_matrices(dev):
     """(name, DiaMatrix) of phase 3d: the generated stencil (bf16
     diagonals) at 10x9x7 and 7x6x5 (n not a multiple of 4: K8's general
     form), 10x10x8 (its four-row form, runs centred on sy nx = 10 read as
-    scalars, the others as vectors), 12x10x9, 100^3 and 200^3 (every run
-    aligned), and klein (f64, uncompressed)."""
+    scalars, the others as vectors), 12x10x9, 30x20x12 (its staged form,
+    the runs centred on sy nx = 30 read as scalars), 100^3 and 200^3
+    (every run aligned; three windows), and klein (f64, uncompressed)."""
     from sparsebench_tpu_torch.config import DTypePolicy
     from sparsebench_tpu_torch.formats.dia import DiaMatrix
     from sparsebench_tpu_torch.host import read_mm
 
     f32 = DTypePolicy.from_names("f32")
     for dims in [(10, 9, 7), (7, 6, 5), (10, 10, 8), (12, 10, 9),
-                 (100, 100, 100), (200, 200, 200)]:
+                 (30, 20, 12), (100, 100, 100), (200, 200, 200)]:
         yield (f"stencil {dims[0]}x{dims[1]}x{dims[2]}",
                DiaMatrix.from_stencil(*dims, device=dev, policy=f32,
                                       impl="kernel")[0])
@@ -1408,8 +1414,9 @@ def spmm_blocks(k: int, nr: int, dtype, dev, gen, small: bool):
 
 def phase3d_spmm(dev):
     """K8 against dia_spmm_torch and, row by row, against K1, bit for bit,
-    in both forms of its gate (spmm_plan); returns the largest |K8 -
-    plain|."""
+    in every form of its gate (spmm_plan: staged, four rows a thread, one
+    row a thread), and in the staged form wherever staged_plan admits it
+    and spmm_plan picks four rows; returns the largest |K8 - plain|."""
     import torch
 
     from sparsebench_tpu_torch.ops.dia_spmm import (
@@ -1417,13 +1424,15 @@ def phase3d_spmm(dev):
         dia_spmm,
         dia_spmm_torch,
         spmm_plan,
+        staged_plan,
     )
     from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv
+    from sparsebench_tpu_torch.profile_cg import k8_as
 
     dts = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
     gen = torch.Generator(device=dev).manual_seed(88)
     max_err = 0.0
-    forms = set()  # (four-row form, a chunk read as vectors, one as scalars)
+    forms = set()  # (form, a chunk read as vectors, one as scalars)
     for name, A in spmm_matrices(dev):
         for td, tx in BSLAB_PAIRS:
             data = A.data.to(dts[td])
@@ -1433,39 +1442,57 @@ def phase3d_spmm(dev):
                     plan = spmm_plan(A.offsets, A.nr, data.shape[1],
                                      X.shape[1], A.nr, all(
                                          t.data_ptr() % ALIGN == 0
-                                         for t in (data, X)))
+                                         for t in (data, X)), k,
+                                     (data.element_size(), X.element_size()))
                     vec = sum(c.shift >= 0 for c in plan.chunks)
-                    form = (plan.quad, vec > 0, vec < len(plan.chunks))
+                    form = (plan.form, vec > 0, vec < len(plan.chunks))
                     forms.add(form)
                     before = dia_spmm.launches
                     Y = dia_spmm(data, X, A.offsets, A.nr)
                     check(dia_spmm.launches == before + 1,
                           "the K8 counter did not count the launch")
                     Yp = dia_spmm_torch(data, X, A.offsets, A.nr)
-                    same = bits_equal(Y, Yp)
-                    same_k1 = all(bits_equal(Y[c], dia_spmv(
-                        data, X[c].contiguous(), A.offsets, A.nr))
-                        for c in range(k))
-                    torch.cuda.synchronize()
-                    ok = same and same_k1 and bool(torch.isfinite(Y).all())
-                    max_err = max(max_err, float(
-                        (Y.double() - Yp.double()).abs().max()))
-                    shape = (f"four rows a thread, {vec} of "
-                             f"{len(plan.chunks)} chunks as vectors"
-                             if plan.quad else "one row a thread")
-                    print(f"[3d K8] {name} data {td} X {tx} k={k} {layout} "
-                          f"({shape}): bit-identical to the plain version "
-                          f"{same}, to K1 row by row {same_k1} "
-                          f"{'ok' if ok else 'FAIL'}")
-                    check(ok, f"K8 disagrees on {name} {td}/{tx} k={k} "
-                          f"{layout}")
-                    del X, Y, Yp
+                    K1 = [dia_spmv(data, X[c].contiguous(), A.offsets, A.nr)
+                          for c in range(k)]
+                    runs = [(plan, Y)]
+                    staged = (staged_plan(plan.chunks, A.nr, data.shape[1],
+                                          k, (data.element_size(),
+                                              X.element_size()))
+                              if plan.form == "quad" else None)
+                    if staged is not None:
+                        runs.append((staged, k8_as(staged, data, X, A.nr)))
+                        forms.add(("staged",) + form[1:])
+                    for p, Yk in runs:
+                        same = bits_equal(Yk, Yp)
+                        same_k1 = all(bits_equal(Yk[c], K1[c])
+                                      for c in range(k))
+                        torch.cuda.synchronize()
+                        ok = (same and same_k1
+                              and bool(torch.isfinite(Yk).all()))
+                        max_err = max(max_err, float(
+                            (Yk.double() - Yp.double()).abs().max()))
+                        shape = (f"{p.form}, {vec} of {len(p.chunks)} "
+                                 "chunks as vectors" + (
+                                     f", {len(p.windows)} windows, units of "
+                                     f"{p.rows} rows, {p.cols} columns a "
+                                     "stage" if p.windows else "")
+                                 if p.form != "row" else "one row a thread")
+                        picked = "" if p is plan else ", not picked"
+                        print(f"[3d K8] {name} data {td} X {tx} k={k} "
+                              f"{layout} ({shape}{picked}): bit-identical "
+                              f"to the plain version {same}, to K1 row by "
+                              f"row {same_k1} {'ok' if ok else 'FAIL'}")
+                        check(ok, f"K8 ({p.form}) disagrees on {name} "
+                              f"{td}/{tx} k={k} {layout}")
+                    del X, Y, Yp, K1, runs
         del A, data
         torch.cuda.empty_cache()
-    print(f"[3d K8] forms run (four rows, vector chunks, scalar chunks): "
+    print(f"[3d K8] forms run (form, vector chunks, scalar chunks): "
           f"{sorted(forms)}")
-    check({(False, False, True), (True, True, False), (True, True, True)}
-          <= forms, f"phase 3d did not run both forms of K8's gate: {forms}")
+    check({("row", False, True), ("staged", True, False),
+           ("staged", True, True), ("quad", True, False),
+           ("quad", True, True)} <= forms,
+          f"phase 3d did not run every form of K8's gate: {forms}")
     return max_err
 
 
@@ -2884,7 +2911,7 @@ def phase5j_cg_multi_body(dev, gpu):
     out = {}
     names = {"A": "cg_multi_p_kernel", "B": "cg_multi_pap_kernel",
              "C": "cg_multi_xr_kernel"}
-    k8 = ("dia_spmm_kernel", "dia_spmm_quad_kernel")
+    k8 = ("dia_spmm_kernel", "dia_spmm_quad_kernel", "dia_spmm_kernel_staged")
     for n in BODY_SIZES:
         A, B = k15_problem(n, "f32", dev)
         k = B.shape[0]

@@ -1,5 +1,6 @@
 // What the persistent, chunk-resident SpMV kernels share: K7
-// (csrc/bslab_spmv.cu) and K10/K11 (csrc/bsell_spmv.cu). A thread's vector
+// (csrc/bslab_spmv.cu), K10/K11 (csrc/bsell_spmv.cu) and K8's staged form
+// (csrc/dia_spmm.cu). A thread's vector
 // loads of four plane values, the mbarrier and 1-D bulk-copy (cp.async.bulk)
 // helpers, a unit's ring of W-row chunks of x in shared memory, and the
 // launch helpers of a grid of persistent blocks.
@@ -85,20 +86,42 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
   }
 }
 
+// order this thread's writes to shared memory before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// this thread's arrival on ``bar``, which then expects ``bytes`` more
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// copy ``bytes`` (> 0, a multiple of 16, both ends 16 B aligned) from src
+// to dst, completed on ``bar``; an arrival on ``bar`` expects them
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // thread 0: expect ``bytes`` on ``bar`` and copy them from src to dst
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           unsigned bytes,
                                           unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  if (bytes > 0) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-  }
+  fence_proxy_async();
+  mbar_arrive_expect(bar, bytes);
+  if (bytes > 0) bulk_load(dst, src, bytes, bar);
 }
 
 // a barrier over the unit: its thread-block cluster, or its one block

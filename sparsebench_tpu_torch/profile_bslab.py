@@ -60,6 +60,7 @@ from sparsebench_tpu_torch.host import generate_stencil
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.ops import bsell_spmv as bsell_ops
 from sparsebench_tpu_torch.ops import bslab_spmv as ops
+from sparsebench_tpu_torch.ops import dia_spmm as spmm_ops
 from sparsebench_tpu_torch.ops.bslab_spmv import (
     LANES,
     bslab_spmv,
@@ -140,16 +141,20 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
             fn = getattr(lib, f"sb_bslab_spmv_{sfx}")
             fn.argtypes = [p] * 9 + [i32] * 3 + [p, i64, p, i32, i32, i32, p]
         elif name == "dia_spmm":
-            # K8: data, X, Y, n, nr_pad, then the chunk plan (quad, chunks,
-            # start, d0, length, shift) or, before K8 took it, ndiag and
-            # the offsets
-            lib.k8_takes_plan = "int quad" in src.read_text()
+            # K8: this tree's interface (ops/dia_spmm.py ARGTYPES: the
+            # form and the staged layout); before the staged form the
+            # chunk plan (quad, chunks, start, d0, length, shift) or,
+            # before K8 took a plan, ndiag and the offsets
+            text = src.read_text()
+            lib.k8_plan = ("form" if "int form" in text else
+                           "quad" if "int quad" in text else None)
             fn = getattr(lib, f"sb_dia_spmm_{sfx}")
-            fn.argtypes = ([p, p, p, i64, i64, i32, i64, i64, i32, i32,
+            fn.argtypes = (spmm_ops.ARGTYPES if lib.k8_plan == "form" else
+                           [p, p, p, i64, i64, i32, i64, i64, i32, i32,
                             ctypes.POINTER(i64)] + [ctypes.POINTER(i32)] * 3
-                           if lib.k8_takes_plan else
+                           + [p] if lib.k8_plan else
                            [p, p, p, i64, i64, i32, ctypes.POINTER(i64), i32,
-                            i64, i64]) + [p]
+                            i64, i64, p])
         else:
             # K9: blocks, base, x, vals, lidx, y, n_tiles, s_max, x_rows,
             # stream
@@ -277,8 +282,6 @@ def lib_k8(lib: ctypes.CDLL, data, X, offsets, nr: int, out=None):
     """K8 of another tree's library on this tree's inputs (a contiguous
     (k, nr) X): Y, through the interface its source declares (into ``out``
     when given, as ``lib_k9``)."""
-    from sparsebench_tpu_torch.ops import dia_spmm as spmm_ops
-
     sfx = {torch.bfloat16: "bf16_f32", torch.float32: "f32_f32",
            torch.float64: "f64_f64"}[data.dtype]
     k = X.shape[0]
@@ -287,11 +290,15 @@ def lib_k8(lib: ctypes.CDLL, data, X, offsets, nr: int, out=None):
     stream = torch.cuda.current_stream(X.device).cuda_stream
     offsets = tuple(int(o) for o in offsets)
     head = (data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1])
-    if lib.k8_takes_plan:
+    if lib.k8_plan:
         aligned = all(t.data_ptr() % spmm_ops.ALIGN == 0 for t in (data, X, Y))
+        _form, plan = spmm_ops._plan_args(
+            offsets, nr, data.shape[1], X.shape[1], nr, aligned, k,
+            (data.element_size(), X.element_size()))
+        if lib.k8_plan == "quad":  # four rows a thread wherever it stages
+            plan = (int(plan[0] > 0), *plan[1:-1])
         err = getattr(lib, f"sb_dia_spmm_{sfx}")(
-            *head, k, X.shape[1], nr, *spmm_ops._plan_args(
-                offsets, nr, data.shape[1], X.shape[1], nr, aligned), stream)
+            *head, k, X.shape[1], nr, *plan, stream)
     else:
         arr = (ctypes.c_longlong * len(offsets))(*offsets)
         err = getattr(lib, f"sb_dia_spmm_{sfx}")(

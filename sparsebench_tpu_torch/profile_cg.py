@@ -7,6 +7,7 @@
     python -m sparsebench_tpu_torch.profile_cg --patterns [-n 100 200]
     python -m sparsebench_tpu_torch.profile_cg --k8-variants [-n 100 200]
         [--against DIR]
+    python -m sparsebench_tpu_torch.profile_cg --k8-forms [-n 100 200]
     python -m sparsebench_tpu_torch.profile_cg --stencil-plans [-n 100 200]
         [--against DIR] [--stencil-variants]
     python -m sparsebench_tpu_torch.profile_cg --vmem-variants [-n 100 200]
@@ -43,15 +44,26 @@ moves at least (diagonals once, X and Y once). The patterns separate the
 cost of the matrix stream from that of the shifted x loads.
 
 ``--k8-variants`` times designs of K8 that differ from this tree's by one
-edit of ``csrc/dia_spmm.cu`` (``K8_VARIANTS``: how many columns a thread
-sums, the block size; and two diagnostics that read the wrong x on
-purpose: every chunk's x from the same rows, so from L1, and no x loads at
-all), each written to ``build/k8_variants/`` and built with this tree's
-flags, on the n^3 stencil at k = 8, in turns with this tree's K8 (this,
-the others, the others again in reverse, this), beside its bound; with
-``--against DIR`` another tree's K8 among them (for instance the parent,
-unpacked with ``git archive``). Every variant but the diagnostics is first
-held to this tree's result bit for bit.
+edit of ``csrc/dia_spmm.cu`` (``K8_VARIANTS``: the staged form's stages,
+columns a thread, the unrolled runs of three, the planes a run and the
+registers a thread; and
+two diagnostics that give wrong sums on purpose: X copied only for a
+block's first units, so the sums and the data copies, and no sums at
+all, the copies alone), each written to ``build/k8_variants/`` and built
+with this tree's flags, and this tree's kernel under the staged plans of
+``K8_PLANS`` (rows a unit, columns a stage), on the n^3 stencil at k = 8,
+in turns with this tree's K8 (this, the others, the others again in
+reverse, this), beside its bound; with ``--against DIR`` another tree's
+K8 among them (for instance the parent, unpacked with ``git archive``).
+Every variant but the diagnostics is first held to this tree's result bit
+for bit.
+
+``--k8-forms`` times K8's staged form against its four-row form in turns
+(four-row, staged, staged, four-row, four-row, staged) at the inputs of
+``K8_FORMS`` whose n is among ``-n`` (the 27- and 7-point stencils, the
+three dtype pairs, several k), each where ``staged_plan`` admits the
+staged form, with the form that ``spmm_plan`` picks, after holding the two
+to each other bit for bit.
 
 ``--stencil-plans`` times the stencil kernels K2 (the apply) and K3 (the
 fused p-update, apply and dot) on the n^3 grid, f32, under the default
@@ -131,20 +143,35 @@ PATTERN_KS = (1, 2, 4, 8, 16)  # block widths of --patterns
 OPERATORS = {"dia": DiaMatrix, "stencil": StencilOperator,
              "bslab": BslabMatrix, "bsell": BsellMatrix}
 # --k8-variants: (name, edits of csrc/dia_spmm.cu, its result is right)
-_X_LOADS = ("      if (j0 >= 0 && j0 < n) Vec4<TX>::load(xc + j0, w[c] + 1);\n"
-            "      if (lane == 0) edge[c] = x_at(xc, j0 - 1, n);\n"
-            "      if (lane == 31) edge[c] = x_at(xc, j0 + 4, n);\n")
+_X_COPY = ("          sb::bulk_load(seg + z0, x + (run.c0 + c) * ldx + lo, b, full + s);\n"
+           "          bytes += b;\n")
 K8_VARIANTS = (
-    ("8 columns a thread", [("kSlices = 4;", "kSlices = 1;")], True),
-    ("4 columns a thread", [("kSlices = 4;", "kSlices = 2;")], True),
-    ("1 column a thread", [("kSlices = 4;", "kSlices = 8;"),
-                           ("kQuadThreads = 128;", "kQuadThreads = 256;")],
+    ("two stages", [("kMarchStages = 3;", "kMarchStages = 2;")], True),
+    ("8 columns a thread", [("kThreadCols = 4;", "kThreadCols = 8;")], True),
+    ("chunks in a loop", [("bool run3 = runs.count == 9;",
+                           "bool run3 = false;")], True),
+    ("runs of 1 plane", [("kRunPlanes = 32;", "kRunPlanes = 1;")], True),
+    ("registers ptxas chooses", [("__global__ void __maxnreg__(kStagedRegs<TD>)",
+                                  "__global__ void __launch_bounds__(288)")],
      True),
-    ("blocks of 256", [("kQuadThreads = 128;", "kQuadThreads = 256;")], True),
-    ("blocks of 512", [("kQuadThreads = 128;", "kQuadThreads = 512;")], True),
-    ("x from L1", [("const long long j0 = i0 + s0 + 1 - shift;",
-                    "const long long j0 = i0;")], False),
-    ("no x loads", [(_X_LOADS, "      (void)xc;\n")], False),
+    ("X copied once", [(_X_COPY, "          if (j < kMarchStages) {\n" + _X_COPY
+                        + "          }\n")], False),
+    ("no sums", [("for (int r = 0; r < kRun3; ++r) {",
+                  "for (int r = 0; r < 0; ++r) {")], False),
+)
+# --k8-variants: staged plans forced on this tree's kernel (name, fields)
+K8_PLANS = (("units of 256 rows", {"rows": 256}),
+            ("4 columns a stage", {"cols": 4}))
+# --k8-forms: (n, 7-point, (data, X), the k timed)
+K8_FORMS = (
+    (200, False, ("bf16", "f32"), (1, 2, 3, 8, 12, 16)),
+    (200, False, ("f32", "f32"), (1, 3, 4, 8, 16)),
+    (200, False, ("f64", "f64"), (1, 3, 4)),
+    (200, True, ("bf16", "f32"), (1, 8, 16)),
+    (200, True, ("f32", "f32"), (1, 2, 8)),
+    (200, True, ("f64", "f64"), (1, 2, 3, 8)),
+    (100, False, ("bf16", "f32"), (1, 8, 16)),
+    (100, False, ("f64", "f64"), (1, 3, 8)),
 )
 # --stencil-plans: (R, tz) forced beside the default plan
 STENCIL_PLANS = ((1, 16), (1, 32), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8),
@@ -370,10 +397,79 @@ def variant_trees(root, source: str, variants) -> list:
     return out
 
 
+def k8_as(plan, data, X, nr: int):
+    """This tree's K8 under ``plan`` (``spmm_plan``'s, or one forced on it)
+    on a contiguous, 16 B aligned (k, nr) X: Y."""
+    from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.ops import dia_spmm as spmm_ops
+
+    lib = spmm_ops._library()
+    k = X.shape[0]
+    Y = torch.empty((k, nr), dtype=X.dtype, device=X.device)
+    err = getattr(lib, spmm_ops._ENTRY[(data.dtype, X.dtype)])(
+        data.data_ptr(), X.data_ptr(), Y.data_ptr(), nr, data.shape[1], k,
+        X.shape[1], nr, *spmm_ops.plan_args(plan, X.element_size()),
+        torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(lib, err, "dia_spmm")
+    return Y
+
+
+def profile_k8_forms(sizes, gpu: str) -> None:
+    """K8's staged form against its four-row form, in turns, at the inputs
+    of ``K8_FORMS`` whose n is in ``sizes``."""
+    from sparsebench_tpu_torch.ops.dia_spmm import spmm_plan, staged_plan
+
+    dev = torch.device("cuda")
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32,
+           "f64": torch.float64}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n, use_7pt, (td, tx), ks in K8_FORMS:
+        if n not in sizes:
+            continue
+        A, _ = DiaMatrix.from_stencil(n, n, n, use_7pt=use_7pt, device=dev,
+                                      impl="kernel",
+                                      policy=DTypePolicy.from_names("f32"))
+        d, offs, nr = A.data.to(dts[td]), A.offsets, A.nr
+        tag = f"{n}^3 {7 if use_7pt else 27}-point {td}/{tx}"
+        for k in ks:
+            X = torch.randn((k, nr), device=dev, generator=gen).to(dts[tx])
+            sizes_b = (d.element_size(), X.element_size())
+            plan = spmm_plan(offs, nr, d.shape[1], nr, nr, True, k, sizes_b)
+            staged = staged_plan(plan.chunks, nr, d.shape[1], k, sizes_b)
+            if staged is None:
+                print(f"{tag} k={k}: {plan.form}, no staged form | {gpu}")
+                continue
+            plans = {"quad": staged._replace(form="quad", windows=()),
+                     "staged": staged}
+            same = torch.equal(k8_as(plans["quad"], d, X, nr),
+                               k8_as(staged, d, X, nr))
+            if not same:
+                raise SystemExit(f"K8's two forms differ at {tag} k={k}")
+            ms = {"quad": [], "staged": []}
+            for form in ("quad", "staged", "staged", "quad", "quad",
+                         "staged"):
+                ms[form].append(replay_ms(
+                    lambda p=plans[form]: k8_as(p, d, X, nr)))
+            q, st = min(ms["quad"]), min(ms["staged"])
+            bound = (len(offs) * nr * d.element_size()
+                     + 2 * k * nr * X.element_size()) / 3.35e9
+            print(f"{tag} k={k}: {plan.form} picked; four-row "
+                  f"{'/'.join(f'{t:.6f}' for t in ms['quad'])}, staged "
+                  f"{'/'.join(f'{t:.6f}' for t in ms['staged'])} ms "
+                  f"(units of {staged.rows} rows, {staged.cols} columns a "
+                  f"stage): staged/four-row {st / q:.3f}; "
+                  f"{bound / st:.3f} / {bound / q:.3f} of the bound "
+                  f"{bound:.6f} ms | {gpu}", flush=True)
+            del X
+        del A, d
+        torch.cuda.empty_cache()
+
+
 def profile_k8_variants(n: int, gpu: str, against=None) -> None:
     """K8 at k = 8 on the n^3 stencil: this tree's beside its variants and,
     with ``against``, another tree's, in turns."""
     from sparsebench_tpu_torch.ops import _build
+    from sparsebench_tpu_torch.ops.dia_spmm import spmm_plan
     from sparsebench_tpu_torch.profile_bslab import build_other, lib_k8
 
     dev = torch.device("cuda")
@@ -383,6 +479,11 @@ def profile_k8_variants(n: int, gpu: str, against=None) -> None:
     X = torch.randn((NRHS, nr), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
     fns = {"this tree": (lambda: dia_spmm(d, X, offs, nr), True)}
+    plan = spmm_plan(offs, nr, d.shape[1], nr, nr, True, NRHS,
+                     (d.element_size(), X.element_size()))
+    for name, fields in K8_PLANS:
+        fns[name] = (lambda p=plan._replace(**fields): k8_as(p, d, X, nr),
+                     True)
     trees = variant_trees(_build.BUILD_DIR.parent / "k8_variants",
                           "dia_spmm.cu", K8_VARIANTS)
     if against is not None:
@@ -589,6 +690,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k8-variants", action="store_true",
                     help="time K8 beside designs one edit away (module "
                     "docstring) instead of a solve")
+    ap.add_argument("--k8-forms", action="store_true",
+                    help="time K8's staged form against its four-row form "
+                    "(module docstring) instead of a solve")
     ap.add_argument("--stencil-plans", action="store_true",
                     help="time K2 and K3 under forced tile plans (module "
                     "docstring) instead of a solve")
@@ -612,6 +716,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} | {gpu}")
+    if args.k8_forms:
+        profile_k8_forms(args.n, gpu)
+        return 0
     for n in args.n:
         if args.k8_variants:
             profile_k8_variants(n, gpu, args.against)

@@ -53,10 +53,17 @@ from sparsebench_tpu_torch.ops.bslab_spmv import (
 )
 from sparsebench_tpu_torch.ops.cg_fused import cs_update, cs_update_torch
 from sparsebench_tpu_torch.ops.dia_spmm import (
+    STAGED,
+    Window,
     aligned_shift,
     dia_spmm,
     dia_spmm_torch,
+    march_plane,
+    ring_bytes,
+    segments,
     spmm_plan,
+    staged_plan,
+    windows_of,
 )
 from sparsebench_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_torch
 from sparsebench_tpu_torch.ops.memroof import (
@@ -942,13 +949,15 @@ def stencil_offsets(nx, ny, use_7pt=False):
     (10, 10, False, [3] * 9, [-1, 0, -1] * 3),
 ])
 def test_spmm_plan_on_the_stencil(nx, ny, use_7pt, lens, shifts):
-    """K8's gate on the stencil's offsets at n = nx ny nz, a multiple of 4:
-    four rows a thread, the runs as chunks in order, and which of them
-    read x as one aligned vector a column (shift >= 0)."""
+    """K8's gate on the stencil's offsets at n = nx ny nz, a multiple of 4,
+    with 8 columns of f32 under bf16 diagonals: the staged form where the
+    planes lie a tile or more apart (else four rows a thread), the runs as
+    chunks in order, and which of them read x as one aligned vector a
+    column (shift >= 0)."""
     offsets = stencil_offsets(nx, ny, use_7pt)
     n = nx * ny * 8
-    plan = spmm_plan(offsets, n, n, n, n, True)
-    assert plan.quad
+    plan = spmm_plan(offsets, n, n, n, n, True, 8, (2, 4))
+    assert plan.form == ("quad" if nx == 10 else "staged")
     assert [c.length for c in plan.chunks] == lens
     assert [c.shift for c in plan.chunks] == shifts
     assert [c.d0 for c in plan.chunks] == list(np.cumsum([0] + lens[:-1]))
@@ -968,14 +977,16 @@ def test_spmm_plan_on_the_stencil(nx, ny, use_7pt, lens, shifts):
 ])
 def test_spmm_plan_takes_the_general_form(n, nr_pad, ldx, ldy, aligned):
     """Where a size, a stride or a base pointer does not allow aligned
-    vectors, one row a thread and every chunk read as scalars."""
+    vectors, one row a thread and every chunk read as scalars, whatever
+    the columns and dtypes."""
     offsets = stencil_offsets(100, 100)
-    plan = spmm_plan(offsets, n, nr_pad, ldx, ldy, aligned)
-    assert not plan.quad
-    assert all(c.shift == -1 for c in plan.chunks)
-    assert [c.length for c in plan.chunks] == [3] * 9
+    for k, sizes in ((1, (2, 4)), (8, (2, 4)), (8, (8, 8))):
+        plan = spmm_plan(offsets, n, nr_pad, ldx, ldy, aligned, k, sizes)
+        assert plan.form == "row" and plan.windows == ()
+        assert all(c.shift == -1 for c in plan.chunks)
+        assert [c.length for c in plan.chunks] == [3] * 9
     # chunks of consecutive offsets stop at four diagonals
-    plan = spmm_plan(range(-5, 5), 800, 896, 800, 800, True)
+    plan = spmm_plan(range(-5, 5), 800, 896, 800, 800, True, 8, (2, 4))
     assert [(c.d0, c.length, c.start) for c in plan.chunks] == [
         (0, 4, -5), (4, 4, -1), (8, 2, 3)]
 
@@ -1012,7 +1023,7 @@ def emulate_four_row_form(data, X, offsets, n, plan):
     value before it from the previous lane's vector and the one after from
     the next lane's, lanes 0 and 31 reading theirs; another chunk's len + 3
     scalars), summed per row in the diagonals' order, one rounding an op."""
-    assert plan.quad
+    assert plan.form in ("quad", "staged")
     k, xdt, zero = X.shape[0], X.dtype, torch.zeros((), dtype=X.dtype)
     threads = -(-(n // 4) // 128) * 128
     i0 = 4 * torch.arange(threads)
@@ -1068,14 +1079,403 @@ def test_four_row_form_emulated_equals_plain(dims, use_7pt, pair):
     for data, offs, n in cases:
         data = data.to(DT[pair[0]])
         X = torch.from_numpy(rng.standard_normal((3, n))).to(DT[pair[1]])
-        plan = spmm_plan(offs, n, data.shape[1], n, n, True)
-        assert plan.quad
+        plan = spmm_plan(offs, n, data.shape[1], n, n, True, 3,
+                         (data.element_size(), X.element_size()))
+        assert plan.form in ("quad", "staged")
         shifts = {c.shift for c in plan.chunks}
         assert shifts & {0, 1, 2} and (-1 in shifts or n == A.nr)
         got = emulate_four_row_form(data, X, offs, n, plan)
         want = dia_spmm_torch(data, X, offs, n)
         bits = torch.int64 if X.dtype == torch.float64 else torch.int32
         assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("nx,ny,nz,use_7pt,windows", [
+    # (diagonals, least offset, largest) a window: one a plane of the stencil
+    (100, 100, 100, False, [(9, -10101, -9899), (9, -101, 101),
+                            (9, 9899, 10101)]),
+    (200, 200, 200, False, [(9, -40201, -39799), (9, -201, 201),
+                            (9, 39799, 40201)]),
+    (100, 100, 100, True, [(1, -10000, -10000), (5, -100, 100),
+                           (1, 10000, 10000)]),
+    (200, 200, 200, True, [(1, -40000, -40000), (5, -200, 200),
+                           (1, 40000, 40000)]),
+    (30, 20, 12, False, [(9, -631, -569), (9, -31, 31), (9, 569, 631)]),
+    # planes closer than a tile: one window
+    (10, 10, 8, False, [(27, -111, 111)]),
+    (12, 10, 9, False, [(27, -133, 133)]),
+    (8, 8, 8, True, [(7, -64, 64)]),
+])
+def test_staged_windows_on_the_stencil(nx, ny, nz, use_7pt, windows):
+    """The staged form's windows: runs of consecutive chunks whose offsets
+    lie within a unit's rows of each other, in the diagonals' order; with
+    more than one, the march through the planes of nx ny rows, and with
+    one, planes too close to stage, the four-row form."""
+    offsets = stencil_offsets(nx, ny, use_7pt)
+    n = nx * ny * nz
+    plan = spmm_plan(offsets, n, n, n, n, True, 8, (2, 4))
+    wins = windows_of(plan.chunks)
+    assert plan.form == ("staged" if len(windows) > 1 else "quad")
+    assert plan.windows == (wins if len(windows) > 1 else ())
+    assert march_plane(wins, n) == (nx * ny if len(windows) > 1 else 0)
+    assert plan.plane == march_plane(wins, n)
+    got = [(sum(c.length for c in plan.chunks[w.first:w.first + w.count]),
+            w.lo, w.hi) for w in wins]
+    assert got == windows
+    assert [w.first for w in wins] == list(np.cumsum(
+        [0] + [w.count for w in wins[:-1]]))
+    assert sum(w.count for w in wins) == len(plan.chunks)
+    for w in wins:
+        chunks = plan.chunks[w.first:w.first + w.count]
+        assert w.lo == min(c.start for c in chunks)
+        assert w.hi == max(c.start + c.length - 1 for c in chunks)
+
+
+# 200^3, 27 points: (k, data and X bytes a value) -> (rows, cols) or quad
+STAGED_SHAPES = {
+    (1, (2, 4)): (512, 1), (3, (2, 4)): (512, 3), (8, (2, 4)): (512, 8),
+    (12, (2, 4)): (512, 8), (16, (2, 4)): (512, 8),
+    (1, (4, 4)): (512, 1), (3, (4, 4)): (512, 3), (8, (4, 4)): (256, 8),
+    (12, (4, 4)): (256, 8), (16, (4, 4)): (256, 8),
+    (1, (8, 8)): (256, 1), (3, (8, 8)): (128, 3), (8, (8, 8)): None,
+    (12, (8, 8)): None, (16, (8, 8)): None,
+}
+
+
+@pytest.mark.parametrize("k,sizes", list(STAGED_SHAPES))
+def test_staged_shape_fills_the_shared_memory(k, sizes):
+    """At 200^3: min(k, 8) columns a stage and the most rows, a multiple of
+    128 up to 512, whose three data stages and five X slots fit 227 KB
+    with the barriers and the guard; f64 with 8 or more columns does not
+    fit at 128 rows and keeps the four-row form."""
+    offsets = stencil_offsets(200, 200)
+    n = 200 ** 3
+    chunks = spmm_plan(offsets, n, n, n, n, True, k, sizes).chunks
+    plan = staged_plan(chunks, n, n, k, sizes)
+    want = STAGED_SHAPES[(k, sizes)]
+    if want is None:
+        assert plan is None
+        assert spmm_plan(offsets, n, n, n, n, True, k, sizes).form == "quad"
+        return
+    assert plan.form == "staged" and (plan.rows, plan.cols) == want
+
+    def used(rows):
+        return STAGED.bar_bytes + STAGED.guard_bytes + ring_bytes(
+            plan.windows, 27, rows, plan.cols, sizes, plan.plane)
+
+    assert used(plan.rows) <= STAGED.smem_budget
+    assert plan.rows == STAGED.tile_rows or used(plan.rows + 128) > (
+        STAGED.smem_budget)
+    if (k, sizes) == (8, (2, 4)):
+        # three data stages of 27 x 512 bf16, five slots of 8 x 920 f32
+        assert ring_bytes(plan.windows, 27, 512, 8, sizes, plan.plane) == (
+            3 * 27648 + 5 * 29440)
+        assert segments(plan.windows, plan.plane, 512, 4) == (
+            (-40204, 920), (-204, 920), (39796, 920))
+
+
+def four_row_case(case):
+    """(offsets, n, nr_pad, k, sizes) of an input the four-row form keeps
+    (test_spmm_plan_keeps_the_four_row_form)."""
+    n, nr_pad, k, sizes = 65536, 65536, 8, (2, 4)
+    if case == "17 windows":
+        offsets = [1024 * i for i in range(-8, 9)]
+    elif case == "over the budget":
+        offsets = [4096 * w + 500 * j for w in (-1, 0, 1) for j in range(-3, 4)]
+    elif case == "bf16 rows of 8 B multiples":
+        offsets, nr_pad = stencil_offsets(64, 64), 65540
+    elif case == "one window":
+        offsets = stencil_offsets(10, 10)
+    elif case == "planes not dividing n":
+        offsets = stencil_offsets(40, 40)
+        n = nr_pad = 40 * 40 * 40 + 4
+    elif case == "f64 at 200^3":
+        offsets, n, sizes = stencil_offsets(200, 200), 200 ** 3, (8, 8)
+        nr_pad = n
+    else:  # the data outweigh X: f32 diagonals under one column
+        offsets, k, sizes = stencil_offsets(64, 64), 1, (4, 4)
+    return offsets, n, nr_pad, k, sizes
+
+
+FOUR_ROW_CASES = ["17 windows", "over the budget",
+                  "bf16 rows of 8 B multiples", "f64 at 200^3", "one window",
+                  "planes not dividing n", "the data outweigh X"]
+
+
+@pytest.mark.parametrize("case", FOUR_ROW_CASES)
+def test_spmm_plan_keeps_the_four_row_form(case):
+    """Where the staged form does not apply, the four-row form runs as
+    before: more windows than kMaxWindows (planes of 1024 rows), planes
+    whose segments overflow the shared memory at 128 rows, bf16 diagonals
+    whose rows are not 16 B multiples, f64 at 200^3 with 8 columns, one
+    window (planes closer than a unit), n not a multiple of the planes,
+    and a row's diagonals taking 7 or more times the bytes of its X values
+    in a stage's columns (where staged_plan admits the staged form)."""
+    offsets, n, nr_pad, k, sizes = four_row_case(case)
+    plan = spmm_plan(offsets, n, nr_pad, n, n, True, k, sizes)
+    assert plan.form == "quad" and plan.windows == ()
+    assert all(c.shift == aligned_shift(c.start, c.length)
+               for c in plan.chunks)
+    staged = staged_plan(plan.chunks, n, nr_pad, k, sizes)
+    assert (staged is not None) == (case == "the data outweigh X")
+
+
+# (n, 7-point, data and X bytes a value, k) -> the form spmm_plan picks:
+# the staged form where it was faster on the card (PERF.md §6)
+STAGED_PICKS = {
+    (200, False, (2, 4), 1): "quad", (200, False, (2, 4), 2): "staged",
+    (200, False, (2, 4), 8): "staged", (200, False, (2, 4), 16): "staged",
+    (200, False, (4, 4), 1): "quad", (200, False, (4, 4), 3): "quad",
+    (200, False, (4, 4), 4): "staged", (200, False, (4, 4), 16): "staged",
+    (200, False, (8, 8), 1): "quad", (200, False, (8, 8), 3): "quad",
+    (200, True, (2, 4), 1): "staged", (200, True, (4, 4), 1): "quad",
+    (200, True, (8, 8), 1): "quad", (200, True, (8, 8), 3): "staged",
+    (100, False, (8, 8), 1): "quad", (100, False, (8, 8), 3): "quad",
+    (100, False, (8, 8), 8): "staged", (100, False, (2, 4), 16): "staged",
+}
+
+
+@pytest.mark.parametrize("n,use_7pt,sizes,k", list(STAGED_PICKS))
+def test_spmm_plan_stages_where_it_measured_faster(n, use_7pt, sizes, k):
+    """On the stencils at 100^3 and 200^3, spmm_plan picks the staged form
+    where the card ran it faster than the four-row form, and the four-row
+    form where that was as fast or faster: f64 at 1 to 3 columns, f32
+    diagonals under 1 column of f32 (the 27-point also at 3)."""
+    offsets = stencil_offsets(n, n, use_7pt)
+    rows = n ** 3
+    plan = spmm_plan(offsets, rows, rows, rows, rows, True, k, sizes)
+    assert plan.form == STAGED_PICKS[(n, use_7pt, sizes, k)]
+    assert staged_plan(plan.chunks, rows, rows, k, sizes) is not None
+
+
+def test_staged_constants_match_the_source():
+    """ops/dia_spmm.py STAGED holds csrc/dia_spmm.cu's constants."""
+    import re
+
+    src = (_build.CSRC_DIR / "dia_spmm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert STAGED == STAGED._make([const(n) for n in (
+        "kTileRows", "kTileStep", "kMarchStages", "kStageCols",
+        "kSmemBudget", "kMaxWindows")] + [
+            (2 * const("kMarchStages") * 8 + 15) // 16 * 16,
+            const("kGuardBytes")])
+    assert ("constexpr int kBarBytes = (2 * kMarchStages * 8 + 15) / 16 * 16;"
+            in src)
+    assert const("kRunPlanes") == RUN_PLANES
+
+
+@pytest.mark.parametrize("windows,n,plane", [
+    ([(-40201, -39799), (-201, 201), (39799, 40201)], 200 ** 3, 40000),
+    ([(-40000, -40000), (-200, 200), (40000, 40000)], 200 ** 3, 40000),
+    ([(-40201, -39799), (-201, 201), (39799, 40201)], 200 ** 3 + 8, 0),
+    ([(-1500, -1499), (-700, 9), (700, 700), (1501, 1501)], 2044, 0),
+    ([(-1004, -1004), (0, 0), (1004, 1004)], 2008, 0),   # P not 0 mod 8
+    ([(0, 0), (1000, 1000), (2000, 2000)], 4000, 1000),
+    ([(0, 0), (1000, 1000), (2008, 2008)], 4000, 0),     # not even
+    ([(-64, 64)], 512, 0),
+])
+def test_march_plane(windows, n, plane):
+    """The staged form marches where two or more windows' centres lie P > 0
+    apart, P = 0 mod 8 and n = 0 mod P."""
+    assert march_plane([Window(i, 1, lo, hi)
+                        for i, (lo, hi) in enumerate(windows)], n) == plane
+
+
+RUN_PLANES = 32  # csrc/dia_spmm.cu kRunPlanes
+
+
+def staged_runs(plan, n, k, resident):
+    """The staged form's runs for a grid of at most ``resident`` blocks
+    (csrc/dia_spmm.cu run_at and march_runs), each a list of its units
+    (i0, rows, c0), and the grid. A run is a strip's units of up to
+    RUN_PLANES planes in a row, the most whose busiest block has the fewest
+    units, runs going group by group, plane segment by segment, strip by
+    strip."""
+    rows, cols, plane = plan.rows, plan.cols, plan.plane
+    groups = -(-k // cols)
+    strips, planes = -(-plane // rows), n // plane
+    best = None
+    for zs in range(RUN_PLANES, 0, -1):
+        count = groups * -(-planes // zs) * strips
+        busiest = -(-count // min(count, resident)) * zs
+        if best is None or busiest < best[0]:
+            best = (busiest, zs)
+    zs = best[1]
+    runs = [[((z0 + z) * plane + s * rows, min(rows, plane - s * rows),
+              grp * cols) for z in range(min(zs, planes - z0))]
+            for grp in range(groups) for z0 in range(0, planes, zs)
+            for s in range(strips)]
+    return runs, min(len(runs), resident)
+
+
+def ring_schedule(plan, runs, blocks, x_size, stages):
+    """Each block's walk of its runs (run b, b + blocks, ...) through the
+    X slot ring (csrc/dia_spmm.cu staged_produce and staged_consume), with
+    ``stages`` units in flight and windows + stages - 1 slots. Unit j reads
+    window w from slot (f_j + w) mod R, f growing by 1 within a run and by
+    the window count where a run starts; the producer loads unit j's new
+    segments once unit j - stages is released (at a run's start, unit j -
+    1), while the units after it may still be summed. Returns the segments
+    loaded and the busiest block's units; raises where a load overwrites a
+    slot a running unit reads, or a unit reads a slot that holds another
+    segment than its window's."""
+    nw = len(plan.windows)
+    slots = nw + stages - 1
+    segs = segments(plan.windows, plan.plane, plan.rows, x_size)
+    loads = busiest = 0
+    for b in range(blocks):
+        units = [(i0, c0, z > 0) for run in runs[b::blocks]
+                 for z, (i0, _rows, c0) in enumerate(run)]
+        busiest = max(busiest, len(units))
+        held, fs, released = {}, [], -1
+        for j, (i0, c0, cont) in enumerate(units):
+            fs.append(0 if j == 0 else fs[-1] + (1 if cont else nw))
+            f = fs[-1]
+            released = max(released, j - stages if cont else j - 1)
+            running = {(fs[jj] + w) % slots
+                       for jj in range(released + 1, j) for w in range(nw)}
+            for w in range(nw - 1 if cont else 0, nw):
+                assert (f + w) % slots not in running, (b, j, w)
+                held[(f + w) % slots] = (c0, i0 + segs[w][0], segs[w][1])
+                loads += 1
+            for w in range(nw):
+                assert held[(f + w) % slots] == (c0, i0 + segs[w][0],
+                                                 segs[w][1]), (b, j, w)
+    return loads, busiest
+
+
+@pytest.mark.parametrize("dims,k", [((200, 200, 200), 8), ((100, 100, 100), 8),
+                                    ((30, 20, 12), 12), ((30, 20, 12), 3),
+                                    ((30, 24, 6), 16)])
+@pytest.mark.parametrize("blocks", [132, 7, 1])
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_staged_ring_schedule(dims, k, blocks, stages):
+    """The runs cover every unit once, and the slot ring on the stencil
+    gives every unit its windows' segments and overwrites no slot in use,
+    for 132, 7 and 1 blocks and two to four stages (the kernel's: three).
+    The march loads one segment a unit and column group but at a run's
+    start, and its busiest block has as few units as any split of them
+    (200^3, 132 blocks: runs of 20 planes, 1.1 loads a unit against 3
+    without the march, 120 units)."""
+    offsets = stencil_offsets(dims[0], dims[1])
+    n = dims[0] * dims[1] * dims[2]
+    plan = spmm_plan(offsets, n, n, n, n, True, k, (2, 4))
+    assert plan.form == "staged"
+    runs, grid = staged_runs(plan, n, k, blocks)
+    units = [u for run in runs for u in run]
+    tiles = [z * plan.plane + s for z in range(n // plan.plane)
+             for s in range(0, plan.plane, plan.rows)]
+    assert sorted((i0, c0) for i0, _, c0 in units) == sorted(
+        (i0, c0) for c0 in range(0, k, plan.cols) for i0 in tiles)
+    loads, busiest = ring_schedule(plan, runs, grid, 4, stages)
+    assert loads >= len(plan.windows) * len(runs)
+    if dims == (200, 200, 200) and blocks == 132:
+        assert len(runs[0]) == 20 and loads == 1.1 * len(units)
+        assert busiest == -(-len(units) // 132) == 120
+
+
+def emulate_staged_form(data, X, n, plan):
+    """csrc/dia_spmm.cu's staged form in torch, unit by unit
+    (``staged_runs``): the data stage as the producer fills it (rows past
+    the unit's copy left as NaN), each window's segment (``segments``:
+    zeros outside [0, n), NaN in the two values on either side that the
+    edge lanes may read), and the consumers' reads from them (an aligned
+    chunk's vector a column, the values around it by shuffle within a warp
+    of 32 quads, lanes 0 and 31 reading theirs; another chunk's len + 3
+    scalars), summed per row window by window in the diagonals' order, one
+    rounding an op; each unit stores its rows."""
+    assert plan.form == "staged"
+    rows = plan.rows
+    k, xdt, nan = X.shape[0], X.dtype, float("nan")
+    zero = torch.zeros((), dtype=xdt)
+    r0 = 4 * torch.arange(rows // 4)
+    lane = torch.arange(rows // 4) % 32
+    segs = segments(plan.windows, plan.plane, rows, X.element_size())
+    Y = torch.full((k, n), nan, dtype=xdt)
+    for i0, unit_rows, c0 in (u for run in staged_runs(plan, n, k, 132)[0]
+                              for u in run):
+        ds = torch.full((data.shape[0], rows), nan, dtype=xdt)
+        ds[:, :unit_rows] = data[:, i0:i0 + unit_rows].to(xdt)
+        kc = min(plan.cols, k - c0)
+        acc = torch.zeros((kc, rows // 4, 4), dtype=xdt)
+        for win, (lo, length) in zip(plan.windows, segs):
+            j = i0 + lo + torch.arange(length)
+            seg = torch.where((j >= 0) & (j < n),
+                              X[c0:c0 + kc, j.clamp(0, n - 1)], zero)
+            seg = torch.cat([torch.full((kc, 2), nan, dtype=xdt), seg,
+                             torch.full((kc, 2), nan, dtype=xdt)], 1)
+            for ch in plan.chunks[win.first:win.first + win.count]:
+                a = [ds[ch.d0 + u][r0[:, None] + torch.arange(4)]
+                     for u in range(ch.length)]
+                p0 = ch.start - lo + 2  # + 2: the NaN before the segment
+                if ch.shift >= 0:
+                    p = r0 + p0 + 1 - ch.shift
+                    vec = torch.stack([seg[:, p + q] for q in range(4)], -1)
+                    warps = vec.reshape(kc, -1, 32, 4)
+                    before = torch.roll(warps[..., 3], 1, 2).reshape(kc, -1)
+                    after = torch.roll(warps[..., 0], -1, 2).reshape(kc, -1)
+                    before = torch.where(lane == 0, seg[:, p - 1], before)
+                    after = torch.where(lane == 31, seg[:, p + 4], after)
+                    w = torch.cat([before[..., None], vec, after[..., None]],
+                                  -1)
+                    shift = ch.shift
+                else:
+                    w = torch.stack([seg[:, r0 + p0 + m]
+                                     for m in range(ch.length + 3)], -1)
+                    shift = 0
+                for u in range(ch.length):
+                    for q in range(4):
+                        acc[..., q] = (acc[..., q]
+                                       + a[u][:, q] * w[..., q + u + shift])
+        Y[c0:c0 + kc, i0:i0 + unit_rows] = acc.reshape(kc, rows)[:, :unit_rows]
+    return Y
+
+
+@pytest.mark.parametrize("case,k", [
+    ("30x24x6", 16),    # vector and scalar chunks; two groups of 8 columns
+    ("40x16x5", 12),    # every chunk a vector; groups of 8 and 4 columns
+    ("40x16x5 7-point", 3),
+    ("30x20x12", 9),    # three windows, strips of 512 and 88
+    ("30x20x12 7-point", 8),  # windows of 1, 5 and 1 diagonals
+    ("synthetic", 3),   # four planes, every phase mod 4, chunks of 1-4
+])
+@pytest.mark.parametrize("pair", PAIRS)
+def test_staged_form_emulated_equals_plain(case, k, pair):
+    """The staged form's stages, reads and sums, emulated on the CPU, give
+    the plain version's bits: the windows' zeros at the ends of X, the
+    strips (the last one of a plane partial), column groups and the sum
+    order across windows, wherever staged_plan admits it."""
+    rng = np.random.default_rng(len(case) + k)
+    if case == "synthetic":
+        offsets = (-2037, -2036, -2001, -2000, -1963,
+                   -1037, -1036, -1035, -1003, -1000, -999, -963,
+                   -37, -3, 0, 1, 2, 5, 6, 7, 8, 9, 37,
+                   963, 1000, 1001, 1037)
+        n = 4000
+        data = torch.from_numpy(rng.standard_normal((len(offsets), 4096)))
+    else:
+        dims = tuple(int(v) for v in case.split()[0].split("x"))
+        A, _ = DiaMatrix.from_stencil(*dims, use_7pt="7-point" in case,
+                                      device=CPU,
+                                      policy=DTypePolicy.from_names("f32"))
+        offsets, n, data = A.offsets, A.nr, A.data
+    data = data.to(DT[pair[0]])
+    X = torch.from_numpy(rng.standard_normal((k, n))).to(DT[pair[1]])
+    sizes = (data.element_size(), X.element_size())
+    plan = staged_plan(spmm_plan(offsets, n, data.shape[1], n, n, True, k,
+                                 sizes).chunks, n, data.shape[1], k, sizes)
+    assert plan.form == "staged" and len(plan.windows) == (
+        4 if case == "synthetic" else 3)
+    assert plan.plane == (1000 if case == "synthetic" else
+                          int(np.prod([int(v) for v in
+                                       case.split()[0].split("x")[:2]])))
+    got = emulate_staged_form(data, X, n, plan)
+    want = dia_spmm_torch(data, X, offsets, n)
+    bits = torch.int64 if X.dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
 
 
 def test_k8_variants_are_one_edit_of_the_source(tmp_path):
@@ -1141,12 +1541,18 @@ def test_vmem_variants_are_one_edit_of_the_source(tmp_path):
 
 
 def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):
+    """K8 once on the card, bit for bit the plain version and, column by
+    column, K1; returns the form it ran (``spmm_plan``, as the wrapper
+    reads it)."""
     before = dia_spmm.launches
     Y = dia_spmm(data, X, offsets, nr)
     assert dia_spmm.launches == before + 1
     assert_bits_equal(Y, dia_spmm_torch(data, X, offsets, nr))
     for c in range(X.shape[0]):
         assert_bits_equal(Y[c], dia_spmv(data, X[c].contiguous(), offsets, nr))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (data, X))
+    return spmm_plan(offsets, nr, data.shape[1], X.shape[1], nr, aligned,
+                     X.shape[0], (data.element_size(), X.element_size())).form
 
 
 @pytest.mark.cuda
@@ -1163,15 +1569,22 @@ def test_spmm_kernel_equals_plain_and_k1(pair, k, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pair", PAIRS)
-@pytest.mark.parametrize("offsets,nr", [((-1000, -1, 0, 1, 999), 8192),
-                                        ((0,), 1), ((-3, 5), 7)])
-def test_spmm_kernel_on_edge_offsets(pair, offsets, nr, cuda_device):
+@pytest.mark.parametrize("offsets,nr,form", [
+    ((-1000, -1, 0, 1, 999), 8192, "quad"),
+    ((0,), 1, "row"), ((-3, 5), 7, "row"),
+    # planes of 1000 rows: strips of 512 and 488; planes of 4096: a
+    # window wholly outside [0, n) in each, read as zeros
+    ((-1000, -1, 0, 1, 1000), 8000, "staged"),
+    ((-4096, -1, 0, 1, 4096), 8192, "staged"),
+])
+def test_spmm_kernel_on_edge_offsets(pair, offsets, nr, form, cuda_device):
     rng = np.random.default_rng(nr)
-    data = torch.from_numpy(rng.standard_normal((len(offsets), max(nr, 128))))
+    nr_pad = -(-nr // 128) * 128  # the diagonals' rows as a DiaMatrix pads them
+    data = torch.from_numpy(rng.standard_normal((len(offsets), nr_pad)))
     X = torch.from_numpy(rng.standard_normal((3, nr)))
-    assert_spmm_is_k1_column_by_column(
+    assert assert_spmm_is_k1_column_by_column(
         data.to(device=cuda_device, dtype=DT[pair[0]]),
-        X.to(device=cuda_device, dtype=DT[pair[1]]), offsets, nr)
+        X.to(device=cuda_device, dtype=DT[pair[1]]), offsets, nr) == form
 
 
 @pytest.mark.cuda
@@ -1180,9 +1593,10 @@ def test_spmm_kernel_on_edge_offsets(pair, offsets, nr, cuda_device):
 @pytest.mark.parametrize("layout", ["contiguous", "ldx", "offset"])
 def test_spmm_kernel_forms_equal_plain_and_k1(layout, dims, pair,
                                               cuda_device):
-    """Both forms of K8's gate on the card: four rows a thread with vector
-    and scalar chunks (10x10x8) or vectors only (12x10x9), and one row a
-    thread for an X with a row stride of nr + 1 or 4 B past 16 B."""
+    """K8's gate on the card: four rows a thread (one window, too close to
+    stage) with vector and scalar chunks (10x10x8) or vectors only
+    (12x10x9), and one row a thread for an X with a row stride of nr + 1
+    or 4 B past 16 B."""
     A, _ = DiaMatrix.from_stencil(*dims, policy=DTypePolicy.from_names("f32"),
                                   device=cuda_device)
     rng = np.random.default_rng(A.nr)
@@ -1190,8 +1604,84 @@ def test_spmm_kernel_forms_equal_plain_and_k1(layout, dims, pair,
     flat = torch.from_numpy(rng.standard_normal(8 * cols + 1)).to(
         device=cuda_device, dtype=DT[pair[1]])
     X = (flat[1:] if layout == "offset" else flat[:-1]).view(8, cols)
-    assert_spmm_is_k1_column_by_column(A.data.to(DT[pair[0]]), X, A.offsets,
-                                       A.nr)
+    form = assert_spmm_is_k1_column_by_column(A.data.to(DT[pair[0]]), X,
+                                              A.offsets, A.nr)
+    assert form == ("quad" if layout == "contiguous" else "row")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("k", [1, 3, 8, 12, 16])
+def test_staged_kernel_equals_plain_and_k1(k, pair, cuda_device):
+    """The staged form at 30x20x12 (three windows, planes at both ends of X
+    with a window outside it, strips of 512 and 88 rows, one or two column
+    groups), run where staged_plan admits it whatever spmm_plan picks: bit
+    for bit the plain version and, column by column, K1; and the wrapper
+    runs the form spmm_plan picks."""
+    from sparsebench_tpu_torch.profile_cg import k8_as
+
+    A, _ = DiaMatrix.from_stencil(30, 20, 12, policy=DTypePolicy.from_names(
+        "f32"), device=cuda_device)
+    data = A.data.to(DT[pair[0]])
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (k, A.nr))).to(device=cuda_device, dtype=DT[pair[1]])
+    sizes = (data.element_size(), X.element_size())
+    picked = spmm_plan(A.offsets, A.nr, data.shape[1], A.nr, A.nr, True, k,
+                       sizes)
+    plan = staged_plan(picked.chunks, A.nr, data.shape[1], k, sizes)
+    Y = k8_as(plan, data, X, A.nr)
+    assert_bits_equal(Y, dia_spmm_torch(data, X, A.offsets, A.nr))
+    for c in range(k):
+        assert_bits_equal(Y[c], dia_spmv(data, X[c].contiguous(), A.offsets,
+                                         A.nr))
+    assert assert_spmm_is_k1_column_by_column(
+        data, X, A.offsets, A.nr) == picked.form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS)
+@pytest.mark.parametrize("case", [c for c in FOUR_ROW_CASES
+                                  if c != "f64 at 200^3"])
+def test_spmm_kernel_keeps_the_four_row_form(case, pair, cuda_device):
+    """Where the plan does not stage, the four-row form runs as before, bit
+    for bit the plain version and K1 (test_spmm_plan_keeps_the_four_row_form
+    holds the plan)."""
+    rng = np.random.default_rng(len(case))
+    offsets, n, nr_pad, k, _sizes = four_row_case(case)
+    data = torch.from_numpy(rng.standard_normal((len(offsets), nr_pad))).to(
+        device=cuda_device, dtype=DT[pair[0]])
+    X = torch.from_numpy(rng.standard_normal((k, n))).to(
+        device=cuda_device, dtype=DT[pair[1]])
+    form = assert_spmm_is_k1_column_by_column(data, X, offsets, n)
+    assert form == ("staged" if case == "bf16 rows of 8 B multiples"
+                    and pair[0] != "bf16" else "quad")
+
+
+@pytest.mark.cuda
+def test_staged_launches_count_in_the_recorder(cuda_device):
+    """While the recorder records, each launch of the staged form counts
+    ``dia_spmm.staged`` and the ``dia.spmm`` span's form reads ``staged``;
+    a launch of another form counts nothing."""
+    from sparsebench_tpu_torch import profiler
+
+    A, _ = DiaMatrix.from_stencil(30, 20, 12, policy=DTypePolicy.from_names(
+        "f32"), device=cuda_device, impl="kernel")
+    X = torch.rand((8, A.nr), device=cuda_device)
+    profiler.RECORDER.clear()
+    profiler.set_mode("on")
+    try:
+        for _ in range(4):
+            A.spmm_kn(X)
+        # X 4 B past 16 B: one row a thread
+        A.spmm_kn(torch.rand(8 * A.nr + 1, device=cuda_device)[1:]
+                  .view(8, A.nr))
+        forms = [s.attrs["form"] for s in profiler.spans()
+                 if s.name == "dia.spmm"]
+        assert forms == ["staged"] * 4 + ["row"]
+        assert profiler.counts()["dia_spmm.staged"] == 4
+    finally:
+        profiler.set_mode("auto")
+        profiler.RECORDER.clear()
 
 
 @pytest.mark.cuda

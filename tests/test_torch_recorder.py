@@ -274,7 +274,8 @@ def global_kernels():
     names = set()
     for src in sorted(CSRC.glob("*.cu")):
         text = src.read_text()
-        for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+        for m in re.finditer(r"__global__\s+void\s+(?:(?:__launch_bounds__|"
+                             r"__maxnreg__)\s*"
                              r"\([^)]*(?:\([^)]*\)[^)]*)*\)\s*)?(\w+)", text):
             names.add(m.group(1))
     return names
@@ -310,6 +311,8 @@ def test_registry_reads_the_wrappers_counters():
     ("void (anonymous namespace)::dia_spmv_kernel<__nv_bfloat16, float>"
      "(__nv_bfloat16 const*, float const*)", ("K1",)),
     ("dia_spmm_quad_kernel<float, float>", ("K8",)),
+    ("void (anonymous namespace)::dia_spmm_kernel_staged<__nv_bfloat16, "
+     "float>(__nv_bfloat16 const*, float const*)", ("K8",)),
     ("void bsell_spmv_win_kernel<float>(int const*)", ("K10", "K11")),
     ("void at::native::vectorized_elementwise_kernel<4>()", ()),
 ])
