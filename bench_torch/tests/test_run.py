@@ -88,7 +88,12 @@ def _half(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def plant(monkeypatch, op: str, fault: str) -> None:
+def plant(monkeypatch, traffic: dict, fault: str) -> None:
+    """Plant ``fault`` in the timed path of a cell whose mix is
+    ``traffic``: for ``cg`` in the loop of the mix's own ``variant``, the
+    one that ``harness/traffic.py`` calls. A mix whose op or variant no
+    plant reaches raises, so that no cell passes the fault test unfaulted."""
+    op = traffic["op"]
     if op == "spmv":
         spmv = DiaMatrix.spmv
         wrong = {
@@ -98,22 +103,29 @@ def plant(monkeypatch, op: str, fault: str) -> None:
         }[fault]
         monkeypatch.setattr(DiaMatrix, "spmv", wrong)
     elif op == "cg":
-        if fault == "state unchanged":
+        variant = traffic["variant"]
+        if variant not in cg_mod.CG_LOOPS:
+            raise ValueError(f"no fault is planted in the cg variant "
+                             f"{variant!r}: it is not a loop of CG_LOOPS")
+        if fault == "state unchanged" and variant == "standard":
             # every body hands its state back as it came, k run out
             def stuck(A, state, k_end, *args, **kw):
                 return (torch.tensor(k_end), *state[1:])
 
             monkeypatch.setattr(cg_mod, "cg_run", stuck)
             return
-        loop = cg_mod.CG_LOOPS["standard"]
+        loop = cg_mod.CG_LOOPS[variant]
         change = _half if fault == "half left out" else _bump
 
-        def wrong(*args, **kw):
-            x, k, hist = loop(*args, **kw)
+        def wrong(A, b, x0, itermax, *args, **kw):
+            x, k, hist = loop(A, b, x0, itermax, *args, **kw)
+            if fault == "state unchanged":
+                # x as it came, k run out, the loop's own history
+                return x0.clone(), torch.full_like(k, itermax), hist
             return change(x), k, hist
 
-        monkeypatch.setitem(cg_mod.CG_LOOPS, "standard", wrong)
-    else:
+        monkeypatch.setitem(cg_mod.CG_LOOPS, variant, wrong)
+    elif op == "cg_multi":
         loop = multi_mod.cg_multi_loop
 
         def wrong(A, B, X0, itermax, eps, acc_dtype=None):
@@ -131,13 +143,24 @@ def plant(monkeypatch, op: str, fault: str) -> None:
             return _bump(X), iters, hist
 
         monkeypatch.setattr(multi_mod, "cg_multi_loop", wrong)
+    else:
+        raise ValueError(f"no fault is planted in the traffic op {op!r}")
 
 
-@pytest.mark.parametrize("fault", ["state unchanged", "half left out",
-                                   "answer altered"])
+FAULTS = ["state unchanged", "half left out", "answer altered"]
+
+
+@pytest.mark.parametrize("traffic", [
+    {"op": "cg", "variant": "sstep"}, {"op": "cg", "variant": "pipe"},
+    {"op": "gmres"}])
+def test_a_fault_out_of_reach_raises(monkeypatch, traffic):
+    with pytest.raises(ValueError, match="no fault is planted"):
+        plant(monkeypatch, traffic, "answer altered")
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(monkeypatch, cell, fault):
-    op = Spec().traffic(Spec().cell(cell)["traffic"])["op"]
-    plant(monkeypatch, op, fault)
+    plant(monkeypatch, Spec().traffic(Spec().cell(cell)["traffic"]), fault)
     r = cpu_run(cell)
     assert not r["correct"], (fault, r["checks"])
