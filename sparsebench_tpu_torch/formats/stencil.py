@@ -28,6 +28,11 @@ made here: ``torch`` runs the plain version on either device (``--impl
 torch`` on the card). The operator calls a wrapper only with ``kernel``,
 hence only with CUDA tensors; a wrapper's own device check serves its
 direct callers.
+
+While the program's recorder records (``profiler.py``), ``spmv`` is a span
+``stencil.apply`` (``kernel`` K2 or torch) and ``from_stencil`` a span
+``stencil.build`` (``n``, ``points``); ``cg_vmem_loop`` opens the span of
+K5 (``solvers/cg.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.config import DTypePolicy
 from sparsebench_tpu_torch.formats.dia import resolve_impl
 from sparsebench_tpu_torch.formats.registry import register_format
@@ -123,16 +129,19 @@ class StencilOperator:
                 "z-stacked multi-rank problem needs halo columns — use "
                 "--fmt dia under --shards"
             )
-        device = torch.device(device)
-        impl = resolve_impl(impl, device)
         nr = nx * ny * nz
-        counts = stencil_row_counts(nx, ny, nz, use_7pt)
-        nnz = int(counts.sum())
-        return (
-            cls(nx=nx, ny=ny, nz=nz, use_7pt=use_7pt, nr=nr, nc=nr, nnz=nnz,
-                device=device, impl=impl, total_nr=nr, total_nnz=nnz),
-            counts,
-        )
+        with profiler.span("stencil.build", n=nr,
+                           points=7 if use_7pt else 27):
+            device = torch.device(device)
+            impl = resolve_impl(impl, device)
+            counts = stencil_row_counts(nx, ny, nz, use_7pt)
+            nnz = int(counts.sum())
+            return (
+                cls(nx=nx, ny=ny, nz=nz, use_7pt=use_7pt, nr=nr, nc=nr,
+                    nnz=nnz, device=device, impl=impl, total_nr=nr,
+                    total_nnz=nnz),
+                counts,
+            )
 
     def _dims(self):
         return self.nx, self.ny, self.nz, self.use_7pt
@@ -140,6 +149,10 @@ class StencilOperator:
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x (K2, or its plain version)."""
         fn = stencil_apply if self.impl == "kernel" else stencil_apply_torch
+        if profiler.recording():
+            with profiler.span("stencil.apply", kernel="K2"
+                               if self.impl == "kernel" else "torch"):
+                return fn(x, *self._dims())
         return fn(x, *self._dims())
 
     # ------------------------------------------- fused single-reduction CG

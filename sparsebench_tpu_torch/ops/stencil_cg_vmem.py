@@ -39,7 +39,11 @@ once per grid.
   plain apply; it reads the scalars on the host.
 * ``stencil_cg_vmem(..., plan=None)`` — the wrapper: CPU tensors to the
   plain version, CUDA tensors to the kernel on ``plan`` (by default
-  ``device_cg_plan``'s), or it raises; ``launches`` counts launches.
+  ``device_cg_plan``'s), or it raises; ``launches`` counts launches, and
+  while the program's recorder records (``profiler.py``) so does the
+  counter ``stencil_cg_vmem.launches``, and a launch sets the plan's
+  ``r``, ``tz`` and ``blocks`` on the innermost open span (the solve's
+  ``stencil.cg_vmem``, ``solvers/cg.py`` ``cg_vmem_loop``).
 
 Both take r0 = b - A x0 and x0 of one dtype, f32 or f64 (the computation
 runs in that dtype; the solver widens bf16 vectors first), and return
@@ -55,6 +59,7 @@ import sys
 
 import torch
 
+from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.ops import stencil as st
 from sparsebench_tpu_torch.ops.stencil import (
@@ -200,12 +205,20 @@ def cg_plan(nx: int, ny: int, nz: int, itemsize: int, resident: int,
                   smem=march_smem(r, itemsize), parts=2 * resident)
 
 
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _card_bytes(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
 def _check(r0: torch.Tensor, x0: torch.Tensor, nx: int, ny: int, nz: int,
            itermax: int) -> None:
     n = nx * ny * nz
     dev = r0.device
-    total = (torch.cuda.get_device_properties(dev).total_memory
-             if dev.type == "cuda" else 0)
+    total = _card_bytes(_index(dev)) if dev.type == "cuda" else 0
     if not vmem_cg_viable(nx, ny, nz, r0.element_size(), dev.type, total):
         where = (f"its {VECTORS} vectors do not fit the card's {total} B"
                  if dev.type == "cuda" else
@@ -289,15 +302,19 @@ def device_cg_plan(v: torch.Tensor, nx: int, ny: int, nz: int,
                    use_7pt: bool = False, r: int = None,
                    tz: int = None) -> CgPlan:
     """``cg_plan`` for CUDA vectors like ``v`` on their card (R and tz
-    forced where given)."""
+    forced where given), made once per grid, stencil, dtype and card."""
+    return _device_cg_plan(nx, ny, nz, bool(use_7pt), r, tz, v.dtype,
+                           _index(v.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_cg_plan(nx, ny, nz, use_7pt, r, tz, dtype, index) -> CgPlan:
     r = plan_rows(ny) if r is None else r
     if r not in PLAN_ROWS:
         raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got {r!r}")
-    index = (v.device.index if v.device.index is not None
-             else torch.cuda.current_device())
-    resident = resident_blocks(v.dtype, r, bool(use_7pt),
-                               march_smem(r, v.element_size()), index)
-    return cg_plan(nx, ny, nz, v.element_size(), resident, r=r, tz=tz)
+    resident = resident_blocks(dtype, r, use_7pt,
+                               march_smem(r, dtype.itemsize), index)
+    return cg_plan(nx, ny, nz, dtype.itemsize, resident, r=r, tz=tz)
 
 
 def stencil_cg_vmem(r0, x0, eps, nx: int, ny: int, nz: int, itermax: int,
@@ -310,6 +327,7 @@ def stencil_cg_vmem(r0, x0, eps, nx: int, ny: int, nz: int, itermax: int,
                                      use_7pt)
     x, hist = _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan)
     stencil_cg_vmem.launches += 1
+    profiler.count("stencil_cg_vmem.launches")
     return x, hist
 
 
@@ -321,6 +339,7 @@ def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
     _note_l2(nx, ny, nz, r0.element_size())
     dev = r0.device
     plan = plan or device_cg_plan(r0, nx, ny, nz, use_7pt)
+    profiler.annotate(r=plan.r, tz=plan.tz, blocks=plan.blocks)
     r = r0.contiguous().clone()
     x = x0.contiguous().clone()
     p0 = torch.zeros_like(r)  # p_old of the first iteration
@@ -328,7 +347,7 @@ def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
     w = torch.empty_like(r)
     hist = torch.empty(itermax, dtype=r0.dtype, device=dev)
     parts = torch.empty(plan.parts, dtype=r0.dtype, device=dev)
-    eps_t = torch.as_tensor(eps, device=dev).to(r0.dtype).reshape(1)
+    eps_t = torch.as_tensor(eps, dtype=r0.dtype, device=dev)
     st._call(_library(), f"sb_stencil_cg_vmem_{_SUFFIX[r0.dtype]}", dev, r,
              p0, p1, w, x, hist, parts, eps_t, nx, ny, nz, int(use_7pt),
              itermax, plan.r, plan.tz, plan.blocks, plan.smem)

@@ -14,9 +14,10 @@ beside it, written as a Chrome trace.
 
 The program's own record (``span``, ``count``, ``spans``, ``counts``,
 ``export``): spans at the port's layer boundaries (a solve and its bodies
-in ``solvers/cg.py`` and ``solvers/cg_multi.py``, an SpMV in
-``formats/dia.py`` and ``formats/crs.py``, the matrix builds, a kernel
-library's load in ``ops/_build.py``) and counters beside them, kept in
+in ``solvers/cg.py`` and ``solvers/cg_multi.py``, K5's whole solve in
+``cg_vmem_loop``, an SpMV in ``formats/dia.py``, ``formats/crs.py`` and
+``formats/stencil.py``, the matrix builds, a kernel library's load in
+``ops/_build.py``) and counters beside them, kept in
 memory and handed out at the end. Spans are stamped with ``time.time_ns()``, the clock
 (CLOCK_REALTIME) on which ``torch.profiler`` puts its host and device
 events, so a span lines up with the device operations and the CUDA

@@ -46,7 +46,9 @@ precondition ``standard``, ``cs`` and ``pipe``; ``sstep`` takes Jacobi.
 While the program's recorder records (``profiler.py``), each solve of a
 loop of ``CG_LOOPS`` is a span ``cg.solve`` (``variant``, ``itermax``,
 ``n``) holding a span ``cg.init`` and, in the eager loops, one span
-``cg.body`` a body; ``cg.bodies`` counts the bodies run, and
+``cg.body`` a body, in ``vmem`` one span ``stencil.cg_vmem`` (``kernel``
+K5 or torch, ``n``, ``itermax``; on a card K5's plan: ``r``, ``tz``,
+``blocks``); ``cg.bodies`` counts the bodies run, and
 ``cg.kernel_bodies`` those of them fused (``cg_run``). The loops read the
 recorder's switch once a solve.
 """
@@ -449,8 +451,11 @@ def cg_vmem_loop(A, b: torch.Tensor, x0: torch.Tensor, itermax: int, eps,
             b = b.to(torch.float32)
             x0 = x0.to(torch.float32)
         r0 = b - A.spmv(x0)
-    fn = stencil_cg_vmem if A.impl == "kernel" else stencil_cg_vmem_torch
-    x, hist = fn(r0, x0, eps, A.nx, A.ny, A.nz, itermax, A.use_7pt)
+    kernel = A.impl == "kernel"
+    fn = stencil_cg_vmem if kernel else stencil_cg_vmem_torch
+    with profiler.span("stencil.cg_vmem", kernel="K5" if kernel else "torch",
+                       n=r0.numel(), itermax=itermax):
+        x, hist = fn(r0, x0, eps, A.nx, A.ny, A.nz, itermax, A.use_7pt)
     k = torch.sum(~torch.isnan(hist))
     return x.to(vdt), k, hist.to(default_acc_dtype(vdt, acc_dtype))
 
