@@ -30,9 +30,12 @@ lines; any failure raises and exits non-zero:
    shapes, and a plan that does not fit refused; K4 bit for bit; K5 (the
    whole CG solve in one launch) in f64 and f32: its SASS free of
    non-coherent loads, then against stencil_cg_vmem_torch at 100^3, the
-   odd shapes 37x29x23, 64x8x3, 130x2x3, 2x2x2 and 1x1x1, 7-point, an
-   early exit by eps, a zero r0 (NaN history from k = 1) and forced plans
-   with fewer tiles than blocks and with many more;
+   odd shapes 37x29x23, 64x8x3, 130x2x3, 2x2x2, 1x1x1, 8x8x8 and 10x9x8,
+   7-point, an early exit by eps, a zero r0 (NaN history from k = 1) and
+   forced plans with fewer tiles than blocks and with many more, on both
+   forms of phase A (the march, and the ring where a row is whole 16-byte
+   units), and on grids of up to 30000 points bit for bit against the CPU
+   emulation of the plan's schedule;
 3c. the bslab kernels K6 and K7 (windowed) against bslab_spmv_torch, bit
    for bit, for (bf16, f32), (f32, f32) and (f64, f64) on the generated
    stencil at 10x9x7, 100^3 and 200^3 (K7 through a cluster of 4, f64 7),
@@ -64,11 +67,13 @@ lines; any failure raises and exits non-zero:
 5b. times of K2-K5 (K5 at 100^3 and 200^3) beside their plain versions,
    their bounds and, for K2, torch.nn.functional.conv3d; K5's bound counts
    the part of r, p and x beyond the L2 read and written every iteration,
-   with the no-reuse figure beside it; with ``--against DIR`` that tree's
-   K2, K3 and K5 (built with ``profile_bslab.build_other``, their outputs
-   held to this tree's) in turns with this tree's at 100^3 and 200^3, with
-   each K5's share of its bound and of the no-reuse figure; CG x150
-   seconds of each stencil variant;
+   with the no-reuse figure beside it, and K5 on both forms of phase A in
+   turns (this tree's default plan and the other form forced); with
+   ``--against DIR`` that tree's K2, K3 and K5 (built with
+   ``profile_bslab.build_other``, their outputs held to this tree's) in
+   turns with this tree's at 100^3 and 200^3, with each K5's share of its
+   bound and of the no-reuse figure; CG x150 seconds of each stencil
+   variant;
 5c. times of K6 and K7 beside the plain version, their bounds, physical
    GB/s and cuSPARSE on the same matrix at 100^3, 200^3 and RGL 2M (K7 with
    win_plan's unit, and with a third ring slot in a forced cluster), and
@@ -213,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import io
+import itertools
 import json
 import math
 import os
@@ -579,11 +585,14 @@ def phase3b_stencil(dev):
 
 
 # K5's cases in phase 3b: (dims, 7-point, eps as a share of |r0|,
-# itermax, forced (R, tz) or None, r0 zero), each in f64 and f32. The odd
-# shapes run only as many iterations as keep their residual above the
-# rounding floor, where k is decided by the recurrence and not by the
-# order of the dots' sums. At 100^3 the forced R 2, tz 16 gives fewer
-# tiles (196) than blocks, and R 1, tz 1 many more (5200), in both types.
+# itermax, forced (R, tz) or None, r0 zero), each in f64 and f32, on the
+# default plan's form and, where the ring applies (``k5_plans``), on the
+# other. The odd shapes run only as many iterations as keep their residual
+# above the rounding floor, where k is decided by the recurrence and not
+# by the order of the dots' sums. At 100^3 the forced R 2, tz 16 gives
+# fewer tiles (196) than blocks, and R 1, tz 1 many more (5200), in both
+# types. Grids of up to ``K5_EMULATED`` points are also held to the CPU
+# emulation of the plan's schedule bit for bit.
 K5_CASES = [((100, 100, 100), False, 0.0, 150, None, False),
             ((37, 29, 23), False, 0.0, 40, None, False),
             ((64, 8, 3), False, 0.0, 20, None, False),
@@ -596,19 +605,42 @@ K5_CASES = [((100, 100, 100), False, 0.0, 150, None, False),
             ((37, 29, 23), False, 0.0, 10, None, True),
             ((100, 100, 100), False, 0.0, 150, (2, 16), False),
             ((100, 100, 100), False, 0.0, 150, (1, 1), False),
-            ((37, 29, 23), True, 0.0, 40, (1, 1), False)]
+            ((37, 29, 23), True, 0.0, 40, (1, 1), False),
+            ((8, 8, 8), True, 0.0, 20, None, False),
+            ((10, 9, 8), True, 1e-6, 60, None, False),
+            ((64, 8, 3), False, 0.0, 10, None, True)]
+K5_EMULATED = 30000
+
+
+def k5_plans(device_cg_plan, r0, dims, use_7pt, forced):
+    """The plans phase 3b runs a K5 case on: the forced march, or the
+    default plan and, where the ring applies to the grid, the other form
+    forced."""
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import ring_rows
+
+    if forced:
+        return [device_cg_plan(r0, *dims, use_7pt, *forced)]
+    plan = device_cg_plan(r0, *dims, use_7pt)
+    if ring_rows(dims[0], dims[1], r0.element_size()) is None:
+        return [plan]
+    other = "march" if plan.form == "ring" else "ring"
+    return [plan, device_cg_plan(r0, *dims, use_7pt, form=other)]
 
 
 def phase3b_vmem(dev) -> float:
     """K5 against stencil_cg_vmem_torch from the same r0 and x0 (b = A 1,
-    x0 = 0) at each of ``K5_CASES``: k equal and the history to its rtol
-    above its floor, x to its atol (the dots' sums run in another order):
-    f64 rtol 1e-9 above 1e-10 of the start, x to 1e-10; f32 (the
-    instantiation the main path runs) rtol 1e-4 above 1e-4, x to 1e-4; a
-    zero r0 gives hist[0] = 0, NaN from k = 1 and x0 back, bit for bit.
-    The forced plans at 100^3 give fewer tiles than blocks (R 2, tz 16)
-    and many more (R 1, tz 1). Also: the K5 library holds no non-coherent load
-    (LDG.E.CONSTANT) in its kernel. Returns the largest |x - x_plain|."""
+    x0 = 0) at each of ``K5_CASES`` on each plan of ``k5_plans`` (the
+    march and the ring): k equal and the history to its rtol above its
+    floor, x to its atol (the dots' sums run in another order): f64 rtol
+    1e-9 above 1e-10 of the start, x to 1e-10; f32 (the instantiation the
+    main path runs) rtol 1e-4 above 1e-4, x to 1e-4; a zero r0 gives
+    hist[0] = 0, NaN from k = 1 and x0 back, bit for bit. The forced plans
+    at 100^3 give fewer tiles than blocks (R 2, tz 16) and many more (R 1,
+    tz 1). On grids of up to ``K5_EMULATED`` points x and the history also
+    equal the CPU emulation of the plan's schedule
+    (tests/test_torch_stencil_cg_plan.py ``k5_emulate``) bit for bit.
+    Also: the K5 library holds no non-coherent load (LDG.E.CONSTANT) in
+    its kernels. Returns the largest |x - x_plain|."""
     import torch
 
     from sparsebench_tpu_torch.formats.stencil import stencil_row_counts
@@ -631,28 +663,38 @@ def phase3b_vmem(dev) -> float:
     print(f"[3b K5] SASS of {lib.name}: {len(kernels)} kernels, {nc} "
           f"non-coherent loads (LDG.E.CONSTANT) {'ok' if sass_ok else 'FAIL'}")
     check(sass_ok, "K5 loads through the non-coherent path")
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_stencil_cg_plan import k5_emulate
+
     worst = 0.0
-    for dims, use_7pt, eps_share, itermax, forced, zero in K5_CASES:
-        for dt, floor, rtol, atol in (
+    for (dims, use_7pt, eps_share, itermax, forced, zero), (
+            dt, floor, rtol, atol) in itertools.product(K5_CASES, (
                 (torch.float64, NOISE_FLOOR, HIST_RTOL, 1e-10),
-                (torch.float32, 1e-4, 1e-4, 1e-4)):
-            b = torch.from_numpy(27.0 - (stencil_row_counts(
-                *dims, use_7pt) - 1.0)).to(dev, dt)
-            x0 = torch.zeros_like(b)
-            r0 = b - stencil_apply_torch(x0, *dims, use_7pt)
-            if zero:
-                r0 = torch.zeros_like(b)
-                x0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
-                    b.numel())).to(dev, dt)
-            eps = eps_share * float(torch.linalg.vector_norm(r0))
-            plan = device_cg_plan(r0, *dims, use_7pt, *(forced or ()))
+                (torch.float32, 1e-4, 1e-4, 1e-4))):
+        b = torch.from_numpy(27.0 - (stencil_row_counts(
+            *dims, use_7pt) - 1.0)).to(dev, dt)
+        x0 = torch.zeros_like(b)
+        r0 = b - stencil_apply_torch(x0, *dims, use_7pt)
+        if zero:
+            r0 = torch.zeros_like(b)
+            x0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+                b.numel())).to(dev, dt)
+        eps = eps_share * float(torch.linalg.vector_norm(r0))
+        x_p, h_p = stencil_cg_vmem_torch(r0, x0, eps, *dims, itermax,
+                                         use_7pt)
+        h_p = h_p.cpu().numpy()
+        k_p = int(np.sum(~np.isnan(h_p)))
+        for plan in k5_plans(device_cg_plan, r0, dims, use_7pt, forced):
             x_k, h_k = stencil_cg_vmem(r0, x0, eps, *dims, itermax, use_7pt,
                                        plan)
-            x_p, h_p = stencil_cg_vmem_torch(r0, x0, eps, *dims, itermax,
-                                             use_7pt)
-            h_k, h_p = h_k.cpu().numpy(), h_p.cpu().numpy()
+            emulated = b.numel() <= K5_EMULATED
+            if emulated:
+                x_e, h_e = k5_emulate(r0.cpu(), x0.cpu(), eps, dims, itermax,
+                                      use_7pt, plan)
+                same = bits_equal(x_k.cpu(), x_e) and bits_equal(h_k.cpu(),
+                                                                 h_e)
+            h_k = h_k.cpu().numpy()
             k_k = int(np.sum(~np.isnan(h_k)))
-            k_p = int(np.sum(~np.isnan(h_p)))
             ex = float((x_k - x_p).abs().max())
             worst = max(worst, ex)
             if zero:
@@ -668,16 +710,19 @@ def phase3b_vmem(dev) -> float:
                       and bool(np.isnan(h_k[k_k:]).all()))
             if forced and dims == (100, 100, 100):
                 ok &= (plan.tiles < plan.blocks) == (forced == (2, 16))
+            if emulated:
+                ok &= same
             name = (f"{dims[0]}x{dims[1]}x{dims[2]} "
                     f"{'7' if use_7pt else '27'}-pt {str(dt)[6:]} x{itermax}"
                     f"{f' eps {eps:.3e}' if eps else ''}"
-                    f"{' r0 = 0' if zero else ''} (R {plan.r} tz {plan.tz}, "
-                    f"{plan.tiles} tiles on {plan.blocks} blocks"
-                    f"{', forced' if forced else ''})")
+                    f"{' r0 = 0' if zero else ''} ({plan.form} R {plan.r}"
+                    f" tz {plan.tz}, {plan.tiles} tiles on "
+                    f"{plan.blocks} blocks{', forced' if forced else ''})")
+            emu = f"; the emulation bit for bit {same}" if emulated else ""
             print(f"[3b K5] {name}: k {k_k} vs plain {k_p}; max rel diff of "
                   f"the history {rel:.3e} (rtol {rtol} above {floor} of the "
-                  f"start); max|x_kernel - x_plain| {ex:.3e} (atol {atol}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"start); max|x_kernel - x_plain| {ex:.3e} (atol {atol})"
+                  f"{emu} {'ok' if ok else 'FAIL'}")
             check(ok, f"K5 disagrees with its plain version at {name}")
     return worst
 
@@ -876,6 +921,7 @@ def phase5b_times(dev, gpu, against=None):
         stencil_axpy_apply_dots_torch,
     )
     from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+        device_cg_plan,
         stencil_cg_vmem,
         stencil_cg_vmem_torch,
     )
@@ -1008,35 +1054,70 @@ def phase5b_times(dev, gpu, against=None):
         out["K5"][n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, eager_ms=eager,
                             bound_no_reuse_ms=no_reuse_ms)
-        turns = ""
+        # this tree's K5 on its default plan held to the plain version, and
+        # on the other form's; with the parent, its K5 on the same r0 and
+        # x0: k equal, the f32 history to rtol 1e-4 above 1e-4 of its start
+        # and x to 1e-4 of the default plan's (phase 3b's f32 comparison);
+        # then all in turns (parent, this, the other form, the other form,
+        # this, parent), each the best of 3 back-to-back solves
+        plan = device_cg_plan(r0, n, n, n)
+        other = device_cg_plan(r0, n, n, n, form=(
+            "march" if plan.form == "ring" else "ring"))
+        fns = {plan.form: lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
+               other.form: lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150,
+                                                   plan=other)}
         if parent_k5 is not None:
-            # the parent's K5 on the same r0 and x0: k equal, the f32
-            # history to rtol 1e-4 above 1e-4 of its start and x to 1e-4
-            # of this tree's; then both in turns (other, this, this, other),
-            # each the best of 3 back-to-back solves
-            x_o, h_o = lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150)
-            x_t, h_t = stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150)
-            h_o, h_t = h_o.cpu().numpy(), h_t.cpu().numpy()
-            k_o, k_t = (int(np.sum(~np.isnan(h))) for h in (h_o, h_t))
-            sel = h_t[:k_t] >= 1e-4 * h_t[0]
+            fns["parent"] = lambda: lib_k5(parent_k5, r0, x0, 0.0, n, n, n,
+                                           150)
+        x_t, h_t = fns[plan.form]()
+        h_t = h_t.cpu().numpy()
+        k_t = int(np.sum(~np.isnan(h_t)))
+        sel = h_t[:k_t] >= 1e-4 * h_t[0]
+        x_p, h_p = stencil_cg_vmem_torch(r0, x0, 0.0, n, n, n, 150)
+        h_p = h_p.cpu().numpy()
+        k_p = int(np.sum(~np.isnan(h_p)))
+        sel_p = h_p[:k_p] >= 1e-4 * h_p[0]
+        rel = float(np.max(np.abs(h_t[:k_p][sel_p] - h_p[:k_p][sel_p])
+                           / h_p[:k_p][sel_p]))
+        ex = float((x_t - x_p).abs().max())
+        ok = (k_t == k_p and rel <= 1e-4 and ex <= 1e-4
+              and bool(torch.isfinite(x_t).all()))
+        print(f"[5b K5] {n}^3 f32 x150 {plan.form} (the default plan) "
+              f"against the plain version: k {k_t} vs {k_p}; max rel diff of "
+              f"the history {rel:.3e} (rtol 1e-4 above 1e-4 of the start); "
+              f"max|x_kernel - x_plain| {ex:.3e} (atol 1e-4) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"K5's default plan disagrees with its plain version at "
+              f"{n}^3 f32")
+        del x_p
+        for name in list(fns)[1:]:
+            x_o, h_o = fns[name]()
+            h_o = h_o.cpu().numpy()
+            k_o = int(np.sum(~np.isnan(h_o)))
             check(k_o == k_t and np.allclose(h_o[:k_t][sel], h_t[:k_t][sel],
                                              rtol=1e-4, atol=0)
                   and float((x_o - x_t).abs().max()) <= 1e-4,
-                  f"the parent's K5 differs from this tree's at {n}^3")
-            del x_o, x_t
-            runs = [time_call(f, 3) for f in (
-                lambda: lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150),
-                lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
-                lambda: stencil_cg_vmem(r0, x0, 0.0, n, n, n, 150),
-                lambda: lib_k5(parent_k5, r0, x0, 0.0, n, n, n, 150))]
-            o_ms, t_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
-            out["K5"][n]["parent_ms"] = o_ms
-            turns = (f"; in turns: parent {runs[0]:.6f}/{runs[3]:.6f}, this "
-                     f"{runs[1]:.6f}/{runs[2]:.6f} ms, {o_ms / t_ms:.3f}x; "
-                     f"the parent at {b_ms / o_ms:.4f} of the bound and "
-                     f"{no_reuse_ms / o_ms:.4f} of the no-reuse figure, "
-                     f"this tree at {b_ms / t_ms:.4f} and "
-                     f"{no_reuse_ms / t_ms:.4f}")
+                  f"K5 {name} differs from this tree's at {n}^3")
+            del x_o
+        del x_t
+        order = list(fns)[::-1] + list(fns)
+        runs = {name: [] for name in fns}
+        for name in order:
+            runs[name].append(time_call(fns[name], 3))
+        best = {name: min(v) for name, v in runs.items()}
+        out["K5"][n].update({f"{name}_ms": t for name, t in best.items()})
+        turns = "; in turns: " + ", ".join(
+            f"{name} {'/'.join(f'{t:.6f}' for t in runs[name])} ms, "
+            f"{b_ms / best[name]:.4f} of the bound and "
+            f"{no_reuse_ms / best[name]:.4f} of the no-reuse figure"
+            for name in fns)
+        if "parent" in best:
+            turns += (f"; the parent over this tree "
+                      f"{best['parent'] / best[plan.form]:.3f}x")
+        turns += (f"; {other.form} over {plan.form} "
+                  f"{best[other.form] / best[plan.form]:.3f}x (default "
+                  f"{plan.form}: R {plan.r} tz {plan.tz}, {plan.tiles} tiles "
+                  f"on {plan.blocks} blocks)")
         print(f"[5b times] K5 whole CG solve {n}^3 f32 x150 ({iters} "
               f"iterations run): kernel {all_ms['kernel']} ms, plain "
               f"{all_ms['plain']} ms; bound {b_ms:.6f} ms ({b_by}: r0 and x0 "

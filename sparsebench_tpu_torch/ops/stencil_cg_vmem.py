@@ -6,19 +6,39 @@ Counterpart of sparsebench_tpu/ops/stencil_cg_vmem.py
 cooperative launch of a persistent kernel; its source note gives the
 recurrence (the lagged exit test, beta = 0 at k == 1, the breakdown freeze,
 NaN history past the exit), the design and the memory-ordering argument.
-An iteration is two phases separated by two grid barriers: phase A marches
-the plan's tiles (``csrc/stencil_apply.cuh``), forms p' = r + beta p_old
-while staging, writes p' into the other of two p buffers and w = A p', and
-adds p'.w to a partial a block; phase B streams r -= alpha w, x += alpha p'
-and r.r.
+An iteration is two phases separated by two grid barriers: phase A forms
+p' = r + beta p_old on the plan's tiles, writes p' into the other of two p
+buffers and w = A p', and adds p'.w to a partial a block; phase B streams
+r -= alpha w, x += alpha p' and r.r. Phase A has two forms, the plan's
+``form``:
 
-The plan (``cg_plan``). The march's R rows a thread and its shared bytes
-(``ops/stencil.py`` ``plan_rows``, ``march_smem``), the persistent grid (the
-blocks of the kernel that fit on the card at once at those bytes, which the
-C side reports; a larger grid would deadlock the barriers) and tz, the
-planes a tile, chosen so that the tiles spread evenly over the blocks:
-block b walks tiles b, b + blocks, ... (``block_tiles``; a tile's place is
-``ops/stencil.py`` ``block_origin``). Partials are one a block for each of
+* ``ring``: a tile spans all nx columns and R rows over tz planes; a
+  producer warp bulk-copies each plane of it, with its halo rows, as one
+  contiguous range of r and one of p_old into a ring of ``RING_STAGES``
+  slabs in shared memory, running ahead over the block's tiles, and seven
+  consumer warps form p' and the sums from the slabs, consumer c the
+  columns c, c + ``RING_CONSUMERS``, ... of the tile, up to
+  ``RING_POINTS`` / R of them, R rows each (``ring_columns``: at nx = 200
+  one column each, and 24 of the 224 consumers idle);
+* ``march``: the tiled plane march of ``csrc/stencil_apply.cuh`` (K2's and
+  K3's), tiles of 32 columns and 8 R rows.
+
+The plan (``cg_plan``). The form by shape (``ring_takes``): the ring
+where it applies (``ring_rows``: a row is whole 16-byte units, a bulk
+copy's, and a plane-tile of one row fits the consumers, nx at most
+``RING_CONSUMERS`` * ``RING_POINTS``) and an iteration's vectors do not
+fit the L2 (``L2_RESIDENT_BUDGET``; within it the march was faster:
+100^3 f32 in 2.62 ms against the ring's 2.71-3.00, H100, PERF.md §6);
+else the march. The ring's R is the largest of ``PLAN_ROWS`` up to
+``RING_ROWS``, ny and the rows whose plane-tile the consumers hold. The
+march's R rows a thread and its shared bytes
+(``ops/stencil.py`` ``plan_rows``, ``march_smem``). Then the persistent
+grid (the blocks of the form's kernel that fit on the card at once at its
+shared bytes, which the C side reports; a larger grid would deadlock the
+barriers) and tz, the planes a tile, chosen so that the tiles spread
+evenly over the blocks: block b walks tiles b, b + blocks, ...
+(``block_tiles``; a tile's place is ``ops/stencil.py``
+``block_origin``). Partials are one a block for each of
 the two dots. ``device_cg_plan`` makes the plan on the card; the C side
 recomputes it and refuses one that differs.
 
@@ -41,8 +61,9 @@ once per grid.
   plain version, CUDA tensors to the kernel on ``plan`` (by default
   ``device_cg_plan``'s), or it raises; ``launches`` counts launches, and
   while the program's recorder records (``profiler.py``) so does the
-  counter ``stencil_cg_vmem.launches``, and a launch sets the plan's
-  ``r``, ``tz`` and ``blocks`` on the innermost open span (the solve's
+  counter ``stencil_cg_vmem.launches`` (and ``stencil_cg_vmem.ring``, a
+  launch of the ring form), and a launch sets the plan's ``form``, ``r``,
+  ``tz`` and ``blocks`` on the innermost open span (the solve's
   ``stencil.cg_vmem``, ``solvers/cg.py`` ``cg_vmem_loop``).
 
 Both take r0 = b - A x0 and x0 of one dtype, f32 or f64 (the computation
@@ -65,6 +86,7 @@ from sparsebench_tpu_torch.ops import stencil as st
 from sparsebench_tpu_torch.ops.stencil import (
     MAX_SERIAL,
     PLAN_ROWS,
+    THREADS,
     TILE_X,
     WARPS,
     march_smem,
@@ -82,6 +104,17 @@ L2_RESIDENT_BUDGET = 40 * 2**20
 VECTORS = 7
 # of those, the ones an iteration reads or writes
 ITERATION_VECTORS = 5
+
+# The ring form of phase A (csrc/stencil_cg_vmem.cu keeps the same numbers):
+# its consumer threads (warps 0-6; warp 7 copies), the points of a
+# plane-tile a consumer holds, its slabs and the most rows a tile takes (at
+# 200^3 f32 on an H100, three blocks an SM: R 4 with 2 slabs 18.5-18.7 ms
+# a solve against R 8's 19.1-19.4, R 2's 22.8-22.9 and 3 to 6 slabs'
+# 19.2-19.9; the source note, PERF.md §6)
+RING_CONSUMERS = THREADS - 32
+RING_POINTS = 8
+RING_STAGES = 2
+RING_ROWS = 4
 
 # The JAX package's conservative VMEM tier (sparsebench_tpu/ops/
 # stencil_cg_vmem.py ``_plan`` with ``_conservative_vmem()``): r and p,
@@ -132,11 +165,13 @@ def _note_l2(nx: int, ny: int, nz: int, itemsize: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class CgPlan:
-    """K5's launch: the march's R rows a thread and tz planes a tile, the
-    tile counts (tiles_x * tiles_y * runs tiles), the persistent grid
-    (``blocks``, all co-resident), the dynamic shared bytes (two staged
-    planes) and ``parts``, the partials (one a block for each of the two
-    dots)."""
+    """K5's launch: the form of phase A (``ring`` or ``march``), R rows a
+    thread (the ring: the rows of a tile) and tz planes a tile, the tile
+    counts (tiles_x * tiles_y * runs tiles of tile_x columns and tile_y
+    rows: the ring's nx and R, the march's ``TILE_X`` and 8 R), the
+    persistent grid (``blocks``, all co-resident), the dynamic shared bytes
+    (the march: two staged planes; the ring: its mbarriers and slabs) and
+    ``parts``, the partials (one a block for each of the two dots)."""
 
     r: int
     tz: int
@@ -147,28 +182,68 @@ class CgPlan:
     blocks: int
     smem: int
     parts: int
-
-    @property
-    def tile_y(self) -> int:
-        return WARPS * self.r
+    form: str = "march"
+    tile_x: int = TILE_X
+    tile_y: int = 0
 
 
 def block_tiles(plan: CgPlan, b: int) -> range:
-    """The tiles block ``b`` marches in phase A, in order: b, b + blocks,
+    """The tiles block ``b`` takes in phase A, in order: b, b + blocks,
     ..."""
     return range(b, plan.tiles, plan.blocks)
 
 
+def ring_smem(nx: int, rows: int, itemsize: int) -> int:
+    """The ring's dynamic shared bytes: two mbarriers a slab, then the
+    ``RING_STAGES`` slabs, each (rows + 2) nx values of r and as many of
+    p_old."""
+    return RING_STAGES * (16 + 2 * (rows + 2) * nx * itemsize)
+
+
+def ring_rows(nx: int, ny: int, itemsize: int):
+    """R, the rows of a tile of the ring form, for rows of nx values of
+    ``itemsize`` bytes, or None where the form does not apply: a row not
+    whole 16-byte units, or a row of the tile beyond the consumers'
+    ``RING_CONSUMERS`` * ``RING_POINTS`` points. R is the largest of
+    ``PLAN_ROWS`` up to ``RING_ROWS``, ny and the rows whose plane-tile the
+    consumers hold; the slabs then take at most 172064 bytes (R 1 at nx
+    1792 in f64), within the H100's 227 KB a block."""
+    cap = RING_CONSUMERS * RING_POINTS // nx
+    if nx * itemsize % 16 or cap < 1:
+        return None
+    return max(q for q in PLAN_ROWS if q <= min(cap, ny, RING_ROWS))
+
+
+def ring_columns(plan: CgPlan, nx: int):
+    """The ring's columns of a tile by consumer: for consumer c, columns c,
+    c + ``RING_CONSUMERS``, ... up to ``RING_POINTS`` / R of them, None
+    past nx."""
+    return [[i if i < nx else None
+             for i in range(c, c + RING_CONSUMERS * (RING_POINTS // plan.r),
+                            RING_CONSUMERS)]
+            for c in range(RING_CONSUMERS)]
+
+
+def ring_takes(nx: int, ny: int, nz: int, itemsize: int) -> bool:
+    """The shape rule: the ring form where it applies and an iteration's
+    ``ITERATION_VECTORS`` vectors do not fit the L2 budget."""
+    return (ring_rows(nx, ny, itemsize) is not None
+            and ITERATION_VECTORS * nx * ny * nz * itemsize
+            > L2_RESIDENT_BUDGET)
+
+
 def cg_plan(nx: int, ny: int, nz: int, itemsize: int, resident: int,
-            r: int = None, tz: int = None) -> CgPlan:
+            r: int = None, tz: int = None, form: str = None) -> CgPlan:
     """K5's plan for an nx x ny x nz grid of vectors of ``itemsize`` bytes
-    (4 f32, 8 f64) on a card where ``resident`` blocks of the kernel fit at
-    once at the plan's shared bytes. ``r`` and ``tz`` force those choices.
-    By default R is ``plan_rows(ny)``, and tz, up to ``MAX_SERIAL`` / R and
-    nz, the one whose busiest block stages the fewest planes,
-    ceil(tiles / resident) (tz + 2), the larger on a tie, then evened out
-    over its runs. Raises ValueError on a bad input or a forced plan
-    outside those limits."""
+    (4 f32, 8 f64) on a card where ``resident`` blocks of the form's kernel
+    fit at once at the plan's shared bytes. ``form`` forces the form
+    (``ring_takes`` by default; a forced ``r`` means the march), ``r`` the
+    march's R and ``tz`` the planes a tile. The march's R is
+    ``plan_rows(ny)`` by default, the ring's from ``ring_rows``; tz, up to nz
+    (the march: and ``MAX_SERIAL`` / R), the one whose busiest block stages
+    the fewest planes, ceil(tiles / resident) (tz + 2), the larger on a
+    tie, then evened out over its runs. Raises ValueError on a bad input
+    or a forced plan outside those limits."""
     for name, v in (("nx", nx), ("ny", ny), ("nz", nz),
                     ("resident", resident)):
         st._positive_int(name, v, "cg_plan")
@@ -177,14 +252,34 @@ def cg_plan(nx: int, ny: int, nz: int, itemsize: int, resident: int,
                          f"{itemsize!r}")
     if (ny + 2) * nx >= 2**31 - 1:
         raise ValueError(f"cg_plan: a plane of {nx} x {ny} points is too "
-                         "large for the march's 32-bit in-plane offsets")
-    if r is None:
-        r = plan_rows(ny)
-    elif r not in PLAN_ROWS:
-        raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got {r!r}")
-    tz_max = MAX_SERIAL // r
-    tiles_x = -(-nx // TILE_X)
-    tiles_y = -(-ny // (WARPS * r))
+                         "large for the kernel's 32-bit in-plane offsets")
+    if form is None:
+        form = ("march" if r is not None or not ring_takes(nx, ny, nz,
+                                                           itemsize)
+                else "ring")
+    if form == "ring":
+        if r is not None:
+            raise ValueError("cg_plan: the ring's R follows from the shape "
+                             "(ring_rows)")
+        r = ring_rows(nx, ny, itemsize)
+        if r is None:
+            raise ValueError(f"cg_plan: no ring form for rows of {nx} values"
+                             f" of {itemsize} B")
+        tz_max, tile_x, tile_y = nz, nx, r
+        smem = ring_smem(nx, r, itemsize)
+    elif form == "march":
+        if r is None:
+            r = plan_rows(ny)
+        elif r not in PLAN_ROWS:
+            raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got "
+                             f"{r!r}")
+        tz_max, tile_x, tile_y = MAX_SERIAL // r, TILE_X, WARPS * r
+        smem = march_smem(r, itemsize)
+    else:
+        raise ValueError(f"cg_plan: form must be ring or march, got "
+                         f"{form!r}")
+    tiles_x = -(-nx // tile_x)
+    tiles_y = -(-ny // tile_y)
 
     def tiles_at(q: int) -> int:
         return tiles_x * tiles_y * -(-nz // q)
@@ -194,15 +289,16 @@ def cg_plan(nx: int, ny: int, nz: int, itemsize: int, resident: int,
                  key=lambda q: (-(-tiles_at(q) // resident) * (q + 2), -q))
         tz = -(-nz // -(-nz // tz))  # the same runs, evened out
     elif st._positive_int("tz", tz, "cg_plan") > tz_max:
-        raise ValueError(f"cg_plan: r * tz = {r * tz} exceeds "
-                         f"{MAX_SERIAL}")
+        raise ValueError(f"cg_plan: tz {tz} exceeds the {form}'s "
+                         f"{tz_max}")
     tiles = tiles_at(tz)
     if tiles >= 2**31:
         raise ValueError(f"cg_plan: {tiles} tiles exceed the kernel's "
                          "32-bit tile index")
     return CgPlan(r=r, tz=tz, tiles_x=tiles_x, tiles_y=tiles_y,
                   runs=-(-nz // tz), tiles=tiles, blocks=resident,
-                  smem=march_smem(r, itemsize), parts=2 * resident)
+                  smem=smem, parts=2 * resident, form=form, tile_x=tile_x,
+                  tile_y=tile_y)
 
 
 def _index(dev: torch.device) -> int:
@@ -272,49 +368,61 @@ def stencil_cg_vmem_torch(r0, x0, eps, nx: int, ny: int, nz: int,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("stencil_cg_vmem")
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return bind(_build.load_library("stencil_cg_vmem"))
+
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the entry points' arguments: the vectors, hist, parts and eps; nx, ny,
+# nz, use_7pt and itermax; the plan (rows, tz, blocks, smem, ring); the
+# stream. The occupancy query: rows, use_7pt, ring, smem and the count.
+ARGTYPES = [_p] * 8 + [_i32] * 5 + [_i32, _i32, _i64, _i64, _i32, _p]
+BLOCKS_ARGTYPES = [_i32, _i32, _i32, _i64, ctypes.POINTER(_i32)]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s K5 entry points with their argument types."""
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")
-        fn.argtypes = [p] * 8 + [i32] * 5 + [i32, i32, i64, i64, p]
-        fn.restype = i32
+        fn.argtypes = ARGTYPES
+        fn.restype = _i32
         fn = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")
-        fn.argtypes = [i32, i32, i64, ctypes.POINTER(i32)]
-        fn.restype = i32
+        fn.argtypes = BLOCKS_ARGTYPES
+        fn.restype = _i32
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(dtype: torch.dtype, r: int, use_7pt: bool, smem: int,
-                    device_index: int) -> int:
-    """The blocks of the kernel (R rows, the stencil, the vector type) that
-    fit on a device at once with ``smem`` bytes of dynamic shared memory."""
+def resident_blocks(dtype: torch.dtype, r: int, use_7pt: bool, ring: bool,
+                    smem: int, device_index: int) -> int:
+    """The blocks of the kernel (R rows, the stencil, the form, the vector
+    type) that fit on a device at once with ``smem`` bytes of dynamic
+    shared memory."""
     lib = _library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{_SUFFIX[dtype]}")(
-            r, int(use_7pt), smem, ctypes.byref(blocks))
+            r, int(use_7pt), int(ring), smem, ctypes.byref(blocks))
     _build.check(lib, err, "stencil_cg_vmem occupancy")
     return blocks.value
 
 
 def device_cg_plan(v: torch.Tensor, nx: int, ny: int, nz: int,
-                   use_7pt: bool = False, r: int = None,
-                   tz: int = None) -> CgPlan:
-    """``cg_plan`` for CUDA vectors like ``v`` on their card (R and tz
+                   use_7pt: bool = False, r: int = None, tz: int = None,
+                   form: str = None) -> CgPlan:
+    """``cg_plan`` for CUDA vectors like ``v`` on their card (its choices
     forced where given), made once per grid, stencil, dtype and card."""
-    return _device_cg_plan(nx, ny, nz, bool(use_7pt), r, tz, v.dtype,
+    return _device_cg_plan(nx, ny, nz, bool(use_7pt), r, tz, form, v.dtype,
                            _index(v.device))
 
 
 @functools.lru_cache(maxsize=None)
-def _device_cg_plan(nx, ny, nz, use_7pt, r, tz, dtype, index) -> CgPlan:
-    r = plan_rows(ny) if r is None else r
-    if r not in PLAN_ROWS:
-        raise ValueError(f"cg_plan: r must be one of {PLAN_ROWS}, got {r!r}")
-    resident = resident_blocks(dtype, r, use_7pt,
-                               march_smem(r, dtype.itemsize), index)
-    return cg_plan(nx, ny, nz, dtype.itemsize, resident, r=r, tz=tz)
+def _device_cg_plan(nx, ny, nz, use_7pt, r, tz, form, dtype, index) -> CgPlan:
+    # the plan at one block, for its form, R and shared bytes; then the
+    # blocks of that kernel the card holds at those bytes
+    shape = cg_plan(nx, ny, nz, dtype.itemsize, 1, r, tz, form)
+    resident = resident_blocks(dtype, shape.r, use_7pt,
+                               shape.form == "ring", shape.smem, index)
+    return cg_plan(nx, ny, nz, dtype.itemsize, resident, r, tz, shape.form)
 
 
 def stencil_cg_vmem(r0, x0, eps, nx: int, ny: int, nz: int, itermax: int,
@@ -334,12 +442,14 @@ def stencil_cg_vmem(r0, x0, eps, nx: int, ny: int, nz: int, itermax: int,
 def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
     """(x, hist): K5 on ``plan`` (default ``device_cg_plan``'s) from r0 and
     x0, which it copies; the two p buffers (the first zeros), w and the
-    partials beside them."""
+    partials beside them. Counts ``stencil_cg_vmem.ring`` where the plan's
+    form is the ring."""
     _check(r0, x0, nx, ny, nz, itermax)
     _note_l2(nx, ny, nz, r0.element_size())
     dev = r0.device
     plan = plan or device_cg_plan(r0, nx, ny, nz, use_7pt)
-    profiler.annotate(r=plan.r, tz=plan.tz, blocks=plan.blocks)
+    profiler.annotate(form=plan.form, r=plan.r, tz=plan.tz,
+                      blocks=plan.blocks)
     r = r0.contiguous().clone()
     x = x0.contiguous().clone()
     p0 = torch.zeros_like(r)  # p_old of the first iteration
@@ -350,7 +460,10 @@ def _launch(r0, x0, eps, nx, ny, nz, itermax, use_7pt, plan):
     eps_t = torch.as_tensor(eps, dtype=r0.dtype, device=dev)
     st._call(_library(), f"sb_stencil_cg_vmem_{_SUFFIX[r0.dtype]}", dev, r,
              p0, p1, w, x, hist, parts, eps_t, nx, ny, nz, int(use_7pt),
-             itermax, plan.r, plan.tz, plan.blocks, plan.smem)
+             itermax, plan.r, plan.tz, plan.blocks, plan.smem,
+             int(plan.form == "ring"))
+    if plan.form == "ring":
+        profiler.count("stencil_cg_vmem.ring")
     return x, hist
 
 

@@ -122,18 +122,25 @@ def build_other(tree: Path, name: str = "bslab_spmv") -> ctypes.CDLL:
             fn.restype = i32
         return lib
     if name == "stencil_cg_vmem":
-        # K5: before the march, (r, p, x, hist, parts, eps, nx, ny, nz,
-        # use_7pt, itermax, blocks); since, the two p buffers and w after
-        # r and the plan (rows, tz, blocks, smem) after itermax
-        lib.k5_takes_plan = "SB_CG_PLAN" in src.read_text()
+        # K5: this tree's interface (ops/stencil_cg_vmem.py ARGTYPES: the
+        # plan with its form); before the ring, the plan (rows, tz, blocks,
+        # smem) after itermax; before the march, (r, p, x, hist, parts,
+        # eps, nx, ny, nz, use_7pt, itermax, blocks)
+        text = src.read_text()
+        if "long long smem, int ring" in text:
+            lib.k5_plan = "form"
+            from sparsebench_tpu_torch.ops import stencil_cg_vmem as scv
+
+            return scv.bind(lib)
+        lib.k5_plan = "plan" if "SB_CG_PLAN" in text else None
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")
             fn.argtypes = ([p] * 8 + [i32] * 7 + [i64, i64, p]
-                           if lib.k5_takes_plan else [p] * 6 + [i32] * 6 + [p])
+                           if lib.k5_plan else [p] * 6 + [i32] * 6 + [p])
             fn.restype = i32
             fn = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")
             fn.argtypes = ([i32, i32, i64, ctypes.POINTER(i32)]
-                           if lib.k5_takes_plan else [ctypes.POINTER(i32)])
+                           if lib.k5_plan else [ctypes.POINTER(i32)])
             fn.restype = i32
         return lib
     for sfx in ops._SUFFIX.values():
@@ -222,8 +229,8 @@ def lib_k5(lib: ctypes.CDLL, r0, x0, eps: float, nx: int, ny: int, nz: int,
            itermax: int, use_7pt: bool = False):
     """K5 of another tree's library on this tree's inputs: (x, hist),
     through the interface its source declares; where it takes a plan,
-    ``cg_plan`` at the blocks its own kernel fits on the card."""
-    from sparsebench_tpu_torch.ops import stencil as st
+    ``cg_plan`` at the blocks its own kernel fits on the card (the march
+    where it has no ring form)."""
     from sparsebench_tpu_torch.ops import stencil_cg_vmem as scv
 
     sfx = scv._SUFFIX[r0.dtype]
@@ -233,20 +240,24 @@ def lib_k5(lib: ctypes.CDLL, r0, x0, eps: float, nx: int, ny: int, nz: int,
     hist = torch.empty(itermax, dtype=r0.dtype, device=dev)
     eps_t = torch.full((1,), eps, dtype=r0.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if lib.k5_takes_plan:
-        rows = st.plan_rows(ny)
-        smem = st.march_smem(rows, r0.element_size())
+    if lib.k5_plan is not None:
+        # this tree's default plan, or the march where the tree has no ring
+        itemsize = r0.element_size()
+        form = "march" if lib.k5_plan == "plan" else None
+        shape = scv.cg_plan(nx, ny, nz, itemsize, 1, form=form)
+        ring = (int(shape.form == "ring"),) if lib.k5_plan == "form" else ()
         err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")(
-            rows, int(use_7pt), smem, ctypes.byref(blocks))
+            shape.r, int(use_7pt), *ring, shape.smem, ctypes.byref(blocks))
         _build.check(lib, err, "other stencil_cg_vmem occupancy")
-        plan = scv.cg_plan(nx, ny, nz, r0.element_size(), blocks.value)
+        plan = scv.cg_plan(nx, ny, nz, itemsize, blocks.value,
+                           form=shape.form)
         p0, p1, w = torch.zeros_like(r), torch.empty_like(r), torch.empty_like(r)
         parts = torch.empty(plan.parts, dtype=r0.dtype, device=dev)
         err = getattr(lib, f"sb_stencil_cg_vmem_{sfx}")(
             r.data_ptr(), p0.data_ptr(), p1.data_ptr(), w.data_ptr(),
             x.data_ptr(), hist.data_ptr(), parts.data_ptr(), eps_t.data_ptr(),
             nx, ny, nz, int(use_7pt), itermax, plan.r, plan.tz, plan.blocks,
-            plan.smem, stream)
+            plan.smem, *ring, stream)
     else:
         err = getattr(lib, f"sb_stencil_cg_vmem_blocks_{sfx}")(
             ctypes.byref(blocks))

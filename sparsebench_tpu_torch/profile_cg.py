@@ -80,22 +80,31 @@ p' and w written; 3.35 TB/s).
 
 ``--vmem-variants`` times the one-launch CG kernel K5 (a whole solve of
 ``-i`` iterations, f32, 27-point, from x0 = 0 on the generated problem) on
-its default plan beside forced plans (``VMEM_PLANS``: R, tz) and beside
-the kernels of ``VMEM_VARIANTS``, each one edit of
-``csrc/stencil_cg_vmem.cu`` away (written to ``build/vmem_variants/``):
-phase B with one value a load instead of 16 bytes, and the kernel bounded
-to four blocks an SM (the source note gives the two design choices that
-were measured this way and the losers deleted); with ``--against DIR``
-another tree's K5 among them
-(``profile_bslab.lib_k5``). Each is first held to this tree's result: k
-equal, the history to rtol 1e-4 above 1e-4 of its start, x to 1e-4 (bit
-for bit where its sums run in this tree's order: a variant that keeps the
-plan and the order of the dots); then all are timed in
-turns (this, the others, the others again in reverse, this), each the
-better of its runs of ``VMEM_REPS`` back-to-back solves timed with CUDA
-events. Beside each: the share of K5's bound (chip_smoke.py phase 5b: r0
-and x0 read, x written, and each iteration the part of r, p and x beyond
-the L2 read and written; 3.35 TB/s).
+its default plan beside forced plans (``VMEM_PLANS``: the march's R and
+tz, the ring's tz) and beside the kernels of
+``VMEM_VARIANTS``, each one edit of ``csrc/stencil_cg_vmem.cu`` away
+(written to ``build/vmem_variants/``): phase B with one value a load
+instead of 16 bytes, the kernel bounded to four blocks an SM, or its
+ring form alone to three or four (the source note gives the design
+choices that were measured this way and the losers deleted), and a
+diagnostic whose results are wrong on purpose, the ring's copies and
+stores without its sums. Then the phase
+split (``VMEM_PHASES``): phase A alone and phase B alone, each one edit
+away, of this tree and, with ``--against DIR``, of that tree too, whose K5
+is timed among them (``profile_bslab.lib_k5``); each keeps both barriers,
+and a line per tree reads phase A as the whole less phase B alone, phase
+B as the whole less phase A alone, and the barriers as the rest. A phase
+alone also loses what the other phase left in the L2 (w and p' for phase
+B, r for phase A), so the two estimates are upper bounds and the
+barriers' share a lower one. Each variant that solves CG is first held
+to this tree's result: k equal, the history to rtol 1e-4 above 1e-4 of
+its start, x to 1e-4 (bit for bit where its sums run in this tree's
+order: a variant that keeps the plan and the order of the dots); then all
+are timed in turns (this, the others, the others again in reverse, this),
+each the better of its runs of ``VMEM_REPS`` back-to-back solves timed
+with CUDA events. Beside each: the share of K5's bound (chip_smoke.py
+phase 5b: r0 and x0 read, x written, and each iteration the part of r, p
+and x beyond the L2 read and written; 3.35 TB/s).
 
 ``SB_FUSED_CS=1`` in the environment selects the fused ``cs`` body, as it
 does for the CLI. Every time line carries the card's name and power limit
@@ -160,7 +169,7 @@ K8_VARIANTS = (
                   "for (int r = 0; r < 0; ++r) {")], False),
 )
 # --k8-variants: staged plans forced on this tree's kernel (name, fields)
-K8_PLANS = (("units of 256 rows", {"rows": 256}),
+K8_PLANS = (("units of 256 rows", {"tile_y": 256}),
             ("4 columns a stage", {"cols": 4}))
 # --k8-forms: (n, 7-point, (data, X), the k timed)
 K8_FORMS = (
@@ -186,9 +195,12 @@ STENCIL_VARIANTS = (
      True),
 )
 
-# --vmem-variants: (R, tz) forced beside the default plan, and (name, edits
-# of csrc/stencil_cg_vmem.cu, its sums run in this tree's order)
-VMEM_PLANS = ((2, 4), (2, 8), (2, 16), (4, 8), (1, 16))
+# --vmem-variants: plans forced beside the default one (cg_plan's keywords:
+# the march's R and tz, the ring's tz), and (name, edits
+# of csrc/stencil_cg_vmem.cu, whether its sums run in this tree's order;
+# None: a diagnostic whose results are wrong on purpose)
+VMEM_PLANS = ({"form": "march"}, {"r": 2, "tz": 8},
+              {"form": "ring", "tz": 15})
 VMEM_VARIANTS = (
     ("phase B one value a load",
      [("const bool vec = aligned16(r)", "const bool vec = false && aligned16(r)")],
@@ -196,6 +208,37 @@ VMEM_VARIANTS = (
     ("four blocks an SM",
      [("__launch_bounds__(kThreads)\nstencil_cg_vmem_kernel(",
        "__launch_bounds__(kThreads, 4)\nstencil_cg_vmem_kernel(")], False),
+    ("the ring at three blocks an SM",
+     [("__launch_bounds__(kThreads)\nstencil_cg_vmem_kernel(",
+       "__launch_bounds__(kThreads, kRing ? 3 : 1)\nstencil_cg_vmem_kernel(")],
+     False),
+    ("the ring at four blocks an SM",
+     [("__launch_bounds__(kThreads)\nstencil_cg_vmem_kernel(",
+       "__launch_bounds__(kThreads, kRing ? 4 : 1)\nstencil_cg_vmem_kernel(")],
+     False),
+    ("the ring without its sums",
+     [("          if (x < 0) continue;",
+       "          if (x < 0 || k >= 0) {\n"
+       "            sum[m][0] = cen[m][0] = C(1);\n"
+       "            out.pap = C(1e30);\n"
+       "            continue;\n"
+       "          }")],
+     None),
+)
+# --vmem-variants: the phase split, each one edit of csrc/stencil_cg_vmem.cu
+# (this tree's and, with --against, the other tree's): phase A alone (phase
+# B's pass skipped, r.r held at one a thread, so every iteration runs) and
+# phase B alone (phase A in the first iteration only, p'.w held at 1e30 a
+# thread, so no iteration breaks down); each keeps both grid barriers and
+# their sums, so barriers and sums take about A alone + B alone - whole
+VMEM_PHASES = (
+    ("phase A alone",
+     [("    acc = C(0);\n    stream<C>(g.n, vec,",
+       "    acc = C(1);\n    if (false) stream<C>(g.n, vec,")]),
+    ("phase B alone",
+     [("    OutA<C> out_a{p_new, w, C(0)};",
+       "    OutA<C> out_a{p_new, w, C(k > 1 ? 1e30 : 0)};\n"
+       "    if (k > 1) tiles = 0;")]),
 )
 VMEM_REPS = 3
 
@@ -372,13 +415,15 @@ def profile_patterns(n: int, gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
-def variant_trees(root, source: str, variants) -> list:
+def variant_trees(root, source: str, variants, tree: Path = None) -> list:
     """(name, tree, right) of each (name, edits, right) of ``variants``:
-    this tree's csrc/<source> with the variant's edits and the shared
-    headers, under ``root``."""
+    this tree's (or ``tree``'s) csrc/<source> with the variant's edits and
+    the shared headers, under ``root``."""
     from sparsebench_tpu_torch.ops import _build
 
-    src = (_build.CSRC_DIR / source).read_text()
+    csrc_dir = (_build.CSRC_DIR if tree is None
+                else tree / "sparsebench_tpu_torch" / "csrc")
+    src = (csrc_dir / source).read_text()
     out = []
     for i, (name, edits, right) in enumerate(variants):
         text = src
@@ -387,13 +432,12 @@ def variant_trees(root, source: str, variants) -> list:
                 raise SystemExit(f"variant {name!r} does not apply to "
                                  f"csrc/{source} ({old.strip()!r})")
             text = text.replace(old, new)
-        tree = root / f"v{i}"
-        csrc = tree / "sparsebench_tpu_torch" / "csrc"
+        csrc = root / f"v{i}" / "sparsebench_tpu_torch" / "csrc"
         csrc.mkdir(parents=True, exist_ok=True)
-        for h in _build.CSRC_DIR.glob("*.cuh"):
+        for h in csrc_dir.glob("*.cuh"):
             (csrc / h.name).write_bytes(h.read_bytes())
         (csrc / source).write_text(text)
-        out.append((name, tree, right))
+        out.append((name, root / f"v{i}", right))
     return out
 
 
@@ -601,6 +645,12 @@ def k5_bound_ms(n: int, iters: int, l2: int) -> float:
     return max(nbytes / 3.35e9, (2 + 38 * iters) * pts / 67e9)
 
 
+def plan_shape(plan) -> str:
+    """A K5 plan in a few words."""
+    return (f"{plan.form} R {plan.r} tz {plan.tz}, {plan.tiles} tiles on "
+            f"{plan.blocks} blocks")
+
+
 def profile_vmem_variants(n: int, itermax: int, gpu: str,
                           against=None) -> None:
     """K5 on the n^3 problem: the default plan, the forced plans of
@@ -619,19 +669,22 @@ def profile_vmem_variants(n: int, itermax: int, gpu: str,
     r0 = b - stencil_apply(x0, *dims)
     fns = {"this tree": (lambda: scv.stencil_cg_vmem(
         r0, x0, 0.0, *dims, itermax), True)}
-    plan = scv.device_cg_plan(r0, *dims)
-    shapes = {"this tree": f"R {plan.r} tz {plan.tz}, {plan.tiles} tiles on "
-              f"{plan.blocks} blocks"}
-    for rows, tz in VMEM_PLANS:
-        forced = scv.device_cg_plan(r0, *dims, r=rows, tz=tz)
-        name = f"R {rows} tz {tz}"
-        shapes[name] = f"{forced.tiles} tiles on {forced.blocks} blocks"
+    shapes = {"this tree": plan_shape(scv.device_cg_plan(r0, *dims))}
+    for force in VMEM_PLANS:
+        forced = scv.device_cg_plan(r0, *dims, **force)
+        name = " ".join(f"{k} {v}" for k, v in force.items())
+        shapes[name] = plan_shape(forced)
         fns[name] = (lambda forced=forced: scv.stencil_cg_vmem(
             r0, x0, 0.0, *dims, itermax, plan=forced), False)
-    trees = variant_trees(_build.BUILD_DIR.parent / "vmem_variants",
-                          "stencil_cg_vmem.cu", VMEM_VARIANTS)
+    root = _build.BUILD_DIR.parent / "vmem_variants"
+    phases = [(name, edits, None) for name, edits in VMEM_PHASES]
+    trees = variant_trees(root, "stencil_cg_vmem.cu", VMEM_VARIANTS)
+    trees += variant_trees(root / "phases", "stencil_cg_vmem.cu", phases)
     if against is not None:
         trees.insert(0, ("the other tree", against, False))
+        trees += [(f"the other tree's {name}", tree, None) for name, tree, _
+                  in variant_trees(root / "other", "stencil_cg_vmem.cu",
+                                   phases, against)]
     for name, tree, same in trees:
         lib = build_other(tree, "stencil_cg_vmem")
         fns[name] = (lambda lib=lib: lib_k5(lib, r0, x0, 0.0, *dims, itermax),
@@ -641,6 +694,8 @@ def profile_vmem_variants(n: int, itermax: int, gpu: str,
     k_ref = int(np.sum(~np.isnan(h_ref)))
     sel = h_ref[:k_ref] >= 1e-4 * h_ref[0]
     for name, (fn, same) in fns.items():
+        if same is None:  # a phase alone or a diagnostic: not CG's iterates
+            continue
         x, h = fn()
         h = h.cpu().numpy()
         k = int(np.sum(~np.isnan(h)))
@@ -667,6 +722,19 @@ def profile_vmem_variants(n: int, itermax: int, gpu: str,
         print(f"{n}^3 f32 x{itermax} K5 {name} ({shape}): {best:.6f} ms "
               f"({each}), {best / this:.3f}x this tree's, {bound / best:.4f} "
               f"of the bound {bound:.6f} ms | {gpu}", flush=True)
+    for tree, pre in (("this tree", ""), ("the other tree", "the other "
+                                          "tree's ")):
+        if f"{pre}phase A alone" not in ms:
+            continue
+        whole, a, b = (min(ms[k]) for k in (tree, f"{pre}phase A alone",
+                                            f"{pre}phase B alone"))
+        per = 1e3 / (k_ref - 1)
+        print(f"{n}^3 f32 K5 phase split, {tree}, us an iteration over "
+              f"{k_ref - 1}: whole {whole * per:.2f}; phase A alone "
+              f"{a * per:.2f}, phase B alone {b * per:.2f} (each with both "
+              f"barriers and sums); barriers and sums about "
+              f"{(a + b - whole) * per:.2f}, so phase A {(whole - b) * per:.2f}"
+              f" and phase B {(whole - a) * per:.2f} | {gpu}", flush=True)
     del A, b, x0, r0
     torch.cuda.empty_cache()
 

@@ -618,6 +618,65 @@ def test_vmem_kernel_equals_its_schedule(dims, use_7pt, x0_scale, eps,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("dims,use_7pt,x0_scale,eps,itermax,force", [
+    ((64, 8, 3), False, 0.0, 0.0, 20, {}),
+    ((8, 8, 8), True, 0.0, 0.0, 20, {}),
+    ((16, 9, 8), True, 0.1, 1e-8, 60, {}),
+    ((24, 19, 11), False, 0.1, 0.0, 25, {"tz": 3}),
+    ((1000, 7, 3), True, 0.0, 0.0, 25, {}),
+    ((600, 9, 4), False, 0.0, 0.0, 25, {}),
+    ((100, 100, 100), False, 0.0, 0.0, 6, {})])
+def test_vmem_ring_equals_its_schedule(dims, use_7pt, x0_scale, eps,
+                                       itermax, force, dt, cuda_device):
+    """K5's ring form bit for bit against the CPU emulation of its
+    schedule (``k5_emulate`` on the ring's plan: its tiles, items and
+    order of sums), on the card's plan with the ring forced."""
+    from test_torch_stencil_cg_plan import k5_emulate, problem
+
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import device_cg_plan
+
+    r0, x0 = problem(dims, use_7pt, DT[dt], x0_scale)
+    plan = device_cg_plan(r0.to(cuda_device), *dims, use_7pt, form="ring",
+                          **force)
+    x, h = stencil_cg_vmem(r0.to(cuda_device), x0.to(cuda_device), eps,
+                           *dims, itermax, use_7pt, plan)
+    x_e, h_e = k5_emulate(r0, x0, eps, dims, itermax, use_7pt, plan)
+    assert_bits_equal(h.cpu(), h_e)
+    assert_bits_equal(x.cpu(), x_e)
+
+
+@pytest.mark.cuda
+def test_vmem_ring_refuses_a_plan_that_differs(cuda_device):
+    """The C side recomputes the ring's plan: another grid, tile rows,
+    shared bytes or form, and rows that are not whole 16-byte units, are
+    refused before anything launches."""
+    import dataclasses
+
+    from sparsebench_tpu_torch.ops.stencil_cg_vmem import (
+        device_cg_plan,
+        ring_smem,
+    )
+
+    dims = (64, 8, 3)
+    r0 = torch.ones(math.prod(dims), device=cuda_device)
+    plan = device_cg_plan(r0, *dims, form="ring")
+    for bad in (dataclasses.replace(plan, blocks=plan.blocks + 1),
+                dataclasses.replace(plan, r=plan.r // 2,
+                                    tile_y=plan.tile_y // 2),
+                dataclasses.replace(plan, smem=plan.smem + 16),
+                dataclasses.replace(plan, form="march")):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            stencil_cg_vmem(r0, r0, 0.0, *dims, 5, False, bad)
+    odd = (37, 8, 3)  # a row of 148 B; its shared bytes as the ring's
+    r1 = torch.ones(math.prod(odd), device=cuda_device)
+    smem = ring_smem(37, plan.r, 4)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        stencil_cg_vmem(r1, r1, 0.0, *odd, 5, False,
+                        dataclasses.replace(plan, tile_x=37, smem=smem))
+
+
+@pytest.mark.cuda
 def test_vmem_kernel_refuses_a_plan_that_differs(cuda_device):
     """The C side recomputes the plan: another grid, a tz or R the shared
     bytes do not match are refused before anything launches."""
@@ -1515,29 +1574,34 @@ def test_stencil_variants_are_one_edit_of_the_source(tmp_path):
 
 
 def test_vmem_variants_are_one_edit_of_the_source(tmp_path):
-    """profile_cg --vmem-variants writes each variant as this tree's
-    csrc/stencil_cg_vmem.cu with its edit, found once, beside the shared
-    headers; the forced plans it times are plans cg_plan accepts."""
+    """profile_cg --vmem-variants writes each variant, and each build of
+    one phase alone, as this tree's csrc/stencil_cg_vmem.cu with its edit,
+    found once, beside the shared headers; the forced plans it times are
+    plans cg_plan accepts."""
     from sparsebench_tpu_torch.ops.stencil_cg_vmem import cg_plan
     from sparsebench_tpu_torch.profile_cg import (
+        VMEM_PHASES,
         VMEM_PLANS,
         VMEM_VARIANTS,
         variant_trees,
     )
 
     src = (_build.CSRC_DIR / "stencil_cg_vmem.cu").read_text()
-    trees = variant_trees(tmp_path, "stencil_cg_vmem.cu", VMEM_VARIANTS)
-    assert [name for name, _, _ in trees] == [v[0] for v in VMEM_VARIANTS]
-    for (name, tree, _), (_, edits, _) in zip(trees, VMEM_VARIANTS):
+    variants = (*VMEM_VARIANTS,
+                *((name, edits, None) for name, edits in VMEM_PHASES))
+    trees = variant_trees(tmp_path, "stencil_cg_vmem.cu", variants)
+    assert [name for name, _, _ in trees] == [v[0] for v in variants]
+    for (name, tree, _), (_, edits, _) in zip(trees, variants):
         csrc = tree / "sparsebench_tpu_torch" / "csrc"
         text = (csrc / "stencil_cg_vmem.cu").read_text()
         assert len(edits) == 1 and text != src, name
         assert all(new in text for _, new in edits), name
         assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
             p.name for p in _build.CSRC_DIR.glob("*.cuh"))
-    for rows, tz in VMEM_PLANS:
+    for force in VMEM_PLANS:
         for n in (100, 200):
-            assert cg_plan(n, n, n, 4, 396, r=rows, tz=tz).tz == tz
+            plan = cg_plan(n, n, n, 4, 396, **force)
+            assert all(getattr(plan, k) == v for k, v in force.items())
 
 
 def assert_spmm_is_k1_column_by_column(data, X, offsets, nr):

@@ -183,9 +183,30 @@ def test_a_solve_is_one_k5_launch(recorder, cuda_device):
     for s in k5:
         assert s.attrs["kernel"] == "K5" and s.attrs["n"] == A.nr
         assert {"r", "tz", "blocks"} <= set(s.attrs)
-        assert s.attrs["blocks"] >= 1
+        assert s.attrs["blocks"] >= 1 and s.attrs["form"] == "march"
+    assert recorder.counts().get("stencil_cg_vmem.ring") is None
     applies = [s for s in recorder.spans() if s.name == "stencil.apply"]
     assert [s.attrs["kernel"] for s in applies] == ["K2"] * 3
+
+
+@pytest.mark.cuda
+def test_a_200_cubed_solve_runs_the_ring(recorder, cuda_device):
+    """At the cell's grid K5 takes the ring form: every launch counts
+    ``stencil_cg_vmem.ring`` beside ``stencil_cg_vmem.launches``, and its
+    span names the form."""
+    A, _ = StencilOperator.from_stencil(200, 200, 200, device=cuda_device,
+                                        policy=F32)
+    b = torch.rand(A.nr, device=cuda_device)
+    recorder.set_mode("on")
+    for _ in range(2):
+        cg_vmem_loop(A, b, torch.zeros_like(b), 20, 0.0)
+    torch.cuda.synchronize()
+    recorder.set_mode("auto")
+    counts = recorder.counts()
+    assert counts["stencil_cg_vmem.ring"] == counts[
+        "stencil_cg_vmem.launches"] == 2
+    k5 = [s for s in recorder.spans() if s.name == "stencil.cg_vmem"]
+    assert [s.attrs["form"] for s in k5] == ["ring"] * 2
 
 
 @pytest.mark.cuda

@@ -73,8 +73,13 @@ def coverage(plan, dims):
     for t in range(plan.tiles):
         x0, y0, z0, z1 = block_origin(plan, nz, t)
         assert 0 <= x0 < nx and 0 <= y0 < ny and 0 <= z0 < z1 <= nz
-        hits[z0:z1, y0:y0 + plan.tile_y, x0:x0 + TILE_X] += 1
+        hits[z0:z1, y0:y0 + plan.tile_y, x0:x0 + plan.tile_x] += 1
     return hits
+
+
+def ring_shape(dims, itemsize):
+    """Whether the ring form applies to the grid (``ring_rows``)."""
+    return scv.ring_rows(dims[0], dims[1], itemsize) is not None
 
 
 @pytest.mark.parametrize("resident", RESIDENT)
@@ -82,12 +87,22 @@ def coverage(plan, dims):
 @pytest.mark.parametrize("dims", SHAPES)
 def test_default_plan_gives_every_tile_to_one_block(dims, itemsize, resident):
     plan = cg_plan(*dims, itemsize, resident)
-    assert plan.r == st.plan_rows(dims[1]) and plan.r in PLAN_ROWS
-    assert 1 <= plan.tz <= min(MAX_SERIAL // plan.r, dims[2])
+    assert plan.form == ("ring" if scv.ring_takes(*dims, itemsize)
+                         else "march")
+    if plan.form == "march":
+        assert plan.r == st.plan_rows(dims[1]) and plan.r in PLAN_ROWS
+        assert 1 <= plan.tz <= min(MAX_SERIAL // plan.r, dims[2])
+        assert plan.smem == march_smem(plan.r, itemsize)
+        assert (plan.tile_x, plan.tile_y) == (TILE_X, st.WARPS * plan.r)
+    else:
+        assert plan.r == plan.tile_y == scv.ring_rows(dims[0], dims[1],
+                                                      itemsize)
+        assert 1 <= plan.tz <= dims[2]
+        assert plan.smem == scv.ring_smem(dims[0], plan.r, itemsize)
+        assert plan.tile_x == dims[0] and plan.tiles_x == 1
     assert plan.tiles == plan.tiles_x * plan.tiles_y * plan.runs
     assert plan.runs == -(-dims[2] // plan.tz)
     assert plan.blocks == resident and plan.parts == 2 * resident
-    assert plan.smem == march_smem(plan.r, itemsize)
     assert (tile_owners(plan) == 1).all()
     assert (coverage(plan, dims) == 1).all()
     # no tz of the same R gives the busiest block fewer staged planes
@@ -109,15 +124,21 @@ def test_forced_plan_gives_every_tile_to_one_block(dims, r, tz):
 
 def test_plan_at_the_main_sizes():
     """At 100^3 three blocks an SM (f32 at R 2 on the card) take the 364
-    tiles of runs of 8 planes, one each; at 200^3 runs of 16 planes, three
-    tiles a block. Fewer tiles than blocks and many more under forced
-    plans."""
+    tiles of the march's runs of 8 planes, one each; at 200^3 two blocks
+    an SM (the ring's f32 kernel at R 4 on the card) the ring's 250 tiles
+    of 4 whole rows over 40 planes, one a block (the march's runs of 16
+    planes gave three tiles a block). Fewer tiles than blocks and many
+    more under forced plans."""
     p100 = cg_plan(100, 100, 100, 4, 3 * SMS)
-    p200 = cg_plan(200, 200, 200, 4, 3 * SMS)
-    assert (p100.r, p100.tz, p100.tiles) == (2, 8, 364)
-    assert (p200.r, p200.tz, p200.tiles) == (2, 16, 1183)
+    p200 = cg_plan(200, 200, 200, 4, 2 * SMS)
+    m200 = cg_plan(200, 200, 200, 4, 3 * SMS, form="march")
+    assert (p100.form, p100.r, p100.tz, p100.tiles) == ("march", 2, 8, 364)
+    assert (p200.form, p200.r, p200.tile_y, p200.tz, p200.tiles,
+            p200.smem) == ("ring", 4, 4, 40, 250, 19232)
+    assert (m200.r, m200.tz, m200.tiles) == (2, 16, 1183)
     assert max(len(block_tiles(p100, b)) for b in range(p100.blocks)) == 1
-    assert max(len(block_tiles(p200, b)) for b in range(p200.blocks)) == 3
+    assert max(len(block_tiles(p200, b)) for b in range(p200.blocks)) == 1
+    assert max(len(block_tiles(m200, b)) for b in range(m200.blocks)) == 3
     few = cg_plan(100, 100, 100, 8, 2 * SMS, r=2, tz=16)
     many = cg_plan(100, 100, 100, 4, 3 * SMS, r=1, tz=1)
     assert few.tiles < few.blocks and many.blocks < many.tiles
@@ -177,7 +198,8 @@ def test_wrapper_passes_the_plan(dt, forced, monkeypatch):
     assert parts.shape == (plan.parts,) and parts.dtype == dt
     assert eps.dtype == dt and float(eps) == 0.5
     assert tuple(args[8:13]) == (*dims, 1, 7)
-    assert tuple(args[13:]) == (plan.r, plan.tz, plan.blocks, plan.smem)
+    assert tuple(args[13:]) == (plan.r, plan.tz, plan.blocks, plan.smem,
+                                int(plan.form == "ring"))
 
 
 def test_wrapper_memory_accounting():
@@ -255,6 +277,41 @@ def march_order(plan, dims):
     return steps
 
 
+def ring_order(plan, dims):
+    """The ring's steps of a thread's phase A serial sum (a tile round, a
+    plane of the tile, a column m of the consumer, a row of the tile's R),
+    as ``march_order``: consumer c's column m is ``ring_columns``'; the
+    producer warp adds nothing."""
+    nx, ny, nz = dims
+    per = scv.RING_POINTS // plan.r
+    ix = torch.full((THREADS, per), -1)
+    for c, row in enumerate(scv.ring_columns(plan, nx)):
+        for m, x in enumerate(row):
+            if x is not None:
+                ix[c, m] = x
+    b = torch.arange(plan.blocks)[:, None]
+    steps = []
+    for mt in range(-(-plan.tiles // plan.blocks)):
+        t = b + mt * plan.blocks
+        y0 = (t % plan.tiles_y) * plan.tile_y
+        z0 = (t // plan.tiles_y) * plan.tz
+        for dz in range(plan.tz):
+            z = z0 + dz
+            for m in range(per):
+                for q in range(plan.r):
+                    y = y0 + q
+                    ok = ((t < plan.tiles) & (ix[None, :, m] >= 0) & (y < ny)
+                          & (z < nz))
+                    steps.append(torch.where(
+                        ok, (z * ny + y) * nx + ix[None, :, m], -1))
+    return steps
+
+
+def phase_a_order(plan, dims):
+    """The phase A order of the plan's form."""
+    return (ring_order if plan.form == "ring" else march_order)(plan, dims)
+
+
 def march_partials(terms, steps, blocks):
     acc = torch.zeros((blocks, THREADS), dtype=terms.dtype)
     padded = torch.cat([terms, terms.new_zeros(1)])  # index -1: adds 0
@@ -282,7 +339,7 @@ def padded_shape(plan, dims):
     rounded up to whole tiles."""
     nx, ny, nz = dims
     return (nz + 2, plan.tiles_y * plan.tile_y + 2,
-            plan.tiles_x * TILE_X + 2)
+            plan.tiles_x * plan.tile_x + 2)
 
 
 def inside(plan, dims):
@@ -302,25 +359,25 @@ def phase_a(r, p_src, p_dst, beta, dims, use_7pt, plan):
     zero-padded buffers of ``padded_shape``; p_dst is p_src in the
     in-place schedule."""
     nx, ny, nz = dims
-    ty = plan.tile_y
+    ty, tx = plan.tile_y, plan.tile_x
     mask = inside(plan, dims)
     w = torch.full((nz, ny, nx), float("nan"), dtype=r.dtype)
     for t in range(plan.tiles):
         x0, y0, z0, z1 = block_origin(plan, nz, t)
         sl = (slice(z0, z1 + 2), slice(y0, y0 + ty + 2),
-              slice(x0, x0 + TILE_X + 2))
+              slice(x0, x0 + tx + 2))
         stage = torch.where(mask[sl], r[sl] + beta * p_src[sl],
                             torch.zeros((), dtype=r.dtype))
-        cen = stage[1:-1, 1:ty + 1, 1:TILE_X + 1]
+        cen = stage[1:-1, 1:ty + 1, 1:tx + 1]
         if not use_7pt:
-            out = 28 * cen - s3(s3(s3(stage, 2, TILE_X), 1, ty), 0, z1 - z0)
+            out = 28 * cen - s3(s3(s3(stage, 2, tx), 1, ty), 0, z1 - z0)
         else:
             plane = stage[1:-1]
-            sxy = (s3(plane[:, 1:ty + 1], 2, TILE_X)
-                   + s3(plane[:, :, 1:TILE_X + 1], 1, ty))
-            out = 30 * cen - (sxy + s3(stage[:, 1:ty + 1, 1:TILE_X + 1], 0,
+            sxy = (s3(plane[:, 1:ty + 1], 2, tx)
+                   + s3(plane[:, :, 1:tx + 1], 1, ty))
+            out = 30 * cen - (sxy + s3(stage[:, 1:ty + 1, 1:tx + 1], 0,
                                        z1 - z0))
-        ye, xe = min(ty, ny - y0), min(TILE_X, nx - x0)
+        ye, xe = min(ty, ny - y0), min(tx, nx - x0)
         w[z0:z1, y0:y0 + ye, x0:x0 + xe] = out[:, :ye, :xe]
         p_dst[z0 + 1:z1 + 1, y0 + 1:y0 + 1 + ye, x0 + 1:x0 + 1 + xe] = \
             cen[:, :ye, :xe]
@@ -347,7 +404,7 @@ def k5_emulate(r0, x0, eps, dims, itermax, use_7pt, plan, in_place=False,
         bufs[1] = bufs[0]
     r = r0.clone()
     x = x0.clone()
-    steps = march_order(plan, dims)
+    steps = phase_a_order(plan, dims)
     tiny = torch.tensor(1e-30, dtype=dt)
     zero = torch.zeros((), dtype=dt)
     hist = torch.full((itermax,), float("nan"), dtype=dt)
@@ -584,3 +641,211 @@ def test_emulation_pads_like_the_march():
                     use_7pt, plan)
         assert torch.equal(bits(w), bits(stencil_apply_torch(x, *dims,
                                                              use_7pt)))
+
+
+# -- the ring form of phase A ----------------------------------------------
+
+
+@pytest.mark.parametrize("dims,itemsize,form", [
+    ((200, 200, 200), 4, "ring"), ((200, 200, 200), 8, "ring"),
+    ((256, 256, 256), 4, "ring"),
+    # within the L2 budget the march was as fast (the shape rule)
+    ((100, 100, 100), 4, "march"), ((100, 100, 100), 8, "march"),
+    # a row that is not whole 16-byte units
+    ((1, 1, 1), 4, "march"), ((37, 29, 23), 4, "march"),
+    ((130, 300, 300), 4, "march"), ((202, 200, 200), 4, "march"),
+    # a row wider than the consumers hold
+    ((2048, 64, 64), 4, "march")])
+def test_the_plan_rule(dims, itemsize, form):
+    """The form by shape: the ring where a row is whole 16-byte units, a
+    row of the plane-tile fits the consumers and the iteration's vectors do
+    not fit the L2 budget; the march elsewhere."""
+    plan = cg_plan(*dims, itemsize, 3 * SMS)
+    assert plan.form == form
+    assert scv.ring_takes(*dims, itemsize) == (form == "ring")
+    big = (scv.ITERATION_VECTORS * math.prod(dims) * itemsize
+           > scv.L2_RESIDENT_BUDGET)
+    assert (form == "ring") == (big and dims[0] * itemsize % 16 == 0
+                                and dims[0] <= scv.RING_CONSUMERS
+                                * scv.RING_POINTS)
+
+
+@pytest.mark.parametrize("nx,ny,itemsize,want", [
+    (200, 200, 4, 4), (200, 200, 8, 4), (100, 100, 4, 4), (64, 8, 4, 4),
+    (10, 9, 8, 4), (130, 2, 8, 2), (2, 2, 8, 2), (400, 50, 4, 4),
+    (1792, 7, 8, 1), (600, 9, 4, 2), (1000, 7, 4, 1), (224, 200, 4, 4),
+    (500, 100, 8, 2), (16, 1, 8, 1), (16, 3, 8, 2)])
+def test_the_ring_geometry(nx, ny, itemsize, want):
+    """R, the rows of a tile: the largest of PLAN_ROWS up to RING_ROWS, ny
+    and the rows whose plane-tile the consumers hold; a consumer holds its
+    columns of a tile, and the slabs fit a block's shared memory (172064
+    bytes at most, R 1 at nx 1792 in f64)."""
+    assert scv.ring_rows(nx, ny, itemsize) == want
+    assert want in PLAN_ROWS and want <= min(ny, scv.RING_ROWS)
+    assert nx * want <= scv.RING_CONSUMERS * scv.RING_POINTS
+    assert -(-nx // scv.RING_CONSUMERS) <= scv.RING_POINTS // want
+    assert scv.ring_smem(nx, want, itemsize) <= 172064
+
+
+@pytest.mark.parametrize("dims,itemsize,kw", [
+    ((37, 29, 23), 4, {"form": "ring"}),
+    ((2048, 8, 8), 4, {"form": "ring"}),
+    ((200, 200, 200), 4, {"form": "ring", "tz": 0}),
+    ((200, 200, 200), 4, {"form": "ring", "tz": 201}),
+    ((200, 200, 200), 8, {"form": "ring", "r": 4}),
+    ((202, 200, 200), 4, {"form": "ring"}),
+    ((1, 1, 1), 4, {"form": "ring"}),
+    ((200, 200, 200), 4, {"form": "ring", "r": 2}),
+    ((200, 200, 200), 4, {"form": "ring", "tz": -1}),
+    ((200, 200, 200), 4, {"form": "march", "r": 3}),
+    ((200, 200, 200), 4, {"form": "march", "tz": 33}),
+    ((200, 200, 200), 4, {"form": "rings"})])
+def test_a_forced_ring_outside_its_limits_raises(dims, itemsize, kw):
+    with pytest.raises(ValueError):
+        cg_plan(*dims, itemsize, 3 * SMS, **kw)
+
+
+@pytest.mark.parametrize("dims,itemsize,kw", [
+    ((200, 200, 200), 4, {}), ((200, 200, 200), 8, {}),
+    ((100, 100, 100), 4, {"form": "ring"}),
+    ((100, 100, 100), 8, {"form": "ring", "tz": 7}),
+    ((64, 8, 3), 4, {"form": "ring"}), ((10, 9, 8), 8, {"form": "ring"}),
+    ((130, 2, 3), 8, {"form": "ring", "tz": 2}),
+    ((1000, 7, 3), 4, {"form": "ring"})])
+def test_the_ring_gives_every_tile_and_point_to_one_owner(dims, itemsize,
+                                                          kw):
+    """Every tile to one block, every grid point to one tile, every column
+    of a tile to one consumer, within its RING_POINTS / R columns; the
+    shared bytes are the mbarriers and the two slabs."""
+    for resident in (2 * SMS, 3 * SMS, 7):
+        plan = cg_plan(*dims, itemsize, resident, **kw)
+        assert plan.form == "ring" and plan.tiles_x == 1
+        assert plan.tile_x == dims[0] and plan.tile_y == plan.r
+        assert plan.smem == 2 * (16 + 2 * (plan.r + 2) * dims[0] * itemsize)
+        assert (tile_owners(plan) == 1).all()
+        assert (coverage(plan, dims) == 1).all()
+    owners = np.zeros(dims[0], np.int32)
+    for row in scv.ring_columns(plan, dims[0]):
+        assert len(row) == scv.RING_POINTS // plan.r
+        for x in row:
+            if x is not None:
+                owners[x] += 1
+    assert (owners == 1).all()
+
+
+def test_the_ring_partials_cover_every_point_once():
+    """Every point is one thread's term exactly once in the ring's phase A
+    order, and the ring's dot is within the sum's bound of the exact one."""
+    dims = (64, 40, 12)
+    plan = cg_plan(*dims, 4, 37, form="ring", tz=5)
+    order = ring_order(plan, dims)
+    seen = torch.cat([i[i >= 0] for i in order])
+    assert torch.equal(seen.sort().values, torch.arange(math.prod(dims)))
+    assert all((i[:, scv.RING_CONSUMERS:] == -1).all() for i in order)
+    terms = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        math.prod(dims)).astype(np.float32))
+    got = grid_total(march_partials(terms, order, plan.blocks))
+    exact = math.fsum(terms.double().tolist())
+    bound = 64 * torch.finfo(torch.float32).eps * float(terms.abs().sum())
+    assert abs(float(got) - exact) <= bound
+
+
+# (dims, 7-point, x0 scale, eps, itermax, dtype, forced ring choices): the
+# shapes of phase 3b whose rows are whole 16-byte units, in each dtype that
+# makes them so; an eps exit; a forced tz; wide rows (R 1 and 2, several
+# columns a consumer)
+EMULATED_RING = [
+    ((64, 8, 3), False, 0.0, 0.0, 20, torch.float64, {}),
+    ((64, 8, 3), False, 0.0, 0.0, 20, torch.float32, {}),
+    ((8, 8, 8), True, 0.0, 0.0, 20, torch.float32, {}),
+    ((10, 9, 8), True, 0.1, 1e-8, 60, torch.float64, {}),
+    ((130, 2, 3), False, 0.0, 0.0, 20, torch.float64, {}),
+    ((2, 2, 2), False, 0.0, 0.0, 8, torch.float64, {}),
+    ((24, 19, 11), False, 0.1, 0.0, 25, torch.float64, {"tz": 3}),
+    ((1000, 7, 3), True, 0.0, 0.0, 25, torch.float32, {}),
+    ((600, 9, 4), False, 0.0, 0.0, 25, torch.float32, {})]
+
+
+@pytest.mark.parametrize("case", EMULATED_RING)
+def test_the_ring_emulation_equals_the_plain_version(case):
+    """The ring form: elementwise bit for bit at equal alpha and beta,
+    iteration by iteration; the history to phase 3b's tolerances; x to its
+    atol."""
+    dims, use_7pt, x0_scale, eps, itermax, dt, kw = case
+    r0, x0 = problem(dims, use_7pt, dt, x0_scale)
+    plan = cg_plan(*dims, r0.element_size(), 3 * SMS, form="ring", **kw)
+    trace = []
+    x, hist = k5_emulate(r0, x0, eps, dims, itermax, use_7pt, plan,
+                         trace=trace)
+    assert trace
+    for beta, alpha, r_, p_, x_, pn, w, r, xk in trace:
+        want = plain_step(r_, p_, x_, beta, alpha, dims, use_7pt)
+        for got, ref in zip((pn, w, r, xk), want):
+            assert torch.equal(bits(got), bits(ref))
+    x_ref, h_ref = stencil_cg_vmem_torch(r0, x0, eps, *dims, itermax,
+                                         use_7pt)
+    f64 = dt == torch.float64
+    k = assert_history_close(hist, h_ref, f64)
+    assert k == len(trace) + 1
+    np.testing.assert_allclose(x.numpy(), x_ref.numpy(), rtol=0,
+                               atol=1e-10 if f64 else 1e-4)
+
+
+def test_the_ring_emulation_of_a_zero_residual():
+    """r0 = 0 on the ring: hist[0] = 0 and NaN from k = 1, x = x0."""
+    dims = (64, 8, 3)
+    n = math.prod(dims)
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal(n))
+    plan = cg_plan(*dims, 8, 3 * SMS, form="ring")
+    x, hist = k5_emulate(torch.zeros(n, dtype=x0.dtype), x0, 0.0, dims, 10,
+                         False, plan)
+    assert float(hist[0]) == 0.0 and torch.isnan(hist[1:]).all()
+    assert torch.equal(bits(x), bits(x0))
+
+
+@pytest.mark.parametrize("case", [((16, 9, 8), False, 0.0, 0.0, 25),
+                                  ((8, 8, 8), True, 0.1, 1e-8, 40)])
+def test_the_ring_emulation_matches_jax(case):
+    """The ring's emulation against the JAX package's
+    stencil_cg_vmem_pallas in interpret mode, as the march's is held."""
+    from test_torch_stencil import (
+        assert_vmem_agree,
+        run_vmem_both,
+        vmem_inputs,
+    )
+
+    dims, use_7pt, x0_scale, eps, itermax = case
+    x0 = np.random.default_rng(2).standard_normal(math.prod(dims)) * x0_scale
+    Aj, A, r0, x0 = vmem_inputs(dims, use_7pt, x0)
+    _port, jx = run_vmem_both(Aj, A, r0, x0, eps, itermax)
+    plan = cg_plan(*dims, 8, 3 * SMS, form="ring")
+    x, hist = k5_emulate(torch.from_numpy(r0), torch.from_numpy(x0), eps,
+                         dims, itermax, use_7pt, plan)
+    k = assert_vmem_agree((x.numpy(), hist.numpy()), jx)
+    assert (k == itermax) == (eps == 0.0)
+
+
+def test_the_wrapper_passes_a_ring_plan_and_counts_it(monkeypatch):
+    """A ring plan reaches the C entry point with its form (1), the
+    wrapper names its form on the open span and counts
+    ``stencil_cg_vmem.ring``; a march plan passes 0 and counts no ring."""
+    rec, counts, notes = Recorder(), [], []
+    monkeypatch.setattr(st, "_call", rec)
+    monkeypatch.setattr(scv, "_library", lambda: None)
+    monkeypatch.setattr(scv.profiler, "count",
+                        lambda name, n=1: counts.append(name))
+    monkeypatch.setattr(scv.profiler, "annotate",
+                        lambda **kw: notes.append(kw))
+    dims = (64, 8, 3)
+    n = math.prod(dims)
+    r0 = torch.ones(n, dtype=torch.float64)
+    for form in ("ring", "march"):
+        plan = cg_plan(*dims, 8, 3 * SMS, form=form)
+        scv._launch(r0, r0, 0.0, *dims, 5, False, plan)
+        (_name, args) = rec.calls[-1]
+        assert tuple(args[13:]) == (plan.r, plan.tz, plan.blocks, plan.smem,
+                                    int(form == "ring"))
+        assert notes[-1] == {"form": form, "r": plan.r, "tz": plan.tz,
+                             "blocks": plan.blocks}
+    assert rec.calls[0][1][-1] == 1 and rec.calls[1][1][-1] == 0
+    assert counts == ["stencil_cg_vmem.ring"]
