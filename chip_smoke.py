@@ -183,9 +183,16 @@ lines; any failure raises and exits non-zero:
    DIA, the stencil, bslab, bsell and CRS at 100^3 and 200^3 and on SELL
    at 100^3, their histories held to each other;
 5i. K14's time at 100^3 and 200^3, f32 (CUDA-graph replay), in turns
-   with the plain version and cuSPARSE CSR (``torch.sparse_csr_tensor``
-   of the same arrays @ x), beside its bound (values and columns, the row
-   pointers, x and y once);
+   with its wide form (the same matrix with int64 row pointers, held to
+   the narrow form bit for bit), the plain version and cuSPARSE CSR
+   (``torch.sparse_csr_tensor`` of the same arrays @ x), beside its bound
+   (values and columns, the row pointers, x and y once), and held to the
+   narrow form bit for bit there in f32 and f64 too; then the wide form
+   alone at 440^3 (2,289,529,432 entries, built with int64 row pointers)
+   in f32 and f64, every row, those past 2^31 - 1 entries among them,
+   within 2 len_i u (|A| |x|)_i of the f64 product of the benchmark's
+   reference (``bench_torch/reference/hpcg.py``), and timed beside its
+   bound;
 3j. the fused blocked CG body K15 (``ops/cg_multi_body.py``) at 100^3 and
    200^3 in f32 and f64, k = 8 (DIA): each column of a 150-iteration
    blocked solve against ``cg_loop``'s solve of that column (K15 at k = 1;
@@ -3199,41 +3206,118 @@ def phase3i_crs(dev, gpu, cli):
     return worst, worst_abs, launches
 
 
+def hpcg_reference():
+    """The benchmark's plain f64 reference (``bench_torch/reference/
+    hpcg.py``: the stencil by shifts of the zero-padded grid, no stored
+    matrix and no index of K14's), loaded by path."""
+    import importlib.util
+
+    path = REPO / "bench_torch" / "reference" / "hpcg.py"
+    spec = importlib.util.spec_from_file_location("bench_reference_hpcg",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase5i_crs_times(dev, gpu):
-    """K14's time at 100^3 and 200^3, f32, in turns with the plain version
-    and cuSPARSE (module docstring, 5i). Returns {n: the K14 row's
-    numbers}."""
+    """K14's time at 100^3 and 200^3, f32, in turns with its wide form,
+    the plain version and cuSPARSE; the wide form held to the narrow form
+    bit for bit there in f32 and f64; then the wide form at 440^3 in f32
+    and f64, every row held to the reference's f64 product, and timed
+    (module docstring, 5i). Returns {n: the K14 row's numbers} and under
+    ``"wide"`` {"440^3 f32"/"440^3 f64": (ms, bound ms)}."""
     import torch
     from sparsebench_tpu_torch.config import DTypePolicy
     from sparsebench_tpu_torch.formats.crs import CRSMatrix
-    from sparsebench_tpu_torch.ops.crs_spmv import crs_spmv_torch
+    from sparsebench_tpu_torch.ops.crs_spmv import crs_spmv, crs_spmv_torch
 
     out = {}
     for n in CRS_SIZES:
+        A, _ = CRSMatrix.from_stencil(n, n, n, device=dev,
+                                      policy=DTypePolicy.from_names("f64"))
+        x = torch.rand(A.nc, dtype=torch.float64, device=dev)
+        check(bits_equal(crs_spmv(A.val, A.col, A.row_ptr.long(), x),
+                         A.spmv(x)),
+              f"K14's wide form differs from its narrow form at {n}^3 f64")
+        del A, x
         A, _ = CRSMatrix.from_stencil(n, n, n, device=dev,
                                       policy=DTypePolicy.from_names("f32"))
         x = torch.rand(A.nc, dtype=torch.float32, device=dev)
         csr = torch.sparse_csr_tensor(A.row_ptr, A.col, A.val,
                                       size=(A.nr, A.nc))
         lib_err = float((csr @ x - A.spmv(x)).abs().max())
+        wide_ptr = A.row_ptr.long()
+        check(bits_equal(crs_spmv(A.val, A.col, wide_ptr, x), A.spmv(x)),
+              f"K14's wide form differs from its narrow form at {n}^3 f32")
         calls = {"plain": lambda: crs_spmv_torch(A.val, A.col, A.row_ptr, x),
-                 "kernel": lambda: A.spmv(x), "library": lambda: csr @ x}
+                 "kernel": lambda: A.spmv(x),
+                 "wide": lambda: crs_spmv(A.val, A.col, wide_ptr, x),
+                 "library": lambda: csr @ x}
         ms = {k: [] for k in calls}
-        for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        for k in ("plain", "kernel", "wide", "library", "library", "wide",
+                  "kernel", "plain"):
             ms[k].append(time_graph(calls[k]))
         best = {k: min(v) for k, v in ms.items()}
         nbytes = A.nnz * 8 + (A.nr + 1) * 4 + 2 * A.nr * 4
         b_ms, b_by = bound(nbytes, 2 * A.nnz)
         out[n] = dict(ms=best["kernel"], plain_ms=best["plain"],
                       bound_ms=b_ms, bound_by=b_by,
-                      library_ms=best["library"])
+                      library_ms=best["library"], wide_ms=best["wide"])
         print(f"[5i K14] {n}^3 f32 SpMV (in turns, graph replay): K14 "
-              f"{ms['kernel']} ms, plain {ms['plain']} ms, cuSPARSE CSR "
+              f"{ms['kernel']} ms, its wide form {ms['wide']} ms (equal bit "
+              f"for bit in f32 and f64; {best['wide'] / best['kernel']:.4f} "
+              f"x), plain {ms['plain']} ms, cuSPARSE CSR "
               f"{ms['library']} ms (max|csr - K14| {lib_err:.3e}); bound "
               f"{b_ms:.6f} ms ({b_by}, {nbytes} B): K14 at "
               f"{b_ms / best['kernel']:.3f} of it, cuSPARSE at "
               f"{b_ms / best['library']:.3f} | {gpu}")
-        del A, x, csr
+        del A, x, csr, wide_ptr
+        torch.cuda.empty_cache()
+    out["wide"] = {}
+    hpcg = hpcg_reference()
+    n = 440
+    for dt in ("f32", "f64"):
+        policy = DTypePolicy.from_names(dt)
+        t = time.perf_counter()
+        A, counts = CRSMatrix.from_stencil(n, n, n, device=dev, policy=policy)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        check(A.row_ptr.dtype == torch.int64 and A.col.dtype == torch.int32,
+              f"CRS {n}^3 {dt}: row pointers {A.row_ptr.dtype}, columns "
+              f"{A.col.dtype}")
+        # the first row whose entries reach past 2^31 - 1
+        past = int(torch.searchsorted(A.row_ptr, 2**31 - 1, right=True)) - 1
+        check(0 < past < A.nr - 1, f"CRS {n}^3: no row past 2^31 - 1 entries")
+        x = torch.rand(A.nc, dtype=policy.value, device=dev)
+        before = crs_spmv.launches
+        y = A.spmv(x)
+        check(crs_spmv.launches == before + 1, "the wide form did not launch")
+        # every row within the bound of its sum, 2 len_i u (|A| |x|)_i, of
+        # the f64 product (x >= 0, so |A| |x| is the stencil of |values|)
+        cfg = {"nx": n, "ny": n, "nz": n, "stencil_points": 27,
+               "diagonal": 27.0, "off_diagonal": -1.0}
+        y_ref = hpcg.apply(x.double(), cfg)
+        absy = hpcg.apply(x.double(), dict(cfg, off_diagonal=1.0))
+        lens = torch.from_numpy(counts).to(dev, torch.float64)
+        gap = (y.double() - y_ref).abs() / (2 * lens * UNIT_ROUNDOFF[dt] * absy)
+        worst, worst_past = float(gap.max()), float(gap[past:].max())
+        check(worst <= 1.0, f"K14's wide form {n}^3 {dt}: gap {worst} over "
+              "its bound")
+        del y, y_ref, absy, lens, gap
+        # each replayed call holds its own y (681 MB in f64) in the graph
+        ms = [time_graph(lambda: A.spmv(x), reps=5) for _ in range(2)]
+        vb = policy.value.itemsize
+        nbytes = A.nnz * (vb + 4) + (A.nr + 1) * 8 + 2 * A.nr * vb
+        b_ms, b_by = bound(nbytes, 2 * A.nnz)
+        out["wide"][f"{n}^3 {dt}"] = (min(ms), b_ms)
+        print(f"[5i K14] {n}^3 {dt} SpMV, the wide form ({A.nnz} entries, "
+              f"built in {build_s:.2f} s; rows {past}.. reach past 2^31 - 1): "
+              f"every row against the reference's f64 product, largest gap "
+              f"{worst:.3f} of the bound 2 len u |A||x| ({worst_past:.3f} past "
+              f"2^31 - 1); graph replay {ms} ms; bound {b_ms:.6f} ms ({b_by}, "
+              f"{nbytes} B): at {b_ms / min(ms):.3f} of it | {gpu}")
+        del A, x
         torch.cuda.empty_cache()
     return out
 
@@ -3928,7 +4012,8 @@ def main(argv=None) -> int:
         # no Pallas counterpart: XLA's gather and segment sum
         dict(row("crs_spmv", "crs_spmv.cu",
                  "sparsebench_tpu/formats/crs.py:70", launches_i, err_i,
-                 times_i[100], times_i[200]), max_gap_over_bound=gap_i),
+                 times_i[100], times_i[200]), max_gap_over_bound=gap_i,
+             wide_ms_bound_ms=times_i["wide"]),
         # no Pallas counterpart: XLA fuses the JAX package's bodies; the
         # k = 1 run (cg_run's body, sparsebench_tpu/solvers/cg.py:157)
         # beside the blocked one

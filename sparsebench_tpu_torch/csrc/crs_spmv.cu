@@ -34,9 +34,17 @@
 // fewer registers, so more warps keep loads in flight.
 //
 // Instances: f32 values, x and y (6 KB of shared memory for the products)
-// and f64 (12 KB), int32 columns and row pointers. The entry points
-// launch on the stream they are given, do not synchronise, allocate nothing,
-// and return cudaGetLastError().
+// and f64 (12 KB), int32 columns; crs_spmv_kernel takes int32 row pointers
+// and at most 2^31 - 1 - kChunk entries (its last chunk's start steps by
+// kChunk past the last entry and must stay an int; ops/crs_spmv.py
+// NARROW_ENTRIES), crs_spmv_wide_kernel int64 ones, for larger matrices
+// (the 27-point stencil from 431^3 on). Both run one body,
+// crs_rows, templated on the row pointers' type: the wide form holds the
+// staged pointers, the chunk bounds and every entry offset in 64 bits,
+// while rows and columns stay int. The two forms add the same products in
+// the same order, so where both apply their results are equal bit for bit.
+// The entry points launch on the stream they are given, do not synchronise,
+// allocate nothing, and return cudaGetLastError().
 
 #include "common.cuh"
 
@@ -50,29 +58,32 @@ using sb::mul_rn;
 // blocks of 128 and 512 threads, were timed at 100^3 and 200^3)
 constexpr int kChunk = 1536;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-crs_spmv_kernel(const T* __restrict__ val, const int* __restrict__ col,
-                const int* __restrict__ row_ptr, const T* __restrict__ x,
-                T* __restrict__ y, int n) {
+// the rows of block blockIdx.x; Ptr is the row pointers' type, and with it
+// every entry offset's
+template <typename T, typename Ptr>
+__device__ __forceinline__ void crs_rows(const T* __restrict__ val,
+                                         const int* __restrict__ col,
+                                         const Ptr* __restrict__ row_ptr,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y, int n) {
   constexpr int kPer = kChunk / kThreads;
   static_assert(kChunk % kThreads == 0, "a chunk is whole loads a thread");
   __shared__ T s_prod[kChunk];
-  __shared__ int s_ptr[kThreads + 1];
+  __shared__ Ptr s_ptr[kThreads + 1];
 
   const int t = threadIdx.x;
   const int r0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - r0);
   for (int i = t; i <= rows; i += kThreads) s_ptr[i] = row_ptr[r0 + i];
   __syncthreads();
-  const int b0 = s_ptr[0];
-  const int b1 = s_ptr[rows];
-  const int mine0 = t < rows ? s_ptr[t] : b1;
-  const int mine1 = t < rows ? s_ptr[t + 1] : b1;
+  const Ptr b0 = s_ptr[0];
+  const Ptr b1 = s_ptr[rows];
+  const Ptr mine0 = t < rows ? s_ptr[t] : b1;
+  const Ptr mine1 = t < rows ? s_ptr[t + 1] : b1;
 
   T acc = T(0);
-  for (int c0 = b0; c0 < b1; c0 += kChunk) {
-    const int len = min(kChunk, b1 - c0);
+  for (Ptr c0 = b0; c0 < b1; c0 += kChunk) {
+    const int len = static_cast<int>(min(static_cast<Ptr>(kChunk), b1 - c0));
     T v[kPer];
     int c[kPer];
 #pragma unroll
@@ -89,23 +100,43 @@ crs_spmv_kernel(const T* __restrict__ val, const int* __restrict__ col,
       if (j < len) s_prod[j] = mul_rn(v[k], x[c[k]]);
     }
     __syncthreads();
-    const int e = min(mine1, c0 + len) - c0;
-    for (int j = max(mine0, c0) - c0; j < e; ++j) acc = add_rn(acc, s_prod[j]);
+    // within the chunk: offsets below kChunk, or past it where the thread's
+    // row starts in a later chunk (the loop then runs no step)
+    const int e = static_cast<int>(min(mine1, c0 + len) - c0);
+    for (int j = static_cast<int>(max(mine0, c0) - c0); j < e; ++j)
+      acc = add_rn(acc, s_prod[j]);
     __syncthreads();  // the next chunk overwrites the staged one
   }
   if (t < rows) y[r0 + t] = acc;
 }
 
 template <typename T>
-int launch(const void* val, const void* col, const void* row_ptr,
+__global__ void __launch_bounds__(kThreads)
+crs_spmv_kernel(const T* __restrict__ val, const int* __restrict__ col,
+                const int* __restrict__ row_ptr, const T* __restrict__ x,
+                T* __restrict__ y, int n) {
+  crs_rows<T, int>(val, col, row_ptr, x, y, n);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+crs_spmv_wide_kernel(const T* __restrict__ val, const int* __restrict__ col,
+                     const long long* __restrict__ row_ptr,
+                     const T* __restrict__ x, T* __restrict__ y, int n) {
+  crs_rows<T, long long>(val, col, row_ptr, x, y, n);
+}
+
+template <typename T, typename Ptr>
+int launch(void (*kernel)(const T*, const int*, const Ptr*, const T*, T*, int),
+           const void* val, const void* col, const void* row_ptr,
            const void* x, void* y, long long n, void* stream) {
   if (n <= 0 || n > 0x7fffffffLL - kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  crs_spmv_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(val), static_cast<const int*>(col),
-      static_cast<const int*>(row_ptr), static_cast<const T*>(x),
+      static_cast<const Ptr*>(row_ptr), static_cast<const T*>(x),
       static_cast<T*>(y), static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
@@ -116,12 +147,26 @@ extern "C" {
 
 int sb_crs_spmv_f32(const void* val, const void* col, const void* row_ptr,
                     const void* x, void* y, long long n, void* stream) {
-  return launch<float>(val, col, row_ptr, x, y, n, stream);
+  return launch(crs_spmv_kernel<float>, val, col, row_ptr, x, y, n, stream);
 }
 
 int sb_crs_spmv_f64(const void* val, const void* col, const void* row_ptr,
                     const void* x, void* y, long long n, void* stream) {
-  return launch<double>(val, col, row_ptr, x, y, n, stream);
+  return launch(crs_spmv_kernel<double>, val, col, row_ptr, x, y, n, stream);
+}
+
+int sb_crs_spmv_wide_f32(const void* val, const void* col,
+                         const void* row_ptr, const void* x, void* y,
+                         long long n, void* stream) {
+  return launch(crs_spmv_wide_kernel<float>, val, col, row_ptr, x, y, n,
+                stream);
+}
+
+int sb_crs_spmv_wide_f64(const void* val, const void* col,
+                         const void* row_ptr, const void* x, void* y,
+                         long long n, void* stream) {
+  return launch(crs_spmv_wide_kernel<double>, val, col, row_ptr, x, y, n,
+                stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@ src/matrix-CCRS.c; counterpart of sparsebench_tpu/formats/crs.py).
 The reference runs a row loop with a scalar dot per row
 (src/matrix-CRS.c:46-64). Here the SpMV keeps its semantics (no row
 reordering, exact nnz storage): on a card, for f32 or f64 values under
-vectors of the same dtype and int32 indices, the CUDA kernel K14
+vectors of the same dtype and int32 columns, the CUDA kernel K14
 (``ops/crs_spmv.py``, ``csrc/crs_spmv.cu``), which sums each row in
 column order; elsewhere, and always on the CPU, two torch calls, a gather
 of x by column and a segment sum of the products over the rows' runs
@@ -19,12 +19,20 @@ CCRS convertMatrix is a no-op, src/matrix-CCRS.c:12).
 without the host CSR: row pointers from the per-axis neighbour counts,
 then columns and values in row chunks, each row's columns ascending as
 the reference's generateMatrix writes them (src/matrix.c:30-121); it
-equals ``from_csr(generate_stencil(...))`` element for element.
+equals ``from_csr(generate_stencil(...))`` element for element. Columns
+take the policy's index dtype, which must hold the largest column (else
+``ValueError``); row pointers take it too unless the matrix has more than
+``NARROW_ENTRIES`` entries, as the 27-point stencil has from 431^3 on: then
+they are int64, and K14 runs its wide form. The reference's default build
+keeps both in its 32-bit unsigned ``UINT_TYPE`` up to 2^32 - 1 entries;
+int32 row pointers here stop at ``NARROW_ENTRIES`` = 2^31 - 1 - 1536, the
+most entries of K14's narrow form (``ops/crs_spmv.py``).
 
 While the program's recorder records (``profiler.py``), ``spmv`` is a span
-``crs.spmv`` (``kernel`` K14 or torch, ``nnz``) and ``from_stencil`` a span
-``crs.build`` holding ``crs.build.row_ptr`` (the counts, their prefix sum
-and the copy of the chunk bounds to the host) and ``crs.build.cols``.
+``crs.spmv`` (``kernel`` K14 or torch, ``nnz``, ``row_ptr`` i32 or i64) and
+``from_stencil`` a span ``crs.build`` (``n``, ``points``, ``row_ptr``,
+``nnz``) holding ``crs.build.row_ptr`` (the counts, their prefix sum and
+the copy of the chunk bounds to the host) and ``crs.build.cols``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from sparsebench_tpu_torch.formats.dia import resolve_impl
 from sparsebench_tpu_torch.formats.registry import register_format
 from sparsebench_tpu_torch.host import OFFSETS_27, HostCSR
 from sparsebench_tpu_torch.ops.crs_spmv import (
+    NARROW_ENTRIES,
     crs_spmv,
     crs_spmv_torch,
     kernel_applies,
@@ -49,6 +58,8 @@ from sparsebench_tpu_torch.ops.crs_spmv import (
 
 # rows a chunk of from_stencil: its (rows, 27) int64 columns take 56 MB
 BUILD_ROWS = 1 << 18
+# a row pointers' dtype -> its name in spans
+PTR_NAMES = {torch.int32: "i32", torch.int64: "i64"}
 
 
 def _axis_counts(i: torch.Tensor, extent: int) -> torch.Tensor:
@@ -112,10 +123,12 @@ class CRSMatrix:
         inside the grid, columns global. Returns ``(matrix, row_counts)``,
         as ``DiaMatrix.from_stencil`` does."""
         with profiler.span("crs.build", n=nx * ny * nz,
-                           points=7 if use_7pt else 27):
-            return cls._from_stencil(nx, ny, nz, torch.device(device), rank,
-                                     size, use_7pt, default_policy(policy),
-                                     impl)
+                           points=7 if use_7pt else 27) as s:
+            A, counts = cls._from_stencil(nx, ny, nz, torch.device(device),
+                                          rank, size, use_7pt,
+                                          default_policy(policy), impl)
+            s.set(row_ptr=PTR_NAMES[A.row_ptr.dtype], nnz=A.nnz)
+            return A, counts
 
     @classmethod
     def _from_stencil(cls, nx, ny, nz, device, rank, size, use_7pt, policy,
@@ -127,6 +140,9 @@ class CRSMatrix:
         plane = nx * ny
         shifts = [s for s in OFFSETS_27
                   if not use_7pt or s[0] ** 2 + s[1] ** 2 + s[2] ** 2 <= 1]
+        if total_nr - 1 > torch.iinfo(policy.index).max:
+            raise ValueError(f"crs: {total_nr} columns do not fit "
+                             f"{policy.index} indices")
         i64 = dict(dtype=torch.int64, device=device)
         with profiler.span("crs.build.row_ptr"):
             local = torch.arange(nr, **i64)
@@ -140,10 +156,9 @@ class CRSMatrix:
             torch.cumsum(counts, 0, out=ptr[1:])
             bounds = ptr[::BUILD_ROWS].tolist() + [int(ptr[-1])]
             nnz = bounds[-1]
-            if nnz > torch.iinfo(policy.index).max:
-                raise ValueError(
-                    f"crs: {nnz} entries do not fit {policy.index} indices")
-            row_ptr = ptr.to(policy.index)
+            # NARROW_ENTRIES: the most entries of K14's narrow form
+            row_ptr = ptr.to(policy.index if nnz <= NARROW_ENTRIES
+                             else torch.int64)
             del ptr
         with profiler.span("crs.build.cols"):
             offs = torch.tensor([sz * plane + sy * nx + sx
@@ -178,7 +193,8 @@ class CRSMatrix:
         values' dtype."""
         if profiler.recording():
             with profiler.span("crs.spmv", kernel="K14" if self._k14(x)
-                               else "torch", nnz=self.nnz):
+                               else "torch", nnz=self.nnz,
+                               row_ptr=PTR_NAMES[self.row_ptr.dtype]):
                 return self._spmv(x)
         return self._spmv(x)
 

@@ -11,19 +11,25 @@ bounds it. A matrix is ``val`` (nnz,), ``col`` (nnz,) and ``row_ptr``
   the values' dtype), the products, and a segment sum over the row pointers
   (``segment_reduce``). Its result has the values' dtype.
 * ``crs_spmv(val, col, row_ptr, x)`` — K14 where ``kernel_applies``: CUDA
-  tensors on one device, values and x both f32 or both f64, int32 columns
-  and row pointers. Every other combination on a card (bf16 values or
-  vectors, values of another dtype than x, int64 indices) and every CPU
-  tensor takes the plain version, as before K14; that choice is made from
-  the dtypes and devices alone, never from the operands' layout or a
-  failed launch. Where K14 applies, a strided 1-D x is launched on a
-  contiguous copy, and operands of another shape or non-contiguous
-  ``val``, ``col`` or ``row_ptr`` raise ``ValueError``.
+  tensors on one device, values and x both f32 or both f64, int32 columns,
+  and int32 row pointers with at most ``NARROW_ENTRIES`` entries (K14's
+  narrow form) or int64 ones (its wide form, for larger matrices,
+  ``formats/crs.py``). Every other combination on a card (bf16 values or
+  vectors, values of another dtype than x, int64 columns, int32 row
+  pointers over more entries) and every CPU tensor takes the plain
+  version, as before K14; that choice is made from the dtypes, the entry
+  count and the devices alone, never from the operands' layout or a
+  failed launch. Where K14
+  applies, a strided 1-D x is launched on a contiguous copy, and operands
+  of another shape or non-contiguous ``val``, ``col`` or ``row_ptr`` raise
+  ``ValueError``.
   K14 sums each row in stored order, the plain version in torch's order,
-  so the two agree to the rounding bound of a row's sum.
+  so the two agree to the rounding bound of a row's sum; the two forms of
+  K14 sum in the same order, so they agree bit for bit.
 
-``crs_spmv.launches`` counts K14's launches; while the program's recorder
-records, each launch also counts ``crs_spmv.launches`` there.
+``crs_spmv.launches`` counts K14's launches, of either form; while the
+program's recorder records, each launch also counts ``crs_spmv.launches``
+there, and a launch of the wide form ``crs_spmv.wide`` besides.
 """
 
 from __future__ import annotations
@@ -37,10 +43,17 @@ from sparsebench_tpu_torch import profiler
 from sparsebench_tpu_torch.ops import _build
 from sparsebench_tpu_torch.profiler import Kernel
 
-# values and x dtype -> C entry point in csrc/crs_spmv.cu
+# the most entries of K14's narrow form: its chunk loop steps an int chunk
+# start by kChunk = 1536 entries (csrc/crs_spmv.cu) past the last entry
+NARROW_ENTRIES = 2**31 - 1 - 1536
+# (values and x dtype, row pointers dtype) -> C entry point in
+# csrc/crs_spmv.cu: the narrow form with int32 row pointers, the wide one
+# with int64
 _ENTRY = {
-    torch.float32: "sb_crs_spmv_f32",
-    torch.float64: "sb_crs_spmv_f64",
+    (torch.float32, torch.int32): "sb_crs_spmv_f32",
+    (torch.float64, torch.int32): "sb_crs_spmv_f64",
+    (torch.float32, torch.int64): "sb_crs_spmv_wide_f32",
+    (torch.float64, torch.int64): "sb_crs_spmv_wide_f64",
 }
 
 
@@ -61,8 +74,9 @@ def kernel_applies(val: torch.Tensor, col: torch.Tensor,
     docstring)."""
     return (val.device.type == "cuda" and x.device == val.device
             and col.device == val.device and row_ptr.device == val.device
-            and val.dtype in _ENTRY and x.dtype == val.dtype
-            and col.dtype == torch.int32 and row_ptr.dtype == torch.int32)
+            and (val.dtype, row_ptr.dtype) in _ENTRY and x.dtype == val.dtype
+            and col.dtype == torch.int32
+            and (row_ptr.dtype == torch.int64 or val.numel() <= NARROW_ENTRIES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,16 +110,19 @@ def crs_spmv(val: torch.Tensor, col: torch.Tensor, row_ptr: torch.Tensor,
     lib = _library()
     y = torch.empty(nr, dtype=val.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, _ENTRY[val.dtype])(
+        err = getattr(lib, _ENTRY[val.dtype, row_ptr.dtype])(
             val.data_ptr(), col.data_ptr(), row_ptr.data_ptr(), x.data_ptr(),
             y.data_ptr(), nr, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "crs_spmv")
     crs_spmv.launches += 1
     profiler.count("crs_spmv.launches")
+    if row_ptr.dtype == torch.int64:
+        profiler.count("crs_spmv.wide")
     return y
 
 
 crs_spmv.launches = 0
 
 # the registry's entry (profiler.kernels)
-KERNELS = (Kernel("K14", ("crs_spmv_kernel",), "SpMV kernels", (crs_spmv,)),)
+KERNELS = (Kernel("K14", ("crs_spmv_kernel", "crs_spmv_wide_kernel"),
+                  "SpMV kernels", (crs_spmv,)),)

@@ -18,6 +18,7 @@ held to the reference's history to the ROADMAP parity floor (f32: rtol
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +32,7 @@ from sparsebench_tpu_torch.formats import from_csr, get_format
 from sparsebench_tpu_torch.formats.crs import CCRSMatrix, CRSMatrix
 from sparsebench_tpu_torch.host import HostCSR, generate_stencil, read_mm
 from sparsebench_tpu_torch.ops import cg_multi_body
+from sparsebench_tpu_torch.ops import crs_spmv as crs_ops
 from sparsebench_tpu_torch.ops.crs_spmv import (
     crs_spmv,
     crs_spmv_torch,
@@ -131,11 +133,69 @@ def test_ccrs_inherits_the_build():
     assert torch.equal(A.col, B.col) and torch.equal(A.val, B.val)
 
 
-def test_from_stencil_refuses_indices_that_do_not_fit(monkeypatch):
-    monkeypatch.setattr(torch, "iinfo", lambda dt: type("I", (), {"max": 10}))
-    with pytest.raises(ValueError, match="do not fit"):
-        CRSMatrix.from_stencil(3, 3, 3, device=CPU)
+@pytest.mark.parametrize("past", ["entries", "columns"])
+def test_from_stencil_refuses_indices_that_do_not_fit(past, monkeypatch):
+    """More entries than int32 row pointers address widen the row
+    pointers to int64 and keep int32 columns, the narrow build's matrix;
+    more columns than the index dtype holds still raise."""
+    narrow, _ = CRSMatrix.from_stencil(3, 3, 3, device=CPU)
+    if past == "columns":
+        monkeypatch.setattr(torch, "iinfo",
+                            lambda dt: type("I", (), {"max": 10}))
+        with pytest.raises(ValueError, match="27 columns do not fit"):
+            CRSMatrix.from_stencil(3, 3, 3, device=CPU)
+        return
+    monkeypatch.setattr(crs_mod, "NARROW_ENTRIES", narrow.nnz - 1)
+    wide, counts = CRSMatrix.from_stencil(3, 3, 3, device=CPU)
+    assert narrow.row_ptr.dtype == torch.int32
+    assert wide.row_ptr.dtype == torch.int64
+    assert wide.col.dtype == torch.int32 and wide.nnz == narrow.nnz == 343
+    assert torch.equal(wide.row_ptr, narrow.row_ptr.long())
+    assert torch.equal(wide.col, narrow.col)
+    assert torch.equal(wide.val, narrow.val)
+    np.testing.assert_array_equal(counts, generate_stencil(3, 3, 3)
+                                  .row_lengths)
+    x = torch.rand(wide.nc, dtype=torch.float64)
+    assert torch.equal(wide.spmv(x), narrow.spmv(x))
 
+
+
+@pytest.mark.parametrize("above", [0, 1])
+def test_the_threshold_picks_the_row_pointers(above, monkeypatch):
+    """A matrix of exactly ``NARROW_ENTRIES`` entries keeps int32 row
+    pointers; one entry more widens them."""
+    narrow, _ = CRSMatrix.from_stencil(4, 3, 3, device=CPU)
+    monkeypatch.setattr(crs_mod, "NARROW_ENTRIES", narrow.nnz - above)
+    A, _ = CRSMatrix.from_stencil(4, 3, 3, device=CPU)
+    assert A.row_ptr.dtype == (torch.int64 if above else torch.int32)
+    assert A.col.dtype == torch.int32
+    assert torch.equal(A.row_ptr.long(), narrow.row_ptr.long())
+
+
+def test_the_threshold_keeps_the_narrow_chunk_start_an_int():
+    """K14's narrow form steps an int chunk start by kChunk past the last
+    entry, so it takes at most 2^31 - 1 - kChunk entries: the build's
+    threshold is that limit, and ``kernel_applies`` sends int32 row
+    pointers over more entries to the plain version."""
+    src = (ROOT / "sparsebench_tpu_torch" / "csrc" / "crs_spmv.cu").read_text()
+    chunk = int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    assert crs_mod.NARROW_ENTRIES == crs_ops.NARROW_ENTRIES == 2**31 - 1 - chunk
+
+    class Operand:
+        def __init__(self, dtype, n=1):
+            self.device, self.dtype, self.n = torch.device("cuda", 0), dtype, n
+
+        def numel(self):
+            return self.n
+
+    x, col = Operand(torch.float32), Operand(torch.int32)
+    for ptr, entries, applies in ((torch.int32, crs_ops.NARROW_ENTRIES, True),
+                                  (torch.int32, crs_ops.NARROW_ENTRIES + 1,
+                                   False),
+                                  (torch.int64, crs_ops.NARROW_ENTRIES + 1,
+                                   True)):
+        val = Operand(torch.float32, entries)
+        assert kernel_applies(val, col, Operand(ptr), x) is applies
 
 # -- the SpMV and CG on the CPU ---------------------------------------------
 
@@ -214,11 +274,12 @@ def test_build_and_spmv_spans(recorder):
     assert names == ["crs.build", "crs.build.row_ptr", "crs.build.cols",
                      "crs.spmv"]
     build, ptr, cols, spmv = spans
-    assert build.attrs == {"n": 120, "points": 7}
+    assert build.attrs == {"n": 120, "points": 7, "row_ptr": "i32",
+                           "nnz": A.nnz}
     assert ptr.parent == cols.parent == 0 and build.parent is None
     assert build.start_ns <= ptr.start_ns <= ptr.end_ns <= cols.start_ns
     assert cols.end_ns <= build.end_ns
-    assert spmv.attrs == {"kernel": "torch", "nnz": A.nnz}
+    assert spmv.attrs == {"kernel": "torch", "nnz": A.nnz, "row_ptr": "i32"}
     assert spmv.parent is None and spmv.request != build.request
     # the recorder off: no span
     A.spmv(torch.ones(A.nc, dtype=torch.float64))
@@ -227,12 +288,16 @@ def test_build_and_spmv_spans(recorder):
 
 def test_k14_in_the_registry():
     k14 = profiler.kernels()["K14"]
-    assert k14.names == ("crs_spmv_kernel",)
+    assert k14.names == ("crs_spmv_kernel", "crs_spmv_wide_kernel")
     assert k14.layer == "SpMV kernels"
     assert k14.wrappers == (crs_spmv,)
     event = ("void (anonymous namespace)::crs_spmv_kernel<float>(float "
              "const*, int const*, int const*, float const*, float*, int)")
     assert [k.id for k in profiler.kernels_named(event)] == ["K14"]
+    wide = ("void (anonymous namespace)::crs_spmv_wide_kernel<double>("
+            "double const*, int const*, long long const*, double const*, "
+            "double*, int)")
+    assert [k.id for k in profiler.kernels_named(wide)] == ["K14"]
 
 
 # -- the CLI --------------------------------------------------------------------
@@ -434,8 +499,8 @@ def test_card_build_equals_the_host_build(cuda_device):
     try:
         A.spmv(torch.ones(A.nc, device=cuda_device))
         s = profiler.spans()[-1]
-        assert s.name == "crs.spmv" and s.attrs == {"kernel": "K14",
-                                                    "nnz": A.nnz}
+        assert s.name == "crs.spmv" and s.attrs == {
+            "kernel": "K14", "nnz": A.nnz, "row_ptr": "i32"}
         assert profiler.counts()["crs_spmv.launches"] == 1
     finally:
         profiler.set_mode("auto")
@@ -482,3 +547,64 @@ def test_a_body_launches_k14_and_the_three_kernels(cuda_device):
         bodies = itermax - 1
         ran = [w.launches - n for w, n in zip(wrappers, before)]
         assert ran == [bodies + 1, 1, bodies, bodies, bodies]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n", [100, 200])
+def test_wide_form_equals_the_narrow_form(n, dt, cuda_device):
+    """The same matrix with its row pointers widened to int64 launches
+    K14's wide form, which sums each row in the narrow form's order: the
+    two results are equal bit for bit, and only the wide launch counts
+    ``crs_spmv.wide``."""
+    policy = DTypePolicy.from_names(dt)
+    A, _ = CRSMatrix.from_stencil(n, n, n, device=cuda_device, policy=policy)
+    assert A.row_ptr.dtype == torch.int32
+    wide_ptr = A.row_ptr.long()
+    x = torch.rand(A.nc, generator=torch.Generator().manual_seed(n),
+                   dtype=policy.value).to(cuda_device)
+    profiler.RECORDER.clear()
+    profiler.set_mode("on")
+    try:
+        before = crs_spmv.launches
+        narrow = crs_spmv(A.val, A.col, A.row_ptr, x)
+        assert profiler.counts().get("crs_spmv.wide") is None
+        assert kernel_applies(A.val, A.col, wide_ptr, x)
+        wide = crs_spmv(A.val, A.col, wide_ptr, x)
+        torch.cuda.synchronize()
+        assert crs_spmv.launches - before == 2
+        assert profiler.counts()["crs_spmv.wide"] == 1
+        assert profiler.counts()["crs_spmv.launches"] == 2
+    finally:
+        profiler.set_mode("auto")
+        profiler.RECORDER.clear()
+    assert wide.dtype == narrow.dtype == policy.value
+    assert torch.equal(wide, narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_k14_wide_at_440_cubed_past_2_31_entries(dt, cuda_device):
+    """The stencil at 440^3: 2,289,529,432 entries, so int64 row pointers
+    and int32 columns, and one launch of K14's wide form. Every row, those
+    whose entries lie past 2^31 - 1 among them, is within the bound of its
+    sum, 2 len_i u (|A| |x|)_i, of the f64 reference's product."""
+    cfg = grid_cfg((440, 440, 440))
+    policy = DTypePolicy.from_names(dt)
+    A, counts = CRSMatrix.from_stencil(440, 440, 440, device=cuda_device,
+                                       policy=policy)
+    assert A.nnz == 1318 ** 3 == 2_289_529_432
+    assert A.row_ptr.dtype == torch.int64 and A.col.dtype == torch.int32
+    x = torch.rand(A.nc, generator=torch.Generator(cuda_device)
+                   .manual_seed(440), dtype=policy.value, device=cuda_device)
+    y, launched = k14_calls(A, x)
+    assert launched == 1
+    past = int(torch.searchsorted(A.row_ptr, 2**31 - 1, right=True)) - 1
+    assert 0 < past < A.nr - 1
+    del A
+    y_ref = hpcg.apply(x.double(), cfg)
+    absy = hpcg.apply(x.double(), dict(cfg, off_diagonal=1.0))
+    lens = torch.from_numpy(counts).to(cuda_device).double()
+    gap = (y.double() - y_ref).abs() - 2 * lens * UNIT[policy.value] * absy
+    assert float(gap.max()) <= 0.0
+    assert float(gap[past:].max()) <= 0.0
